@@ -1,0 +1,42 @@
+"""tpuslam_torch — stereo line SLAM in PyTorch, with hand-written CUDA kernels.
+
+The PyTorch/CUDA counterpart of the JAX package ``tpuslam``. Modules keep
+the JAX package's layout and names (``geometry/``, ``kernels/``,
+``frontend/``, ``backend/``, ``slammap/``, ``io/``, ``eval/``,
+``system.py``), so each has an obvious counterpart. The three Pallas
+kernels of ``tpuslam`` (blur, gradients, connected-component propagation)
+are CUDA C++ kernels under ``csrc/``, built at first use on a CUDA tensor;
+on a CPU tensor every kernel wrapper runs its plain PyTorch version.
+
+Implemented so far: the synchronous descriptor-stereo tracking path,
+``System(cam, sensor="stereo", mapping=False, loop_closing=False)``.
+"""
+
+__version__ = "0.1.0"
+
+import torch as _torch
+
+# The pose LM loses tracking when its normal equations are formed at reduced
+# precision (the JAX package pins f32 matmuls for the same reason). On the
+# card, float32 convolutions default to TF32 through cuDNN: pin full f32.
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+_torch.set_float32_matmul_precision("highest")
+
+from tpuslam_torch.geometry.camera import Intrinsics  # noqa: E402
+
+
+def __getattr__(name):
+    """Lazy top-level exports (keep ``import tpuslam_torch`` light)."""
+    if name == "System":
+        from tpuslam_torch.system import System
+
+        return System
+    if name == "SlamMap":
+        from tpuslam_torch.slammap.map import SlamMap
+
+        return SlamMap
+    raise AttributeError(name)
+
+
+__all__ = ["Intrinsics", "System", "SlamMap", "__version__"]

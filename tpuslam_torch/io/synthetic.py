@@ -1,0 +1,185 @@
+"""Procedural synthetic wireframe scenes and their rendered frames (numpy).
+
+``make_wireframe_scene`` is a copy of the JAX package's
+(``tpuslam.io.synthetic``), so the same seed gives the same scene, and
+``observe_frame`` its segment projection.
+``render_wireframe_image`` draws with numpy alone: the JAX package draws
+with ``cv2.line``, which the machines that run the port may not have.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+
+from tpuslam_torch.geometry.camera import Intrinsics
+
+
+def _se3_exp_np(xi: np.ndarray) -> np.ndarray:
+    """Numpy SE(3) exponential (rho, phi) -> 4x4."""
+    rho, phi = xi[:3], xi[3:]
+    t = np.linalg.norm(phi)
+    W = np.array([[0, -phi[2], phi[1]], [phi[2], 0, -phi[0]], [-phi[1], phi[0], 0]], np.float64)
+    if t < 1e-8:
+        R = np.eye(3) + W
+        V = np.eye(3) + 0.5 * W
+    else:
+        W2 = W @ W
+        R = np.eye(3) + np.sin(t) / t * W + (1 - np.cos(t)) / t**2 * W2
+        V = np.eye(3) + (1 - np.cos(t)) / t**2 * W + (t - np.sin(t)) / t**3 * W2
+    T = np.eye(4, dtype=np.float32)
+    T[:3, :3] = R
+    T[:3, 3] = V @ rho
+    return T
+
+
+class SyntheticScene(NamedTuple):
+    segments: np.ndarray  # (S, 2, 3) 3D segment endpoints (world)
+    points: np.ndarray  # (Q, 3) 3D points (world)
+    poses: np.ndarray  # (F, 4, 4) ground-truth T_cw per frame
+    cam: Intrinsics
+
+
+def make_wireframe_scene(
+    rng: np.random.Generator,
+    n_segments: int = 120,
+    n_points: int = 200,
+    n_frames: int = 60,
+    cam: Intrinsics | None = None,
+    motion_scale: float = 0.04,
+) -> SyntheticScene:
+    """Box-room wireframe seen from a smooth random-walk trajectory (the JAX
+    package's generator, draw for draw)."""
+    if cam is None:
+        cam = Intrinsics(fx=458.0, fy=457.0, cx=320.0, cy=240.0, width=640, height=480)
+    centers = np.stack(
+        [
+            rng.uniform(-4, 4, n_segments),
+            rng.uniform(-3, 3, n_segments),
+            rng.uniform(4, 12, n_segments),
+        ],
+        axis=-1,
+    )
+    dirs = rng.normal(size=(n_segments, 3))
+    axis_mask = rng.random(n_segments) < 0.6
+    axes = np.eye(3)[rng.integers(0, 3, n_segments)]
+    dirs = np.where(axis_mask[:, None], axes, dirs)
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True) + 1e-12
+    half = rng.uniform(0.4, 1.6, (n_segments, 1))
+    segments = np.stack([centers - dirs * half, centers + dirs * half], axis=1)
+
+    points = np.stack(
+        [
+            rng.uniform(-4, 4, n_points),
+            rng.uniform(-3, 3, n_points),
+            rng.uniform(4, 12, n_points),
+        ],
+        axis=-1,
+    )
+
+    vels = rng.normal(size=(n_frames, 6)) * motion_scale
+    for i in range(1, n_frames):
+        vels[i] = 0.9 * vels[i - 1] + 0.1 * vels[i]
+    vels[:, 3:] *= 0.3  # gentler rotation
+    T = np.eye(4, dtype=np.float32)
+    poses = []
+    for i in range(n_frames):
+        T = (_se3_exp_np(vels[i]) @ T).astype(np.float32)
+        poses.append(T.copy())
+    return SyntheticScene(
+        segments=segments.astype(np.float32),
+        points=points.astype(np.float32),
+        poses=np.stack(poses),
+        cam=cam,
+    )
+
+
+class FrameObservations(NamedTuple):
+    seg_uv: np.ndarray  # (S, 2, 2) projected segment endpoints (px)
+    seg_visible: np.ndarray  # (S,) bool — both endpoints in front & in image
+
+
+def observe_frame(scene: SyntheticScene, frame: int, min_z: float = 0.2, margin: float = 0.0) -> FrameObservations:
+    """Projected segments of one frame (no noise)."""
+    cam = scene.cam
+    T = scene.poses[frame]
+    R, t = T[:3, :3], T[:3, 3]
+
+    def project(X):
+        Xc = X @ R.T + t
+        z = Xc[:, 2]
+        uv = np.stack(
+            [
+                cam.fx * Xc[:, 0] / np.maximum(z, 1e-9) + cam.cx,
+                cam.fy * Xc[:, 1] / np.maximum(z, 1e-9) + cam.cy,
+            ],
+            axis=-1,
+        )
+        return uv, z
+
+    p_uv, p_z = project(scene.segments[:, 0])
+    q_uv, q_z = project(scene.segments[:, 1])
+
+    def in_image(uv):
+        return (uv[:, 0] >= margin) & (uv[:, 0] < cam.width - margin) & (uv[:, 1] >= margin) & (
+            uv[:, 1] < cam.height - margin
+        )
+
+    return FrameObservations(
+        seg_uv=np.stack([p_uv, q_uv], axis=1).astype(np.float32),
+        seg_visible=(p_z > min_z) & (q_z > min_z) & in_image(p_uv) & in_image(q_uv),
+    )
+
+
+def _draw_line_aa(img: np.ndarray, p, q, color: float, thickness: int) -> None:
+    """Anti-aliased thick segment from pixel p to pixel q, in place.
+
+    Each pixel centre within the segment's bounding box takes coverage
+    clip(thickness / 2 + 0.5 - d, 0, 1), d its distance to the segment, and
+    blends towards ``color`` by it (the blend cv2's LINE_AA uses)."""
+    H, W = img.shape
+    reach = thickness / 2.0 + 0.5
+    x0 = max(int(np.floor(min(p[0], q[0]) - reach)), 0)
+    x1 = min(int(np.ceil(max(p[0], q[0]) + reach)), W - 1)
+    y0 = max(int(np.floor(min(p[1], q[1]) - reach)), 0)
+    y1 = min(int(np.ceil(max(p[1], q[1]) + reach)), H - 1)
+    if x0 > x1 or y0 > y1:
+        return
+    xs = np.arange(x0, x1 + 1, dtype=np.float32)[None, :]
+    ys = np.arange(y0, y1 + 1, dtype=np.float32)[:, None]
+    px, py = float(p[0]), float(p[1])
+    dx, dy = float(q[0]) - px, float(q[1]) - py
+    len2 = dx * dx + dy * dy
+    if len2 > 0:
+        s = np.clip(((xs - px) * dx + (ys - py) * dy) / len2, 0.0, 1.0)
+    else:
+        s = np.zeros((1, 1), np.float32)
+    dist = np.hypot(xs - (px + s * dx), ys - (py + s * dy))
+    cover = np.clip(reach - dist, 0.0, 1.0).astype(np.float32)
+    patch = img[y0 : y1 + 1, x0 : x1 + 1]
+    patch += (np.float32(color) - patch) * cover
+
+
+def render_wireframe_image(
+    scene: SyntheticScene,
+    frame: int,
+    bg: float = 200.0,
+    fg: float = 40.0,
+    thickness: int = 2,
+    noise: float = 2.0,
+    rng: np.random.Generator | None = None,
+) -> np.ndarray:
+    """Grayscale uint8 image of the wireframe: anti-aliased lines of
+    ``thickness`` px between the rounded projected endpoints of every visible
+    segment, plus Gaussian noise of std ``noise`` when ``rng`` is given."""
+    cam = scene.cam
+    obs = observe_frame(scene, frame)
+    img = np.full((cam.height, cam.width), bg, np.float32)
+    for s in np.nonzero(obs.seg_visible)[0]:
+        p = np.round(obs.seg_uv[s, 0]).astype(int)
+        q = np.round(obs.seg_uv[s, 1]).astype(int)
+        _draw_line_aa(img, p, q, fg, thickness)
+    if noise > 0 and rng is not None:
+        img = img + rng.normal(size=img.shape) * noise
+    return np.clip(img, 0, 255).astype(np.uint8)

@@ -1,0 +1,169 @@
+"""Image pyramid and gradient field (torch).
+
+Counterpart of ``tpuslam.kernels.image``. Two of the functions are kernel
+wrappers: :func:`gaussian_blur` and :func:`image_gradients` launch the CUDA
+kernels of ``csrc/image.cu`` on a CUDA tensor and run their plain PyTorch
+versions (:func:`gaussian_blur_torch`, :func:`image_gradients_torch`) on a
+CPU tensor. ``LAUNCHES`` counts the kernel calls made on the card.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from tpuslam_torch.kernels import cuda_lib
+
+# kernel calls made on the card, by kernel (a blur call counts once for its
+# two passes)
+LAUNCHES = {"blur": 0, "gradients": 0}
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root. PyTorch's vectorised CPU sqrt
+    is off by one ulp for some inputs; IEEE sqrt (XLA's, and CUDA's sqrtf)
+    is not, and the detector's thresholds and tie orders read these values.
+    A float64 sqrt rounded to float32 is the correctly rounded result."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
+def _gaussian_kernel1d(sigma: float, radius: int) -> torch.Tensor:
+    """float32 taps, computed as the JAX package computes them."""
+    x = torch.arange(-radius, radius + 1, dtype=torch.float32)
+    k = torch.exp(-0.5 * (x / sigma) ** 2)
+    return k / torch.sum(k)
+
+
+def _blur_taps(sigma: float) -> torch.Tensor:
+    radius = max(1, int(math.ceil(3.0 * sigma)))
+    return _gaussian_kernel1d(sigma, radius)
+
+
+def gaussian_blur_torch(img: torch.Tensor, sigma: float) -> torch.Tensor:
+    """Plain version: separable Gaussian of an (H, W) image, edge padding,
+    rows then columns."""
+    k = _blur_taps(sigma).to(img.device)
+    r = k.numel() // 2
+    x = F.pad(img[None, None], (r, r, r, r), mode="replicate")
+    x = F.conv2d(x, k.view(1, 1, 1, -1))
+    x = F.conv2d(x, k.view(1, 1, -1, 1))
+    return x[0, 0]
+
+
+def _blur_cuda(img: torch.Tensor, sigma: float) -> torch.Tensor:
+    cuda_lib.require_plane(img, torch.float32, "gaussian_blur")
+    taps = np.ascontiguousarray(_blur_taps(sigma).numpy())
+    H, W = img.shape
+    tmp = torch.empty_like(img)
+    out = torch.empty_like(img)
+    lib = cuda_lib.library()
+    code = lib.tpuslam_blur(
+        img.data_ptr(), tmp.data_ptr(), out.data_ptr(), H, W,
+        taps.ctypes.data, taps.size, cuda_lib.stream_of(img),
+    )
+    cuda_lib.check(code, "gaussian_blur")
+    LAUNCHES["blur"] += 1
+    return out
+
+
+def gaussian_blur(img: torch.Tensor, sigma: float) -> torch.Tensor:
+    """Separable Gaussian blur of an (H, W) float32 image, radius ceil(3 sigma),
+    edge padding. Kernel on a CUDA tensor, plain version on a CPU tensor."""
+    if cuda_lib.on_card(img):
+        return _blur_cuda(img, sigma)
+    return gaussian_blur_torch(img, sigma)
+
+
+def image_gradients_torch(img: torch.Tensor):
+    """Plain version: central differences with a zeroed 1-px border.
+
+    Returns (gx, gy, mag, angle), angle = atan2(gx, -gy) the level-line angle.
+    """
+    gx = torch.zeros_like(img)
+    gy = torch.zeros_like(img)
+    gx[:, 1:-1] = (img[:, 2:] - img[:, :-2]) * 0.5
+    gy[1:-1, :] = (img[2:, :] - img[:-2, :]) * 0.5
+    mag = sqrt_rn(gx * gx + gy * gy)
+    border = torch.zeros_like(img)
+    border[1:-1, 1:-1] = 1.0
+    mag = mag * border
+    return gx, gy, mag, torch.atan2(gx, -gy)
+
+
+def _gradients_cuda(img: torch.Tensor):
+    cuda_lib.require_plane(img, torch.float32, "image_gradients")
+    H, W = img.shape
+    gx, gy, mag, angle = (torch.empty_like(img) for _ in range(4))
+    code = cuda_lib.library().tpuslam_gradients(
+        img.data_ptr(), gx.data_ptr(), gy.data_ptr(), mag.data_ptr(), angle.data_ptr(),
+        H, W, cuda_lib.stream_of(img),
+    )
+    cuda_lib.check(code, "image_gradients")
+    LAUNCHES["gradients"] += 1
+    return gx, gy, mag, angle
+
+
+def image_gradients(img: torch.Tensor):
+    """(gx, gy, mag, angle) of an (H, W) float32 image. Kernel on a CUDA
+    tensor, plain version on a CPU tensor."""
+    if cuda_lib.on_card(img):
+        return _gradients_cuda(img)
+    return image_gradients_torch(img)
+
+
+def pyramid_shapes(height: int, width: int, n_levels: int, scale: float = 0.8):
+    """Per-level (H, W) shapes, as the JAX package computes them."""
+    shapes = [(height, width)]
+    for _ in range(1, n_levels):
+        h, w = shapes[-1]
+        shapes.append((max(16, int(round(h * scale))), max(16, int(round(w * scale)))))
+    return shapes
+
+
+def _resize_weights_np(in_size: int, out_size: int) -> np.ndarray:
+    """(in, out) float32 weights of ``jax.image.resize(..., "linear")`` along
+    one axis: the triangle kernel widened by 1/scale when downsampling
+    (antialias=True), each column normalised, samples outside the input
+    zeroed — the same steps as ``jax.image.scale_and_translate``."""
+    f32 = np.float32
+    inv_scale = f32(1.0 / (out_size / in_size))
+    kernel_scale = max(inv_scale, f32(1.0))
+    sample_f = (np.arange(out_size, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
+    x = np.abs(sample_f[None, :] - np.arange(in_size, dtype=f32)[:, None]) / kernel_scale
+    weights = np.maximum(f32(0.0), f32(1.0) - np.abs(x))
+    total = np.sum(weights, axis=0, keepdims=True, dtype=f32)
+    ok = np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps)
+    weights = np.where(ok, weights / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
+    return np.where(inside[None, :], weights, f32(0.0)).astype(f32)
+
+
+@functools.lru_cache(maxsize=16)
+def _resize_weights(in_size: int, out_size: int, device: str) -> torch.Tensor:
+    return torch.from_numpy(_resize_weights_np(in_size, out_size)).to(device)
+
+
+def resize_linear(img: torch.Tensor, shape) -> torch.Tensor:
+    """Antialiased linear resize of an (H, W) image, equal to
+    ``jax.image.resize(img, shape, "linear")`` up to float rounding: two small
+    matmuls with the weight matrices of :func:`_resize_weights_np`."""
+    H, W = img.shape
+    wh = _resize_weights(H, int(shape[0]), str(img.device))
+    ww = _resize_weights(W, int(shape[1]), str(img.device))
+    return wh.T @ img @ ww
+
+
+def build_pyramid(img: torch.Tensor, n_levels: int = 2, scale: float = 0.8, blur_sigma: float = 0.6):
+    """(H, W) float32 image in [0, 1] -> list of per-level images: a Gaussian
+    of sigma = blur_sigma / scale before each x``scale`` resample."""
+    shapes = pyramid_shapes(img.shape[0], img.shape[1], n_levels, scale)
+    levels = [img]
+    cur = img
+    for lvl in range(1, n_levels):
+        cur = resize_linear(gaussian_blur(cur, blur_sigma / scale), shapes[lvl])
+        levels.append(cur)
+    return levels
