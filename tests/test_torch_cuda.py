@@ -131,3 +131,96 @@ def test_slice_on_card_tracks_like_cpu(dev):
     for a, b in zip(*runs):
         assert a.state == b.state and a.made_keyframe == b.made_keyframe
         assert np.linalg.norm(np.linalg.inv(a.T_cw)[:3, 3] - np.linalg.inv(b.T_cw)[:3, 3]) < 0.02
+
+
+VGA = QVGA._replace(fx=458.0, fy=457.0, cx=320.0, cy=240.0, width=640, height=480)
+
+
+def _mapping_system(device, frames, cam=QVGA, tracker_cfg=None):
+    from tpuslam_torch.frontend.frame import FrontendParams
+    from tpuslam_torch.frontend.tracking import TrackerConfig
+    from tpuslam_torch.kernels.lsd import LSDParams
+    from tpuslam_torch.system import System
+
+    cfg = tracker_cfg or TrackerConfig(frontend=FrontendParams(max_lines=128, lsd=LSDParams(ccl_rounds=32)), max_frames_between_kf=3)
+    s = System(cam, sensor="stereo", mapping=True, loop_closing=False, tracker_cfg=cfg, device=device)
+    for f, (il, ir) in enumerate(frames):
+        s.track_stereo(il, ir, 0.05 * f)
+    return s
+
+
+def test_local_ba_on_card_is_deterministic_and_matches_cpu(dev):
+    """A local-BA window of a mapped QVGA run, solved twice on the card: bit
+    for bit the same (the solve's sums are fixed-order matmuls, not atomics);
+    and within float32 LM agreement of the CPU solve."""
+    from tpuslam_torch.backend.lm import run_lm
+    from tpuslam_torch.backend.local_ba import assemble_problem
+
+    _, frames = stereo_scene(8)
+    s = _mapping_system("cpu", frames)
+    cfg = s.mapper.cfg.ba
+    center = max(s.map.keyframes)
+    gprob, _ = assemble_problem(s.map, center, QVGA, cfg, device=dev)
+    a = run_lm(gprob, QVGA, cfg.lm)
+    b = run_lm(gprob, QVGA, cfg.lm)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    cprob, _ = assemble_problem(s.map, center, QVGA, cfg, device="cpu")
+    c = run_lm(cprob, QVGA, cfg.lm)
+    torch.testing.assert_close(a.poses.cpu(), c.poses, rtol=0, atol=1e-3)
+    torch.testing.assert_close(a.cost.cpu(), c.cost, rtol=1e-2, atol=0)
+
+
+def test_mapping_slice_on_card_tracks_like_cpu(dev):
+    """System(mapping=True) over 12 VGA frames (default tracker, a keyframe
+    at least every 4 frames) on the card and on the CPU: every frame OK,
+    keyframe counts within one, a local BA at every keyframe event after the
+    first, ATE within 1 cm of each other and under 2 cm, camera centres
+    within 5 cm. Kernels and plain versions differ in float rounding (and
+    the detector's moment sums use atomics on the card), which the
+    detector's thresholds can turn into slightly different segments; with
+    mapping those reach the keyframe decisions, the landmarks and the BA."""
+    from tpuslam_torch.eval.ate import absolute_trajectory_error
+    from tpuslam_torch.frontend.tracking import TrackerConfig, TrackingState
+
+    scene, frames = stereo_scene(12, cam=VGA)
+    runs = [_mapping_system(d, frames, VGA, TrackerConfig(max_frames_between_kf=4)) for d in ("cpu", dev)]
+    centres = [np.stack([np.linalg.inv(r.T_cw)[:3, 3] for r in s.trajectory]) for s in runs]
+    gt = np.stack([np.linalg.inv(T)[:3, 3] for T in scene.poses])
+    ates = [absolute_trajectory_error(c, gt).rmse for c in centres]
+    assert all(r.state == TrackingState.OK for s in runs for r in s.trajectory)
+    assert max(ates) < 0.02 and abs(ates[0] - ates[1]) < 0.01, ates
+    assert np.linalg.norm(centres[0] - centres[1], axis=1).max() < 0.05
+    n_events = [sum(r.made_keyframe for r in s.trajectory) for s in runs]
+    assert abs(n_events[0] - n_events[1]) <= 1
+    assert [sum(map(len, s.mapper.solve_ms_by_rung.values())) for s in runs] == [n - 1 for n in n_events]
+
+
+def test_relocalization_pieces_on_card_match_cpu(dev):
+    """The keyframe database's integer scores on the card equal the CPU's,
+    and DLT-Lines (eigh, det, SVD through cuSOLVER) recovers the same pose."""
+    from tpuslam_torch.backend.dlt import dlt_lines_pose, image_line_coeffs
+    from tpuslam_torch.backend.loop_closing import KeyFrameDatabase
+    from tpuslam_torch.geometry.se3 import se3_exp
+
+    rs = np.random.RandomState(0)
+    base = rs.randint(0, 2**32, size=(256, 8), dtype=np.uint64).astype(np.uint32)
+    dbs = [KeyFrameDatabase(device=d) for d in ("cpu", dev)]
+    for kid in range(12):
+        flip = rs.rand(256, 8, 32) < rs.uniform(0.02, 0.4)
+        bits = base ^ np.packbits(flip, axis=-1, bitorder="little").view(np.uint32)[..., 0]
+        kf = type("KF", (), dict(kid=kid, features=type("F", (), dict(desc_bits=bits, valid=(rs.rand(256) < 0.9).astype(np.float32)))()))()
+        for db in dbs:
+            db.add(kf)
+    q = (base, np.ones(256, np.float32))
+    assert dbs[0].query_bits(*q) == dbs[1].query_bits(*q)
+
+    T = se3_exp(torch.from_numpy((rs.randn(6) * [0.5, 0.5, 0.5, 0.2, 0.2, 0.2]).astype(np.float32)))
+    p = rs.randn(40, 3) * 2 + [0, 0, 8.0]
+    Xw = torch.from_numpy(np.stack([p, p + rs.randn(40, 3)], axis=1).astype(np.float32))
+    Xc = Xw @ T[:3, :3].T + T[:3, 3]
+    uv = torch.stack([VGA.fx * Xc[..., 0] / Xc[..., 2] + VGA.cx, VGA.fy * Xc[..., 1] / Xc[..., 2] + VGA.cy], -1)
+    l2d, w = image_line_coeffs(uv), torch.ones(40)
+    (Tc, okc), (Tg, okg) = (dlt_lines_pose(l2d.to(d), Xw.to(d), w.to(d), VGA) for d in ("cpu", dev))
+    assert float(okc) == float(okg) == 1.0
+    torch.testing.assert_close(Tg.cpu(), Tc, rtol=0, atol=1e-3)  # float32 12x12 eigensolve
+    torch.testing.assert_close(Tc, T, rtol=0, atol=5e-3)

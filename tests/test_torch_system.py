@@ -86,8 +86,10 @@ def test_map_and_trajectory_outputs(runs, tmp_path):
 
 
 def test_unported_configurations_raise():
-    with pytest.raises(NotImplementedError, match="mapping"):
-        System(QVGA, sensor="stereo", loop_closing=False)
+    s = System(QVGA, sensor="stereo", loop_closing=False)  # mapping=True is ported
+    assert s.mapper is not None and s.tracker.kf_db is s.kf_db
+    with pytest.raises(NotImplementedError, match="loop_closing"):
+        System(QVGA, sensor="stereo")
     with pytest.raises(NotImplementedError, match="loop_closing"):
         System(QVGA, sensor="stereo", mapping=False)
     with pytest.raises(NotImplementedError, match="mono"):

@@ -8,8 +8,10 @@ kernels of ``tpuslam`` (blur, gradients, connected-component propagation)
 are CUDA C++ kernels under ``csrc/``, built at first use on a CUDA tensor;
 on a CPU tensor every kernel wrapper runs its plain PyTorch version.
 
-Implemented so far: the synchronous descriptor-stereo tracking path,
-``System(cam, sensor="stereo", mapping=False, loop_closing=False)``.
+Implemented so far: stereo line SLAM without loop closing,
+``System(cam, sensor="stereo", mapping=True, loop_closing=False)``:
+synchronous descriptor-stereo tracking with relocalization, and local
+mapping with an LM+Schur local bundle adjustment at every keyframe.
 """
 
 __version__ = "0.1.0"

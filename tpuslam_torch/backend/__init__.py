@@ -1,1 +1,2 @@
-"""Optimization back end: line residuals and the pose-only LM (torch)."""
+"""Optimization back end: residuals, the pose-only LM, the LM+Schur local
+bundle adjustment, local mapping, the keyframe database and DLT-Lines (torch)."""

@@ -7,29 +7,47 @@ can read, and returns this package's types; nothing here imports JAX.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Mapping
 
 import numpy as np
 import torch
 
+from tpuslam_torch.backend.lm import BAProblem
+from tpuslam_torch.backend.mapping import MapperConfig
 from tpuslam_torch.frontend.frame import FrameFeatures
-from tpuslam_torch.slammap.map import KeyFrame, SlamMap, features_to_numpy
+from tpuslam_torch.slammap.map import KeyFrame, SlamMap, features_to_device, features_to_numpy
 
 
 def _as_mapping(value) -> Mapping[str, Any]:
     return value._asdict() if hasattr(value, "_asdict") else value
 
 
+def _ported_fields(value, ours, cls_name) -> dict:
+    """The fields of ``value`` (a NamedTuple, dataclass or mapping) that
+    ``ours`` names. A field ``ours`` lacks belongs to a path this package does
+    not run: it is dropped when it holds its class's default and refused
+    otherwise (a mapping has no defaults, so its extra keys are refused)."""
+    if dataclasses.is_dataclass(value):
+        d = {f.name: getattr(value, f.name) for f in dataclasses.fields(value)}
+        fresh = type(value)()
+        defaults = {name: getattr(fresh, name) for name in d}
+    else:
+        d = dict(_as_mapping(value))
+        defaults = getattr(type(value), "_field_defaults", {})
+    refused = sorted(k for k, v in d.items() if k not in ours and (k not in defaults or v != defaults[k]))
+    if refused:
+        raise ValueError(f"{cls_name} has no fields {refused}: their paths are not ported")
+    return {k: v for k, v in d.items() if k in ours}
+
+
 def params_from(cls, value):
     """Build the NamedTuple ``cls`` from a NamedTuple or mapping with the same
     field names, recursing into fields whose default is itself a NamedTuple.
-    Fields ``cls`` does not have are refused."""
-    d = dict(_as_mapping(value))
-    unknown = set(d) - set(cls._fields)
-    if unknown:
-        raise ValueError(f"{cls.__name__} has no fields {sorted(unknown)}")
+    Fields ``cls`` does not have are dropped when ``value``'s class holds
+    them at their defaults, and refused otherwise."""
     out = {}
-    for name, v in d.items():
+    for name, v in _ported_fields(value, cls._fields, cls.__name__).items():
         default = cls._field_defaults.get(name)
         if v is not None and hasattr(default, "_fields"):
             v = params_from(type(default), v)
@@ -42,23 +60,42 @@ def features_from(value, device="cpu") -> FrameFeatures:
     arrays with FrameFeatures' field names; uint32 descriptor words become
     int64 words."""
     d = _as_mapping(value)
+    return features_to_device(FrameFeatures(**{name: np.asarray(d[name]) for name in FrameFeatures._fields}), device)
+
+
+_BA_INDEX_FIELDS = ("l_pose", "l_line", "p_pose", "p_point")
+
+
+def ba_problem_from(value, device="cpu") -> BAProblem:
+    """BAProblem (tensors on ``device``) from one with BAProblem's field
+    names; the observation index fields stay int32, the rest float32."""
+    d = _as_mapping(value)
     out = {}
-    for name in FrameFeatures._fields:
+    for name in BAProblem._fields:
         a = np.asarray(d[name])
-        if name == "desc_bits":
-            a = a.astype(np.uint32).astype(np.int64)
-        elif name == "level":
-            a = a.astype(np.int32)
-        else:
-            a = a.astype(np.float32)
+        a = a.astype(np.int32 if name in _BA_INDEX_FIELDS else np.float32)
         out[name] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
-    return FrameFeatures(**out)
+    return BAProblem(**out)
+
+
+def mapper_config_from(value) -> MapperConfig:
+    """MapperConfig from a MapperConfig-like dataclass (the JAX package's).
+
+    Fields of paths this package does not run (mono triangulation, deferred
+    fusion, the local BA's point buckets) are dropped when they hold their
+    class's defaults and refused otherwise."""
+    ours = MapperConfig()
+    out = {}
+    for name, v in _ported_fields(value, {f.name for f in dataclasses.fields(MapperConfig)}, "MapperConfig").items():
+        default = getattr(ours, name)
+        out[name] = params_from(type(default), v) if hasattr(default, "_fields") else v
+    return MapperConfig(**out)
 
 
 def map_state(m) -> dict:
-    """Numpy/dict snapshot of a SlamMap of either package: the line store,
-    the keyframes (poses, features, observations, spanning tree) and the
-    covisibility graph."""
+    """Numpy/dict snapshot of a SlamMap of either package: the line store
+    (free list in order), the keyframes (poses, features, observations,
+    spanning tree) and the covisibility graph."""
     st = m.lines
     lines = dict(
         plucker=np.asarray(st.plucker),
@@ -82,12 +119,13 @@ def map_state(m) -> dict:
                 T_cw=np.asarray(kf.T_cw, np.float32),
                 features={k: np.asarray(v) for k, v in _as_mapping(kf.features).items()},
                 line_ids=np.asarray(kf.line_ids, np.int32),
+                is_bad=bool(kf.is_bad),
                 parent=kf.parent,
                 children=sorted(int(c) for c in kf.children),
             )
         )
     covis = {int(a): {int(b): int(w) for b, w in row.items()} for a, row in m.covis.items()}
-    return dict(lines=lines, keyframes=keyframes, covis=covis, next_kid=int(m._next_kid))
+    return dict(lines=lines, keyframes=keyframes, covis=covis, next_kid=int(m._next_kid), generation=int(m.generation))
 
 
 def slam_map_from(state: Mapping) -> SlamMap:
@@ -113,9 +151,11 @@ def slam_map_from(state: Mapping) -> SlamMap:
             T_cw=np.asarray(k["T_cw"], np.float32).copy(),
             features=feats,
             line_ids=np.asarray(k["line_ids"], np.int32).copy(),
+            is_bad=k["is_bad"],
             parent=k["parent"],
             children=set(k["children"]),
         )
     m.covis = {a: dict(row) for a, row in state["covis"].items()}
     m._next_kid = state["next_kid"]
+    m.generation = state["generation"]
     return m

@@ -18,6 +18,7 @@ from tpuslam_torch.geometry.camera import Intrinsics, project_points
 from tpuslam_torch.geometry.se3 import se3_apply
 from tpuslam_torch.kernels.match import (
     MatchParams,
+    MatchResult,
     angle_penalty,
     match_descriptors,
     midpoint_radius_penalty,
@@ -50,6 +51,25 @@ def project_map_lines(T_cw: torch.Tensor, ep3d: torch.Tensor, cam: Intrinsics, m
     return uv, mid, ang, in_front & in_img
 
 
+def search_by_projection(
+    T_cw: torch.Tensor,
+    map_ep3d: torch.Tensor,
+    map_bits: torch.Tensor,
+    map_valid: torch.Tensor,
+    feats: FrameFeatures,
+    cam: Intrinsics,
+    params: ProjectionSearchParams = ProjectionSearchParams(),
+) -> MatchResult:
+    """Match map lines to frame features near their predicted projection.
+    Returns a MatchResult over the landmark axis: idx[i] = frame feature slot."""
+    _, mid, ang, visible = project_map_lines(T_cw, map_ep3d, cam, params.min_z, params.margin)
+    pen = midpoint_radius_penalty(mid, feats.midpoint, params.radius) + angle_penalty(
+        ang, feats.angle, params.angle_tol
+    )
+    vf = map_valid.to(torch.float32) * visible.to(torch.float32)
+    return match_descriptors(map_bits, vf, feats.desc_bits, feats.valid, params.match, pen)
+
+
 class TrackStepResult(NamedTuple):
     pose: torch.Tensor  # (4, 4) optimized T_cw
     match_idx: torch.Tensor  # (N,) landmark -> frame slot (-1 none)
@@ -70,12 +90,7 @@ def tracked_pose_step(
     opt: PoseOptConfig = PoseOptConfig(),
 ) -> TrackStepResult:
     """One tracking stage: project + match + pose LM + re-gate."""
-    _, mid, ang, visible = project_map_lines(T_pred, map_ep3d, cam, search.min_z, search.margin)
-    pen = midpoint_radius_penalty(mid, feats.midpoint, search.radius) + angle_penalty(
-        ang, feats.angle, search.angle_tol
-    )
-    vf = map_valid.to(torch.float32) * visible.to(torch.float32)
-    m = match_descriptors(map_bits, vf, feats.desc_bits, feats.valid, search.match, pen)
+    m = search_by_projection(T_pred, map_ep3d, map_bits, map_valid, feats, cam, search)
     slot = torch.clamp(m.idx, min=0)
     res = pose_optimize(
         T_pred, map_plucker, feats.endpoints[slot], m.valid, cam, opt, l_sigma=feats.sigma[slot]

@@ -6,10 +6,12 @@ Counterpart of the synchronous stereo path of ``tpuslam.frontend.tracking``:
   tracked_pose_step (coarse radius) -> tracked_pose_step (fine radius)
   TrackReferenceKeyFrame fallback when too few inliers remain
   keyframe policy, keyframe creation and stereo landmark triangulation
+  relocalization of a LOST frame (keyframe database + DLT-Lines reseed)
 
-State machine: NOT_INITIALIZED -> OK -> LOST. Relocalization is not ported:
-a LOST frame stays LOST. Device work runs on ``device``; map bookkeeping
-stays on the host in numpy, and each frame reads its match counts back once.
+State machine: NOT_INITIALIZED -> OK <-> LOST. Device work runs on
+``device``; map bookkeeping stays on the host in numpy, and each frame reads
+its match counts back once. ``on_new_keyframe`` (the mapper, through
+``System``) fires after every keyframe insertion.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from tpuslam_torch.backend.dlt import dlt_lines_pose, image_line_coeffs
 from tpuslam_torch.backend.pose_opt import PoseOptConfig
 from tpuslam_torch.frontend.frame import (
     FrameFeatures,
@@ -36,6 +39,7 @@ from tpuslam_torch.frontend.matcher import (
     triangulate_stereo_lines,
 )
 from tpuslam_torch.geometry.camera import Intrinsics
+from tpuslam_torch.kernels.match import match_descriptors
 from tpuslam_torch.slammap.map import KeyFrame, SlamMap
 
 
@@ -100,6 +104,9 @@ class Tracker:
         self._local_valid = np.zeros(self.cfg.local_capacity, bool)
         self._local_dirty = True
         self._local_dev = None
+        self.on_new_keyframe = None  # callback(kf), installed by System
+        self.kf_db = None  # KeyFrameDatabase for relocalization (System)
+        self.n_relocalizations = 0
 
     # ---- public API ----------------------------------------------------
     def track_stereo(self, img_left: np.ndarray, img_right: np.ndarray, timestamp: float) -> FrameResult:
@@ -132,8 +139,13 @@ class Tracker:
         return self._track_frame_sync(feats, timestamp)
 
     def _track_frame_sync(self, feats: FrameFeatures, timestamp: float) -> FrameResult:
-        if self.state == TrackingState.LOST:  # no relocalization in this port yet
-            return FrameResult(self.frame_idx, timestamp, self.T_cw.copy(), TrackingState.LOST)
+        if self.state == TrackingState.LOST:
+            reloc = self._relocalize(feats)
+            if reloc is None:
+                return FrameResult(self.frame_idx, timestamp, self.T_cw.copy(), TrackingState.LOST)
+            self.T_cw = reloc
+            self.last_T_cw = reloc.copy()
+            self.velocity = np.eye(4, dtype=np.float32)
 
         T_pred = self.velocity @ self.last_T_cw if self.last_T_cw is not None else self.T_cw
         local = self._local_map_arrays()
@@ -192,6 +204,8 @@ class Tracker:
         self.last_T_cw = self.T_cw.copy()
         self.state = TrackingState.OK
         self._local_dirty = True
+        if self.on_new_keyframe:
+            self.on_new_keyframe(kf)
         return True
 
     # ---- keyframes ------------------------------------------------------
@@ -226,6 +240,8 @@ class Tracker:
         self.ref_kf = kf.kid
         self.ref_tracked = max(int(np.sum(kf.line_ids >= 0)), 1)
         self._local_dirty = True
+        if self.on_new_keyframe:
+            self.on_new_keyframe(kf)
 
     def _bind_new_landmarks(self, kf: KeyFrame, plucker, ep3d, ok: np.ndarray):
         bits = kf.features.desc_bits
@@ -281,7 +297,64 @@ class Tracker:
         self._local_dirty = True
         return res
 
+    # ---- relocalization -------------------------------------------------
+    def _relocalize(self, feats: FrameFeatures) -> Optional[np.ndarray]:
+        """Keyframe-database query, then for each of the 3 best candidates a
+        descriptor-only search against its window's landmarks from its pose,
+        and a DLT-Lines reseed when that LM does not converge. Returns the
+        recovered T_cw or None."""
+        if self.kf_db is None:
+            return None
+        scores = self.kf_db.query_bits(feats.desc_bits, feats.valid)
+        cands = sorted((k for k in scores if k in self.map.keyframes), key=lambda k: -scores[k])[:3]
+        st = self.map.lines
+        for kid in cands:
+            if scores[kid] < self.cfg.min_track_matches:
+                break
+            _, lids = self.map.local_window(kid, 5)
+            lids = [l for l in lids if st.alive[l]][: self.cfg.local_capacity]
+            if len(lids) < self.cfg.min_track_inliers:
+                continue
+            arrays, ids, valid = self._window_arrays(lids)
+            res = tracked_pose_step(
+                self._pose_tensor(self.map.keyframes[kid].T_cw), arrays["plucker"], arrays["ep3d"], arrays["bits"],
+                arrays["valid"], feats, self.cam, self.cfg.search_coarse._replace(radius=1e6), self.cfg.pose_opt,
+            )
+            if int(res.num_inliers) < self.cfg.min_track_inliers:
+                # the matches do not depend on the pose, but LM from a distant
+                # candidate's pose can diverge: reseed from the matches
+                res = self._relocalize_dlt(feats, arrays, valid)
+            if res is not None and int(res.num_inliers) >= self.cfg.min_track_inliers:
+                self.ref_kf = kid
+                self.n_relocalizations += 1
+                self.state = TrackingState.OK
+                self._local_dirty = True
+                return res.pose.cpu().numpy()
+        return None
+
+    def _relocalize_dlt(self, feats: FrameFeatures, arrays, valid: np.ndarray) -> Optional[TrackStepResult]:
+        """Pose-free descriptor matching, DLT-Lines on the matches, and one
+        projection-search stage from the DLT pose."""
+        m = match_descriptors(arrays["bits"], arrays["valid"], feats.desc_bits, feats.valid, self.cfg.search_coarse.match)
+        midx = m.idx.cpu().numpy()
+        mvalid = (m.valid.cpu().numpy() > 0.5) & (midx >= 0) & (valid > 0.5)
+        if int(mvalid.sum()) < 8:
+            return None
+        l2d = image_line_coeffs(feats.endpoints)[torch.clamp(m.idx, min=0)]  # (NL, 3) per map slot
+        mask = torch.from_numpy(mvalid.astype(np.float32)).to(self.device)
+        T_dlt, ok = dlt_lines_pose(l2d, arrays["ep3d"], mask, self.cam)
+        if float(ok) < 0.5:
+            return None
+        return tracked_pose_step(
+            T_dlt, arrays["plucker"], arrays["ep3d"], arrays["bits"], arrays["valid"],
+            feats, self.cam, self.cfg.search_coarse, self.cfg.pose_opt,
+        )
+
     # ---- local map ------------------------------------------------------
+    def invalidate_local_map(self):
+        """Call after mapping or BA changes landmark geometry."""
+        self._local_dirty = True
+
     def _local_map_arrays(self):
         if not self._local_dirty and self._local_dev is not None:
             return self._local_dev

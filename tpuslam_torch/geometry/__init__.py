@@ -6,6 +6,8 @@ from tpuslam_torch.geometry.camera import (  # noqa: F401
     project_points,
 )
 from tpuslam_torch.geometry.plucker import (  # noqa: F401
+    plucker_from_points,
+    plucker_normalize,
     plucker_retract,
     plucker_transform,
 )

@@ -14,6 +14,21 @@ from tpuslam_torch.geometry.se3 import so3_exp
 _EPS = 1e-9
 
 
+def plucker_from_points(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Line through 3D points p, q: (..., 6) = [n, v], v = q - p, n = p x q."""
+    return torch.cat([torch.linalg.cross(p, q, dim=-1), q - p], dim=-1)
+
+
+def plucker_normalize(L: torch.Tensor) -> torch.Tensor:
+    """Storage form: |v| = 1 and the Klein constraint re-projected
+    (n <- n - (n.v_hat) v_hat)."""
+    n, v = L[..., :3], L[..., 3:]
+    v_norm = torch.linalg.norm(v, dim=-1, keepdim=True)
+    v_hat = v / torch.clamp(v_norm, min=_EPS)
+    n_proj = n - torch.sum(n * v_hat, dim=-1, keepdim=True) * v_hat
+    return torch.cat([n_proj, v_hat * v_norm], dim=-1) / torch.clamp(v_norm, min=_EPS)
+
+
 def plucker_transform(T: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
     """Transform (..., 6) Pluecker lines by (..., 4, 4) SE(3): world -> camera."""
     R = T[..., :3, :3]

@@ -1,9 +1,10 @@
 """Map data model: keyframes, 3D line landmarks, covisibility (host side).
 
-Counterpart of ``tpuslam.slammap.map`` for what the tracking path uses:
-a fixed-capacity struct-of-arrays line store in numpy, keyframes holding
-numpy copies of their features, and the covisibility graph as python dicts.
-Culling, fusion and the native C++ graph mirror come with local mapping.
+Counterpart of ``tpuslam.slammap.map``: a fixed-capacity struct-of-arrays
+line store in numpy (LIFO free list, so landmark ids follow the JAX store's),
+keyframes holding numpy copies of their features, and the covisibility graph
+as python dicts. The JAX map's native C++ graph mirror (a faster recount of
+the same dicts) and point landmarks are not ported.
 """
 
 from __future__ import annotations
@@ -25,6 +26,20 @@ def features_to_numpy(f: FrameFeatures) -> FrameFeatures:
     return out._replace(desc_bits=out.desc_bits.astype(np.uint32))
 
 
+def features_to_device(f: FrameFeatures, device) -> FrameFeatures:
+    """FrameFeatures of numpy arrays -> tensors on ``device``: uint32
+    descriptor words become int64 words, levels int32, the rest float32."""
+    out = {}
+    for name, a in zip(FrameFeatures._fields, f):
+        a = np.asarray(a)
+        if name == "desc_bits":
+            a = a.astype(np.uint32).astype(np.int64)
+        else:
+            a = a.astype(np.int32 if name == "level" else np.float32)
+        out[name] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return FrameFeatures(**out)
+
+
 @dataclass
 class KeyFrame:
     """A persistent frame promoted into the map."""
@@ -35,8 +50,22 @@ class KeyFrame:
     T_cw: np.ndarray  # (4, 4)
     features: FrameFeatures  # numpy copies, capacity K
     line_ids: np.ndarray  # (K,) int32: feature slot -> MapLine id (-1 = none)
+    is_bad: bool = False
     parent: Optional[int] = None  # spanning tree: best covisible keyframe
     children: set = field(default_factory=set)
+
+    @property
+    def T_wc(self) -> np.ndarray:
+        R = self.T_cw[:3, :3]
+        Ti = np.eye(4, dtype=self.T_cw.dtype)
+        Ti[:3, :3] = R.T
+        Ti[:3, 3] = -R.T @ self.T_cw[:3, 3]
+        return Ti
+
+    @property
+    def center(self) -> np.ndarray:
+        """Camera center in world coordinates."""
+        return self.T_wc[:3, 3]
 
 
 class MapLineStore:
@@ -78,6 +107,45 @@ class MapLineStore:
         self.n_obs[lid] = len(self.obs[lid])
         kf.line_ids[slot] = lid
 
+    def erase_observation(self, lid: int, kf: KeyFrame):
+        o = self.obs.get(lid)
+        if o is None or kf.kid not in o:
+            return
+        slot = o.pop(kf.kid)
+        if kf.line_ids[slot] == lid:
+            kf.line_ids[slot] = -1
+        self.n_obs[lid] = len(o)
+
+    def kill(self, lid: int, keyframes: Dict[int, KeyFrame]):
+        """Remove the landmark and all its observations."""
+        if not self.alive[lid]:
+            return
+        for kid, slot in list(self.obs.get(lid, {}).items()):
+            kf = keyframes.get(kid)
+            if kf is not None and kf.line_ids[slot] == lid:
+                kf.line_ids[slot] = -1
+        self.obs.pop(lid, None)
+        self.alive[lid] = False
+        self._free.append(lid)
+
+    def replace(self, old: int, new: int, keyframes: Dict[int, KeyFrame]):
+        """Fuse duplicate landmarks: move old's observations onto new."""
+        if old == new or not self.alive[old]:
+            return
+        for kid, slot in list(self.obs.get(old, {}).items()):
+            kf = keyframes.get(kid)
+            if kf is None:
+                continue
+            if kid not in self.obs.setdefault(new, {}):
+                self.obs[new][kid] = slot
+                kf.line_ids[slot] = new
+            elif kf.line_ids[slot] == old:
+                kf.line_ids[slot] = -1
+        self.n_obs[new] = len(self.obs[new])
+        self.obs.pop(old, None)
+        self.alive[old] = False
+        self._free.append(old)
+
     def live_ids(self) -> np.ndarray:
         return np.nonzero(self.alive)[0]
 
@@ -90,6 +158,11 @@ class SlamMap:
         self.lines = MapLineStore(line_capacity)
         self._next_kid = 0
         self.covis: Dict[int, Dict[int, int]] = {}  # kf id -> {kf id: shared lines}
+        # bumped on every global correction (loop closure, not ported yet)
+        self.generation = 0
+        # callback(kid) when a keyframe is culled (System hooks the keyframe
+        # database here so culled keyframes leave the scoring set)
+        self.on_keyframe_erased = None
 
     def new_keyframe(self, frame_idx: int, timestamp: float, T_cw: np.ndarray, features: FrameFeatures) -> KeyFrame:
         f = features_to_numpy(features)
@@ -105,6 +178,31 @@ class SlamMap:
         self.keyframes[kf.kid] = kf
         self.covis[kf.kid] = {}
         return kf
+
+    def erase_keyframe(self, kid: int):
+        """Keyframe culling: drop its observations and covisibility edges and
+        re-parent its spanning-tree children to its parent."""
+        kf = self.keyframes.get(kid)
+        if kf is None:
+            return
+        for lid in np.unique(kf.line_ids):
+            if lid >= 0:
+                self.lines.erase_observation(int(lid), kf)
+        for other in list(self.covis.get(kid, {})):
+            self.covis.get(other, {}).pop(kid, None)
+        self.covis.pop(kid, None)
+        for child in kf.children:
+            ckf = self.keyframes.get(child)
+            if ckf is not None:
+                ckf.parent = kf.parent
+                if kf.parent is not None:
+                    self.keyframes[kf.parent].children.add(child)
+        if kf.parent is not None:
+            self.keyframes[kf.parent].children.discard(kid)
+        kf.is_bad = True
+        del self.keyframes[kid]
+        if self.on_keyframe_erased is not None:
+            self.on_keyframe_erased(kid)
 
     def update_connections(self, kf: KeyFrame):
         """Recount shared landmarks between kf and every keyframe observing
@@ -137,6 +235,9 @@ class SlamMap:
             key=lambda k: -row[k],
         )
         return ids if n is None else ids[:n]
+
+    def all_keyframe_ids(self) -> List[int]:
+        return sorted(self.keyframes)
 
     def local_window(self, kid: int, size: int) -> Tuple[List[int], List[int]]:
         """(window KF ids, their landmark ids): the KF + its best covisible KFs."""

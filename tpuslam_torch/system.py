@@ -1,13 +1,15 @@
 """System facade: the public API (torch).
 
-    sys = System(cam, sensor="stereo", mapping=False, loop_closing=False, device="cuda")
+    sys = System(cam, sensor="stereo", mapping=True, loop_closing=False, device="cuda")
     T_cw = sys.track_stereo(imL, imR, t)     # per-frame pose (numpy 4x4)
     sys.map_lines(); sys.keyframe_graph()
     sys.save_trajectory_tum(path); sys.shutdown()
 
-Same signature as ``tpuslam.system.System`` plus ``device``. What this port
-runs so far is the tracking front end alone: ``mapping=True``,
-``loop_closing=True`` and ``sensor="mono"`` raise NotImplementedError.
+Same signature as ``tpuslam.system.System`` plus ``device``. This port runs
+stereo tracking with relocalization and, with ``mapping=True``, synchronous
+local mapping after each keyframe (culling, fusion, LM+Schur local BA on
+``device``). ``loop_closing=True`` and ``sensor="mono"`` raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from tpuslam_torch.backend.loop_closing import KeyFrameDatabase
+from tpuslam_torch.backend.mapping import LocalMapper, MapperConfig
 from tpuslam_torch.frontend.tracking import FrameResult, Tracker, TrackerConfig, TrackingState
 from tpuslam_torch.geometry.camera import Intrinsics
 from tpuslam_torch.io.trajectory import save_trajectory_kitti, save_trajectory_tum
@@ -53,7 +57,7 @@ class StageTimer:
 
 
 class System:
-    """Top-level SLAM system: stereo line tracking on ``device``."""
+    """Top-level SLAM system: stereo line tracking and local mapping on ``device``."""
 
     def __init__(
         self,
@@ -63,7 +67,7 @@ class System:
         loop_closing: bool = True,
         log_path: Optional[str] = None,
         tracker_cfg: Optional[TrackerConfig] = None,
-        mapper_cfg=None,
+        mapper_cfg: Optional[MapperConfig] = None,
         device="cpu",
     ):
         if not isinstance(settings, Intrinsics):
@@ -72,19 +76,32 @@ class System:
             raise NotImplementedError("sensor='mono' is not ported yet (later work after loop closing)")
         if sensor != "stereo":
             raise ValueError(f"unknown sensor mode {sensor!r}")
-        if mapping or mapper_cfg is not None:
-            raise NotImplementedError(
-                "mapping=True is not ported yet (local mapping: backend/lm.py, local_ba.py, mapping.py comes next)"
-            )
         if loop_closing:
             raise NotImplementedError("loop_closing=True is not ported yet")
         self.sensor = sensor
         self.cam = settings
         self.map = SlamMap()
         self.tracker = Tracker(settings, self.map, tracker_cfg or TrackerConfig(), device=device)
+        self.mapper: Optional[LocalMapper] = None
         self.timer = StageTimer()
+        if mapping:
+            # synchronous, in this process: the JAX package's subprocess BA
+            # worker exists for the TPU's compile costs and is not carried over
+            self.mapper = LocalMapper(self.map, settings, mapper_cfg or MapperConfig(), device=device)
+            self.mapper.timer = self.timer  # KF-event wall split (mp.* stages)
+            self.tracker.on_new_keyframe = self._on_new_keyframe
+            self.mapper.on_map_changed = self.tracker.invalidate_local_map
+        self.kf_db = KeyFrameDatabase(device=device)
+        self.tracker.kf_db = self.kf_db  # relocalization
+        self.map.on_keyframe_erased = self.kf_db.remove  # culled KFs leave the DB
         self.trajectory: List[FrameResult] = []
         self._log_f = open(log_path, "w") if log_path else None
+
+    def _on_new_keyframe(self, kf):
+        t0 = time.perf_counter()
+        self.mapper.process(kf)
+        self.timer.add("local_mapping", time.perf_counter() - t0)
+        self.kf_db.add(kf)  # no loop closer: the database serves relocalization
 
     def _log(self, r: FrameResult, dt: float):
         if self._log_f is None:
@@ -111,6 +128,8 @@ class System:
         r = self.tracker.track_stereo(img_left, img_right, timestamp)
         dt = time.perf_counter() - t0
         self.timer.add("track", dt)
+        if self.mapper is not None:  # between-KF poll, as the JAX System does
+            self.mapper.tick()
         self.trajectory.append(r)
         self._log(r, dt)
         return np.asarray(self.tracker.T_cw)
@@ -153,7 +172,10 @@ class System:
         return self.timer.summary()
 
     def shutdown(self):
-        """Close the log. Tracking is synchronous, so no frame is in flight."""
+        """Finish mapping and close the log. Tracking and mapping are
+        synchronous, so no frame or solve is in flight."""
+        if self.mapper is not None:
+            self.mapper.finish()
         if self._log_f is not None:
             self._log_f.write(json.dumps(dict(timing=self.timing_summary())) + "\n")
             self._log_f.close()
