@@ -12,13 +12,23 @@ first failure and catches nothing):
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the slice's two image shapes (480x640 and the 384x512 pyramid level):
    blur within 1e-5 on [0, 1] images, gradients within 1e-3 on the 0..255
-   scale, connected-component propagation exactly equal; CUDA-event times
-   of both;
+   scale, connected-component propagation exactly equal; blur and CCL also
+   bit-equal to their baseline forms (their first forms: two launches;
+   one launch per round).
+   Device time per call: CUDA events around 100 back-to-back calls queued
+   behind a spin kernel (so no host gap enters), the baseline forms in turns
+   with the kernels (old, new, new, old); the blur's yardstick is one
+   F.conv2d with the 7x7 outer product of the taps over a plane padded
+   once; each kernel's bound from its shape (bytes at 3.35 TB/s,
+   operations at 67 T/s). Gradients, unchanged since its first form, has
+   no baseline form: its baseline time is its own;
 4. the tracking slice: System(cam, sensor="stereo", mapping=False,
    loop_closing=False, device="cuda") over 40 rendered VGA stereo frames.
    Every frame after initialisation must track OK, at least 2 keyframes,
    ATE no worse than the JAX package's on the same frames + 0.01 m, and
-   each kernel's launch count equal to frames x its per-frame count;
+   each kernel's call count equal to frames x its per-frame count, with
+   one device launch per call for blur and gradients and ceil(64 / k) for
+   CCL;
 5. the mapping slice: the same with mapping=True (local mapping and local
    BA at every keyframe, on the card). The same checks against the JAX
    package's mapping ATE, plus a local BA at every keyframe event after the
@@ -31,7 +41,8 @@ first failure and catches nothing):
    back OK through the keyframe database, its camera centre within 5 cm of
    frame 20's, its kernel launches one frame's worth.
 
-Output: a {"kernels": [...]} JSON line (launches from the mapping slice),
+Output: a {"kernels": [...]} JSON line (calls and launches per call from
+the mapping slice; times, bounds and errors at 480x640 from phase 3),
 the card line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -115,82 +126,198 @@ def ate_of(trajectory, scene) -> float:
     return absolute_trajectory_error(est, gt).rmse
 
 
-def median_ms(fn, reps: int = 20) -> float:
-    """Median of `reps` single-call times from CUDA events, after 3 warm-up
-    calls."""
+REPS = 100  # back-to-back calls per device timing
+PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 memory rate
+PEAK_OPS_PER_S = 67e12  # H100 SXM float32 peak outside the tensor cores
+
+
+def device_us(fn, reps: int = REPS) -> float:
+    """Device time per call (us): CUDA events around `reps` back-to-back
+    calls, after 3 warm-up calls. The calls are enqueued behind a spin
+    kernel (torch.cuda._sleep), so the host is ahead of the card and they run
+    without host gaps; the start event must still be pending once the host
+    has enqueued them all (else the run is repeated with fewer calls or a
+    longer spin)."""
     import torch
 
     for _ in range(3):
         fn()
-    times = []
-    for _ in range(reps):
+    torch.cuda.synchronize()
+    spin = 20_000_000  # clock cycles, ~10 ms
+    for _ in range(6):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
         a.record()
-        fn()
+        for _ in range(reps):
+            fn()
         b.record()
+        ahead = not a.query()
         b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+        if ahead:
+            return a.elapsed_time(b) * 1e3 / reps
+        # the card's queue of pending launches is finite: a host that blocks
+        # on it never gets ahead, so fewer calls first, then a longer spin
+        if reps > 10:
+            reps //= 2
+        else:
+            spin *= 4
+    fail("device timing: the host never got ahead of the card")
 
 
-def kernel_phase(frames):
-    """Each kernel vs its plain version at 480x640 and 384x512; returns
-    {name: (max_abs_err over shapes, kernel ms at 480x640, plain ms there)}."""
+def host_paced_ms(fn, reps: int) -> float:
+    """ms per call from CUDA events around `reps` back-to-back calls after 3
+    warm-up calls, with no spin ahead: for the plain versions, whose many
+    small launches outrun the host's enqueue (their time is what a run
+    pays)."""
     import torch
+
+    for _ in range(3):
+        fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def bound_us(name: str, H: int, W: int, ntaps: int, rounds: int, compat_bits: int):
+    """(least time in us, "bytes" or "operations") of one call at (H, W):
+    each input read once and each output written once, at 3.35 TB/s, and
+    the operations these inputs need at 67 T/s. CCL's work depends on the
+    data: a min and a max per compat bit set, per round (`compat_bits` is
+    the number of bits set on the plane)."""
+    px = H * W
+    nbytes, ops = {
+        "blur": (8 * px, 4 * ntaps * px),  # 1 plane in, 1 out; a multiply and an add per tap and pass
+        "gradients": (20 * px, 10 * px),  # 1 in, 4 out; differences, halvings, squares, sum, sqrt, atan2
+        "ccl": (20 * px, 2 * rounds * compat_bits),  # 3 int32 in, 2 out
+    }[name]
+    tb, to = nbytes / PEAK_BYTES_PER_S, ops / PEAK_OPS_PER_S
+    return max(tb, to) * 1e6, ("bytes" if tb >= to else "operations")
+
+
+def in_turns(old, new):
+    """Device us of two forms of one function, timed old, new, new, old;
+    returns (new, old), each the mean of its two turns."""
+    o1, n1, n2, o2 = device_us(old[0], old[1]), device_us(new[0], new[1]), device_us(new[0], new[1]), device_us(old[0], old[1])
+    return (n1 + n2) / 2, (o1 + o2) / 2
+
+
+def kernel_phase(frames, card):
+    """Each kernel against its plain version (and the redesigned ones bit
+    for bit against their baseline forms) at 480x640 and 384x512, with device
+    times. Returns {name: fields of the kernels line at 480x640}."""
+    import torch
+    import torch.nn.functional as F
 
     from tpuslam_torch.kernels import image, lsd
 
     left = torch.from_numpy(frames[0][0]).cuda().float() / 255.0
     level1 = image.build_pyramid(left, 2, 0.8)[1].contiguous()  # 384x512
     params = lsd.LSDParams()
+    R = params.ccl_rounds
+    sigma = params.prefilter_sigma
+    ntaps = image._blur_taps(sigma).numel()
     res = {}
     for img in (left, level1):
-        shape = tuple(img.shape)
-        cases = {
-            "blur": (lambda: image.gaussian_blur(img, 0.75), lambda: image.gaussian_blur_torch(img, 0.75)),
-            "gradients": (lambda: image.image_gradients(img * 255.0), lambda: image.image_gradients_torch(img * 255.0)),
-        }
+        H, W = img.shape
+        g = img * 255.0
         _, _, _, _, lab0, mx0, cb = lsd.ccl_inputs(img, params)
-        R = params.ccl_rounds
-        cases["ccl"] = (lambda: lsd.ccl_propagate(lab0, mx0, cb, R), lambda: lsd._ccl_torch(lab0, mx0, cb, R))
-        for name, (kern, plain) in cases.items():
-            out_k, out_p = kern(), plain()
+        n_bits = int(sum(((cb >> d) & 1).sum() for d in range(8)))
+        print(f"ccl planes {(H, W)}: {int((cb != 0).sum())} pixels with compat bits, {n_bits} bits", flush=True)
+        taps = image._blur_taps(sigma).cuda()
+        r = taps.numel() // 2
+        padded = F.pad(img[None, None], (r, r, r, r), mode="replicate")
+        taps2d = torch.outer(taps, taps)[None, None]
+        cases = {
+            # name: (kernel, plain, baseline form (reps), library call, reps of the kernel)
+            "blur": (lambda: image.gaussian_blur(img, sigma), lambda: image.gaussian_blur_torch(img, sigma),
+                     (lambda: image._blur_two_pass_cuda(img, sigma), REPS), lambda: F.conv2d(padded, taps2d), REPS),
+            # unchanged since its first form: no baseline form
+            "gradients": (lambda: image.image_gradients(g), lambda: image.image_gradients_torch(g), None, None, REPS),
+            "ccl": (lambda: lsd.ccl_propagate(lab0, mx0, cb, R), lambda: lsd._ccl_torch(lab0, mx0, cb, R),
+                    (lambda: lsd._ccl_per_round_cuda(lab0, mx0, cb, R), 10), None, REPS),
+        }
+        for name, (kern, plain, baseline, lib, reps) in cases.items():
+            outs_k, outs_p = (x if isinstance(x, tuple) else (x,) for x in (kern(), plain()))
             torch.cuda.synchronize()
-            outs_k = out_k if isinstance(out_k, tuple) else (out_k,)
-            outs_p = out_p if isinstance(out_p, tuple) else (out_p,)
             err = max(float((a.double() - b.double()).abs().max()) for a, b in zip(outs_k, outs_p))
-            ok = err <= TOL[name]
-            print(f"kernel {name:9s} {shape}: max_abs_err={err:.3g} (tol {TOL[name]}) {'ok' if ok else 'FAIL'}", flush=True)
+            if baseline:
+                outs_o = baseline[0]()
+                same_old = all(torch.equal(a, b) for a, b in zip(outs_k, outs_o if isinstance(outs_o, tuple) else (outs_o,)))
+                old_txt = f"bit-equal to the baseline form: {same_old}"
+            else:
+                same_old, old_txt = True, "unchanged (no baseline form)"
+            ok = err <= TOL[name] and same_old
+            print(f"kernel {name:9s} {(H, W)}: max_abs_err={err:.3g} (tol {TOL[name]}), {old_txt} {'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
-                fail(f"{name} kernel disagrees with its plain version at {shape}")
-            ms, pms = median_ms(kern), median_ms(plain)
-            print(f"kernel {name:9s} {shape}: {ms:.4f} ms, plain {pms:.4f} ms", flush=True)
+                fail(f"{name} kernel disagrees with its plain version or its baseline form at {(H, W)}")
+            if baseline:
+                dev_us, old_us = in_turns(baseline, (kern, reps))
+            else:
+                dev_us = old_us = device_us(kern, reps)
+            plain_ms = host_paced_ms(plain, 10 if name == "ccl" else REPS)
+            lib_ms = device_us(lib) / 1e3 if lib else None
+            b_us, b_by = bound_us(name, H, W, ntaps, R, n_bits)
+            lib_txt = f"{lib_ms * 1e3:.3f} us" if lib else "none"
+            old_txt = f"baseline form {old_us:.3f} us" if baseline else "no baseline form"
+            print(
+                f"kernel {name:9s} {(H, W)}: device {dev_us:.3f} us/call, {old_txt}, bound {b_us:.3f} us "
+                f"({b_by}, {b_us / dev_us:.1%} of it), plain {plain_ms:.4f} ms (host-paced), library {lib_txt} on {card}",
+                flush=True,
+            )
             prev = res.get(name)
-            res[name] = (max(err, prev[0]) if prev else err, prev[1] if prev else ms, prev[2] if prev else pms)
+            if prev is None:  # the first shape, 480x640, fills the kernels line
+                res[name] = dict(
+                    shape=f"{H}x{W}", max_abs_err=err, device_us=dev_us, ms=dev_us / 1e3, plain_ms=plain_ms,
+                    bound_us=b_us, bound_ms=b_us / 1e3, bound_by=b_by, library_ms=lib_ms, baseline_device_us=old_us,
+                )
+            else:
+                prev["max_abs_err"] = max(prev["max_abs_err"], err)
     return res
 
 
 def reset_launches() -> None:
     from tpuslam_torch.kernels import image, lsd
 
-    for d in (image.LAUNCHES, lsd.LAUNCHES):
+    for d in (image.LAUNCHES, lsd.LAUNCHES, image.KERNEL_LAUNCHES, lsd.KERNEL_LAUNCHES):
         for k in d:
             d[k] = 0
 
 
-def read_launches() -> dict:
+def read_launches():
+    """(kernel calls, device launches of those calls), by kernel."""
     from tpuslam_torch.kernels import image, lsd
 
-    return {**image.LAUNCHES, **lsd.LAUNCHES}
+    return {**image.LAUNCHES, **lsd.LAUNCHES}, {**image.KERNEL_LAUNCHES, **lsd.KERNEL_LAUNCHES}
 
 
-def check_launches(tag: str, launches: dict, n_frames: int) -> None:
+def launches_per_call() -> dict:
+    """Device launches each kernel call must make: one for blur and
+    gradients, ceil(R / k) for CCL."""
+    from tpuslam_torch.kernels import lsd
+
+    return {"blur": 1, "gradients": 1, "ccl": -(-lsd.LSDParams().ccl_rounds // lsd.CCL_TILE[2])}
+
+
+def check_launches(tag: str, launches, n_frames: int) -> None:
+    calls, device = launches
+    want_lpc = launches_per_call()
     for name, per in PER_FRAME.items():
         want = per * n_frames
-        print(f"{tag}: {name} launches {launches[name]} (expected {want})", flush=True)
-        if launches[name] != want:
-            fail(f"{tag}: {name}: {launches[name]} launches, expected {want}")
+        print(
+            f"{tag}: {name} calls {calls[name]} (expected {want}), device launches {device[name]} "
+            f"(expected {want * want_lpc[name]})",
+            flush=True,
+        )
+        if calls[name] != want:
+            fail(f"{tag}: {name}: {calls[name]} calls, expected {want}")
+        if device[name] != want * want_lpc[name]:
+            fail(f"{tag}: {name}: {device[name]} device launches, expected {want_lpc[name]} per call")
 
 
 def run_slice(tag, cam, scene, frames, card, mapping: bool, jax_ate: float):
@@ -363,23 +490,23 @@ def main() -> int:
             print(f"ptxas: {line.strip()}", flush=True)
 
     cam, scene, frames = make_frames()
-    kres = kernel_phase(frames)
+    kres = kernel_phase(frames, card)
 
     run_slice("slice", cam, scene, frames, card, mapping=False, jax_ate=JAX_ATE_M)
     sys_, launches = run_slice("mapping", cam, scene, frames, card, mapping=True, jax_ate=JAX_MAPPING_ATE_M)
     ba_phase(sys_, cam, card)
     reloc_phase(sys_, scene, frames)
 
+    calls, device = launches  # the mapping slice's run
     kernels = [
         dict(
             name=name,
             route="cuda",
             source=KERNELS[name][0],
             replaces=KERNELS[name][1],
-            launches=launches[name],
-            max_abs_err=kres[name][0],
-            ms=kres[name][1],
-            plain_ms=kres[name][2],
+            launches=calls[name],
+            launches_per_call=device[name] // calls[name],  # exact: check_launches held it
+            **kres[name],
         )
         for name in PER_FRAME
     ]

@@ -210,7 +210,7 @@ def test_keyframe_database_scores_exactly_like_jax(rng):
         flip = rng.random(size=(K, W, 32)) < rng.uniform(0.02, 0.4)
         bits ^= np.packbits(flip, axis=-1, bitorder="little").view(np.uint32)[..., 0]
         kfs.append(_KF(kid, bits, (rng.random(K) < 0.85).astype(np.float32)))
-    jdb, tdb = JKeyFrameDatabase(capacity_hint=8), KeyFrameDatabase(capacity_hint=8)
+    jdb, tdb = JKeyFrameDatabase(capacity_hint=8), KeyFrameDatabase(capacity_hint=8, device="cpu")
     q = _KF(99, base, (rng.random(K) < 0.9).astype(np.float32))
 
     def check():

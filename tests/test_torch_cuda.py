@@ -7,17 +7,20 @@ use; this file and its helper import no JAX, the repo's conftest does):
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
 
 from torch_parity import QVGA, image01, stereo_scene
-from tpuslam_torch.kernels import image, lsd
+from tpuslam_torch.kernels import cuda_lib, image, lsd
 
 pytestmark = pytest.mark.cuda
 
-# slice shapes, a QVGA frame and a ragged one (partial 32x8 blocks)
-SHAPES = [(480, 640), (384, 512), (240, 320), (37, 53)]
+# slice shapes, a QVGA frame, KITTI width and a ragged one (partial tiles;
+# smaller than one CCL window)
+SHAPES = [(480, 640), (384, 512), (240, 320), (376, 1241), (37, 53)]
 
 
 @pytest.fixture
@@ -33,7 +36,7 @@ def _image(shape, dev, seed=0):
 
 
 @pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("sigma", [0.75, 0.9375])
+@pytest.mark.parametrize("sigma", [0.75, 0.9375, 5.0])  # radius 3, 3, 15
 def test_blur_kernel_matches_plain(dev, shape, sigma):
     x = _image(shape, dev)
     out = image.gaussian_blur(x, sigma)
@@ -41,6 +44,15 @@ def test_blur_kernel_matches_plain(dev, shape, sigma):
     torch.cuda.synchronize()
     # same float32 taps, tap-order sums against cuDNN's order, values in [0, 1]
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("sigma", [0.75, 5.0])
+def test_blur_kernel_bit_equal_to_two_pass_form(dev, shape, sigma):
+    """One launch through shared memory, the same taps in the same order
+    and a float32 intermediate: bit for bit the two-launch form."""
+    x = _image(shape, dev, seed=2)
+    assert torch.equal(image.gaussian_blur(x, sigma), image._blur_two_pass_cuda(x, sigma))
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -55,24 +67,39 @@ def test_gradients_kernel_matches_plain(dev, shape):
     torch.testing.assert_close(out[3], ref[3], rtol=0, atol=1e-5)  # atan2f ulp
 
 
-@pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("rounds", [0, 1, 7, 64])
-def test_ccl_kernel_bit_exact(dev, shape, rounds):
-    rs = np.random.RandomState(rounds)
+def _ccl_planes(shape, seed):
+    rs = np.random.RandomState(seed)
     H, W = shape
     support = rs.rand(H, W) < 0.6
     idx = np.arange(H * W, dtype=np.int32).reshape(H, W)
-    planes = [
+    return [
         np.where(support, idx, H * W).astype(np.int32),
         np.where(support, idx, -1).astype(np.int32),
         rs.randint(0, 256, (H, W)).astype(np.int32),  # border bits: wrap-around
     ]
+
+
+K = lsd.CCL_TILE[2]
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("rounds", [0, 1, 7, K, K + 1, 64])
+def test_ccl_kernel_bit_exact(dev, shape, rounds):
+    planes = _ccl_planes(shape, rounds)
     lab0, mx0, cb = (torch.from_numpy(p).to(dev) for p in planes)
     out = lsd.ccl_propagate(lab0, mx0, cb, rounds)
     ref = lsd._ccl_torch(lab0, mx0, cb, rounds)
     torch.cuda.synchronize()
     assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
     assert torch.equal(lab0, torch.from_numpy(planes[0]).to(dev))  # inputs untouched
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_ccl_kernel_bit_equal_to_per_round_form(dev, shape):
+    lab0, mx0, cb = (torch.from_numpy(p).to(dev) for p in _ccl_planes(shape, 3))
+    out = lsd.ccl_propagate(lab0, mx0, cb, 64)
+    ref = lsd._ccl_per_round_cuda(lab0, mx0, cb, 64)
+    assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
 
 
 def test_ccl_kernel_bit_exact_on_detector_plane(dev):
@@ -86,16 +113,23 @@ def test_ccl_kernel_bit_exact_on_detector_plane(dev):
 
 def test_launch_counts(dev):
     x = _image((64, 96), dev)
-    before = dict(image.LAUNCHES), dict(lsd.LAUNCHES)
+    before = [dict(d) for d in (image.LAUNCHES, lsd.LAUNCHES, image.KERNEL_LAUNCHES, lsd.KERNEL_LAUNCHES)]
     image.gaussian_blur(x, 0.75)
     image.image_gradients(x)
     image.gaussian_blur_torch(x, 0.75)  # plain versions count nothing
     image.image_gradients_torch(x)
+    image._blur_two_pass_cuda(x, 0.75)  # nor do the baseline forms
     i = torch.zeros((64, 96), dtype=torch.int32, device=dev)
-    lsd.ccl_propagate(i, i, i, 5)  # one call of 5 launches counts once
+    lsd.ccl_propagate(i, i, i, 64)  # one call of ceil(64 / k) launches counts once
+    lsd._ccl_per_round_cuda(i, i, i, 5)
+    lsd.ccl_propagate(i, i, i, 0)  # a copy, no launch
     assert image.LAUNCHES["blur"] == before[0]["blur"] + 1
     assert image.LAUNCHES["gradients"] == before[0]["gradients"] + 1
-    assert lsd.LAUNCHES["ccl"] == before[1]["ccl"] + 1
+    assert lsd.LAUNCHES["ccl"] == before[1]["ccl"] + 2
+    # launches per call: 1 for blur and gradients, ceil(64 / k) for CCL
+    assert image.KERNEL_LAUNCHES["blur"] == before[2]["blur"] + 1
+    assert image.KERNEL_LAUNCHES["gradients"] == before[2]["gradients"] + 1
+    assert lsd.KERNEL_LAUNCHES["ccl"] == before[3]["ccl"] + -(-64 // K)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -108,6 +142,28 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     i = torch.zeros((16, 16), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
         lsd.ccl_propagate(i, i, torch.zeros((16, 17), dtype=torch.int32, device=dev), 3)
+    # the C function takes only the built tile, the wrapper's CCL_TILE
+    p, n = i.data_ptr(), ctypes.c_int(0)
+    for tile in ((32, 32, 16), (16, 16, 4)):
+        code = cuda_lib.library().tpuslam_ccl(p, p, p, p, p, p, p, 16, 16, 3, *tile, ctypes.byref(n), cuda_lib.stream_of(i))
+        assert code != 0 and n.value == 0
+    with pytest.raises(RuntimeError, match="CUDA error"):  # radius 16: more taps than the kernel takes
+        image.gaussian_blur(torch.zeros((16, 16), device=dev), 5.3)
+
+
+def test_system_runs_on_the_card_by_default(dev):
+    """No device argument: System, its tracker, mapper and database are on
+    the card, and a frame goes through the kernels."""
+    from tpuslam_torch.system import System
+
+    _, frames = stereo_scene(2)
+    s = System(QVGA, loop_closing=False)
+    assert s.tracker.device.type == s.mapper.device.type == s.kf_db.device.type == "cuda"
+    before = lsd.LAUNCHES["ccl"]
+    for f, (il, ir) in enumerate(frames):
+        s.track_stereo(il, ir, 0.05 * f)
+    assert lsd.LAUNCHES["ccl"] > before
+    assert all(r.state.name == "OK" for r in s.trajectory)
 
 
 def test_slice_on_card_tracks_like_cpu(dev):

@@ -79,7 +79,7 @@ def test_assemble_and_apply_match_jax(jax_run):
     cfg = jlba.LocalBAConfig()
     tmap = slam_map_from(map_state(js.map))
     jprob, jctx = jlba.assemble_problem(js.map, center, J_CAM, cfg)
-    tprob, tctx = tlba.assemble_problem(tmap, center, T_CAM, tlba.LocalBAConfig())
+    tprob, tctx = tlba.assemble_problem(tmap, center, T_CAM, tlba.LocalBAConfig(), device="cpu")
     assert len(jctx["window"]) >= 3
     for name in jprob._fields:
         a, b = np.asarray(getattr(jprob, name)), np_of(getattr(tprob, name))
@@ -138,7 +138,7 @@ def test_mapper_event_matches_jax(jax_run, kid):
     ev = next(e for e in events if e["kid"] == kid)
     before, recent, kf_count = ev["before"]
     tmap = slam_map_from(before)
-    mapper = LocalMapper(tmap, T_CAM, mapper_config_from(js.mapper.cfg))
+    mapper = LocalMapper(tmap, T_CAM, mapper_config_from(js.mapper.cfg), device="cpu")
     mapper._recent, mapper._kf_count = dict(recent), kf_count
     mapper.process(tmap.keyframes[kid])
     got, want = map_state(tmap), ev["after"]

@@ -33,7 +33,9 @@ def _pair(n_frames, n_segments=140, seed=0):
     rng = np.random.default_rng(seed)
     scene = make_wireframe_scene(rng, n_segments=n_segments, n_frames=n_frames, cam=J_CAM, motion_scale=0.02)
     js = JSystem(J_CAM, sensor="stereo", loop_closing=False, tracker_cfg=JTrackerConfig(max_frames_between_kf=4))
-    ts = System(T_CAM, sensor="stereo", loop_closing=False, tracker_cfg=TrackerConfig(max_frames_between_kf=4))
+    ts = System(
+        T_CAM, sensor="stereo", loop_closing=False, tracker_cfg=TrackerConfig(max_frames_between_kf=4), device="cpu"
+    )
     for f in range(n_frames):
         feats, _ = synthetic_frame_features(scene, f, noise_px=0.3, rng=rng, with_depth=True)
         _feed(js, ts, feats, f, f * 0.05)

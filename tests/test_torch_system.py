@@ -86,20 +86,52 @@ def test_map_and_trajectory_outputs(runs, tmp_path):
 
 
 def test_unported_configurations_raise():
-    s = System(QVGA, sensor="stereo", loop_closing=False)  # mapping=True is ported
+    s = System(QVGA, sensor="stereo", loop_closing=False, device="cpu")  # mapping=True is ported
     assert s.mapper is not None and s.tracker.kf_db is s.kf_db
     with pytest.raises(NotImplementedError, match="loop_closing"):
-        System(QVGA, sensor="stereo")
+        System(QVGA, sensor="stereo", device="cpu")
     with pytest.raises(NotImplementedError, match="loop_closing"):
-        System(QVGA, sensor="stereo", mapping=False)
+        System(QVGA, sensor="stereo", mapping=False, device="cpu")
     with pytest.raises(NotImplementedError, match="mono"):
-        System(QVGA, sensor="mono", mapping=False, loop_closing=False)
+        System(QVGA, sensor="mono", mapping=False, loop_closing=False, device="cpu")
     with pytest.raises(NotImplementedError, match="base_scale"):
         s = System(
             QVGA, mapping=False, loop_closing=False,
             tracker_cfg=TrackerConfig(frontend=FrontendParams(base_scale=0.5, prescaled=True)),
+            device="cpu",
         )
         s.track_stereo(np.zeros((240, 320), np.uint8), np.zeros((240, 320), np.uint8), 0.0)
+
+
+def _entry_points():
+    from tpuslam_torch.backend import local_ba
+    from tpuslam_torch.backend.loop_closing import KeyFrameDatabase
+    from tpuslam_torch.backend.mapping import LocalMapper
+    from tpuslam_torch.frontend.tracking import Tracker
+    from tpuslam_torch.slammap.map import SlamMap
+
+    return {
+        "System": lambda **kw: System(QVGA, sensor="stereo", loop_closing=False, **kw),
+        "Tracker": lambda **kw: Tracker(QVGA, SlamMap(), **kw),
+        "LocalMapper": lambda **kw: LocalMapper(SlamMap(), QVGA, **kw),
+        "KeyFrameDatabase": lambda **kw: KeyFrameDatabase(**kw),
+        "build_problem": lambda **kw: local_ba.build_problem(SlamMap(), [0], [], [], (8, 8, 8), **kw),
+        "assemble_problem": lambda **kw: local_ba.assemble_problem(SlamMap(), 0, QVGA, **kw),
+        "local_bundle_adjustment": lambda **kw: local_ba.local_bundle_adjustment(SlamMap(), 0, QVGA, **kw),
+    }
+
+
+@pytest.mark.parametrize("name", list(_entry_points()))
+def test_entry_points_default_to_the_card(name, monkeypatch):
+    """Without device=..., each entry point asks for the card; without one it
+    raises instead of running on the CPU."""
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    make = _entry_points()[name]
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        make()
+    if name in ("System", "Tracker", "LocalMapper", "KeyFrameDatabase"):  # objects: build on the CPU when asked
+        obj = make(device="cpu")
+        assert getattr(obj, "tracker", obj).device.type == "cpu"
 
 
 def test_scene_generator_matches_jax():

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from tpuslam_torch.backend.lm import BAProblem, BAState, LMConfig, chi2_outlier_mask, run_lm
+from tpuslam_torch.device import resolve_device
 from tpuslam_torch.geometry.camera import Intrinsics
 from tpuslam_torch.geometry.plucker import plucker_normalize
 from tpuslam_torch.slammap.map import SlamMap
@@ -86,7 +87,7 @@ def build_problem(
     fixed: List[int],
     line_ids: List[int],
     caps: Tuple[int, int, int],
-    device="cpu",
+    device="cuda",
 ) -> Tuple[BAProblem, List[int], List[int], np.ndarray, np.ndarray]:
     """Gather a padded BAProblem. Returns (problem, kf_order, line_order,
     obs_table (n_obs, 3) of [kf_pos, line_pos, feature_slot], p_obs_table
@@ -94,6 +95,7 @@ def build_problem(
     observation dicts, as in the JAX package. The point blocks are the empty
     M = OP = 1 stubs of a line-only map (the point gather comes with hybrid
     points)."""
+    device = resolve_device(device)
     P, L, OL = caps
     M, OP = 1, 1
     kf_order = window + fixed
@@ -180,10 +182,11 @@ def assemble_problem(
     center_kid: int,
     cam: Intrinsics,
     cfg: LocalBAConfig = LocalBAConfig(),
-    device="cpu",
+    device="cuda",
 ):
     """Gather the padded window problem on ``device``. Returns (BAProblem,
     ctx), ctx carrying what `apply_result` needs for the write-back."""
+    device = resolve_device(device)
     window, line_ids = slam_map.local_window(center_kid, cfg.window_size)
     window = sorted(window)
     st = slam_map.lines
@@ -321,13 +324,14 @@ def local_bundle_adjustment(
     center_kid: int,
     cam: Intrinsics,
     cfg: LocalBAConfig = LocalBAConfig(),
-    device="cpu",
+    device="cuda",
     solve_ms_by_rung: Dict[tuple, List[float]] | None = None,
 ) -> LocalBAStats:
     """Synchronous windowed BA around `center_kid`: assemble, solve on
     ``device``, apply. Given ``solve_ms_by_rung``, the solve's wall ms
     (assembly excluded, read back included) is appended under the problem's
     (P, L, OL) rung."""
+    device = resolve_device(device)
     prob, ctx = assemble_problem(slam_map, center_kid, cam, cfg, device=device)
     t0 = time.perf_counter()
     res = solve_in_process(prob, cam, cfg)  # ends in a read back

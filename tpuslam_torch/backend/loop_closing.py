@@ -17,6 +17,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from tpuslam_torch.device import resolve_device
 from tpuslam_torch.kernels.match import hamming_distance_matrix
 from tpuslam_torch.slammap.map import KeyFrame
 
@@ -53,11 +54,11 @@ class KeyFrameDatabase:
     keyframes leave tombstone rows, compacted once they outnumber the live
     rows."""
 
-    def __init__(self, capacity_hint: int = 64, point_slots: int = 0, device="cpu"):
+    def __init__(self, capacity_hint: int = 64, point_slots: int = 0, device="cuda"):
         if point_slots:
             raise NotImplementedError("point descriptor rows come with hybrid points, not ported yet")
         self._cap0 = max(8, int(capacity_hint))
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.clear()
 
     def clear(self):

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from tpuslam_torch.backend.local_ba import LocalBAConfig, LocalBAStats, local_bundle_adjustment
+from tpuslam_torch.device import resolve_device
 from tpuslam_torch.frontend.matcher import ProjectionSearchParams, search_by_projection
 from tpuslam_torch.geometry.camera import Intrinsics
 from tpuslam_torch.slammap.map import KeyFrame, SlamMap, features_to_device
@@ -58,7 +59,7 @@ class LocalMapper:
         cam: Intrinsics,
         cfg: MapperConfig = MapperConfig(),
         mono: bool = False,
-        device="cpu",
+        device="cuda",
     ):
         if mono:
             raise NotImplementedError(
@@ -68,7 +69,7 @@ class LocalMapper:
         self.map = slam_map
         self.cam = cam
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._recent: Dict[int, int] = {}  # line id -> kf id at creation
         self._kf_count = 0
         self.last_ba: LocalBAStats | None = None

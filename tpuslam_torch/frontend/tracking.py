@@ -25,6 +25,7 @@ import torch
 
 from tpuslam_torch.backend.dlt import dlt_lines_pose, image_line_coeffs
 from tpuslam_torch.backend.pose_opt import PoseOptConfig
+from tpuslam_torch.device import resolve_device
 from tpuslam_torch.frontend.frame import (
     FrameFeatures,
     FrontendParams,
@@ -86,11 +87,11 @@ class FrameResult:
 class Tracker:
     """Per-frame stereo tracking over a shared SlamMap."""
 
-    def __init__(self, cam: Intrinsics, slam_map: SlamMap, cfg: Optional[TrackerConfig] = None, device="cpu"):
+    def __init__(self, cam: Intrinsics, slam_map: SlamMap, cfg: Optional[TrackerConfig] = None, device="cuda"):
         self.cam = cam
         self.map = slam_map
         self.cfg = cfg if cfg is not None else TrackerConfig()
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.state = TrackingState.NOT_INITIALIZED
         self.T_cw = np.eye(4, dtype=np.float32)
         self.velocity = np.eye(4, dtype=np.float32)  # T_curr @ inv(T_last)

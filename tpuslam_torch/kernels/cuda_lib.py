@@ -87,13 +87,17 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     lib = ctypes.CDLL(str(build()))
-    P, I = ctypes.c_void_p, ctypes.c_int
+    P, I, IP = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
     lib.tpuslam_gradients.argtypes = [P, P, P, P, P, I, I, P]
     lib.tpuslam_gradients.restype = I
-    lib.tpuslam_blur.argtypes = [P, P, P, I, I, P, I, P]
+    lib.tpuslam_blur.argtypes = [P, P, I, I, P, I, IP, P]
     lib.tpuslam_blur.restype = I
-    lib.tpuslam_ccl.argtypes = [P, P, P, P, P, P, P, I, I, I, P]
+    lib.tpuslam_blur_two_pass.argtypes = [P, P, P, I, I, P, I, P]
+    lib.tpuslam_blur_two_pass.restype = I
+    lib.tpuslam_ccl.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, IP, P]
     lib.tpuslam_ccl.restype = I
+    lib.tpuslam_ccl_per_round.argtypes = [P, P, P, P, P, P, P, I, I, I, P]
+    lib.tpuslam_ccl_per_round.restype = I
     lib.tpuslam_error_string.argtypes = [I]
     lib.tpuslam_error_string.restype = ctypes.c_char_p
     return lib

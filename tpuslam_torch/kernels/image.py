@@ -4,11 +4,13 @@ Counterpart of ``tpuslam.kernels.image``. Two of the functions are kernel
 wrappers: :func:`gaussian_blur` and :func:`image_gradients` launch the CUDA
 kernels of ``csrc/image.cu`` on a CUDA tensor and run their plain PyTorch
 versions (:func:`gaussian_blur_torch`, :func:`image_gradients_torch`) on a
-CPU tensor. ``LAUNCHES`` counts the kernel calls made on the card.
+CPU tensor. ``LAUNCHES`` counts the kernel calls made on the card,
+``KERNEL_LAUNCHES`` the device launches of those calls (one per call).
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 
@@ -18,9 +20,9 @@ import torch.nn.functional as F
 
 from tpuslam_torch.kernels import cuda_lib
 
-# kernel calls made on the card, by kernel (a blur call counts once for its
-# two passes)
+# kernel calls made on the card, by kernel, and their device launches
 LAUNCHES = {"blur": 0, "gradients": 0}
+KERNEL_LAUNCHES = {"blur": 0, "gradients": 0}
 
 
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
@@ -54,19 +56,38 @@ def gaussian_blur_torch(img: torch.Tensor, sigma: float) -> torch.Tensor:
     return x[0, 0]
 
 
-def _blur_cuda(img: torch.Tensor, sigma: float) -> torch.Tensor:
+def _blur_host_taps(img: torch.Tensor, sigma: float) -> np.ndarray:
     cuda_lib.require_plane(img, torch.float32, "gaussian_blur")
-    taps = np.ascontiguousarray(_blur_taps(sigma).numpy())
+    return np.ascontiguousarray(_blur_taps(sigma).numpy())
+
+
+def _blur_cuda(img: torch.Tensor, sigma: float) -> torch.Tensor:
+    taps = _blur_host_taps(img, sigma)
     H, W = img.shape
-    tmp = torch.empty_like(img)
     out = torch.empty_like(img)
-    lib = cuda_lib.library()
-    code = lib.tpuslam_blur(
-        img.data_ptr(), tmp.data_ptr(), out.data_ptr(), H, W,
-        taps.ctypes.data, taps.size, cuda_lib.stream_of(img),
+    n = ctypes.c_int(0)
+    code = cuda_lib.library().tpuslam_blur(
+        img.data_ptr(), out.data_ptr(), H, W, taps.ctypes.data, taps.size, ctypes.byref(n), cuda_lib.stream_of(img)
     )
     cuda_lib.check(code, "gaussian_blur")
     LAUNCHES["blur"] += 1
+    KERNEL_LAUNCHES["blur"] += n.value
+    return out
+
+
+def _blur_two_pass_cuda(img: torch.Tensor, sigma: float) -> torch.Tensor:
+    """The two-pass form of the kernel (its first form): rows then columns
+    through a global intermediate plane in two launches, for timing and
+    bit-equality checks beside :func:`_blur_cuda` on the card. The front
+    end never calls it, and it counts no launches."""
+    taps = _blur_host_taps(img, sigma)
+    H, W = img.shape
+    tmp = torch.empty_like(img)
+    out = torch.empty_like(img)
+    code = cuda_lib.library().tpuslam_blur_two_pass(
+        img.data_ptr(), tmp.data_ptr(), out.data_ptr(), H, W, taps.ctypes.data, taps.size, cuda_lib.stream_of(img)
+    )
+    cuda_lib.check(code, "gaussian_blur (two pass)")
     return out
 
 
@@ -104,6 +125,7 @@ def _gradients_cuda(img: torch.Tensor):
     )
     cuda_lib.check(code, "image_gradients")
     LAUNCHES["gradients"] += 1
+    KERNEL_LAUNCHES["gradients"] += 1
     return gx, gy, mag, angle
 
 

@@ -5,7 +5,9 @@ label propagation is a kernel wrapper: :func:`ccl_propagate` launches the
 CUDA kernel of ``csrc/ccl.cu`` on a CUDA tensor and runs the plain PyTorch
 version :func:`_ccl_torch` on a CPU tensor; both are bit-equal to
 ``tpuslam.kernels.lsd._ccl_xla``. ``LAUNCHES["ccl"]`` counts kernel calls
-made on the card (one call is R launches, one per round).
+made on the card, ``KERNEL_LAUNCHES["ccl"]`` the device launches of those
+calls: each launch runs k rounds on shared-memory tiles (:data:`CCL_TILE`),
+so a call of R rounds is ceil(R / k) launches.
 
 Three places differ in form from the JAX code, not in result:
 
@@ -25,6 +27,7 @@ Three places differ in form from the JAX code, not in result:
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import NamedTuple
 
@@ -34,6 +37,15 @@ from tpuslam_torch.kernels import cuda_lib
 from tpuslam_torch.kernels.image import gaussian_blur, image_gradients, sqrt_rn
 
 LAUNCHES = {"ccl": 0}
+KERNEL_LAUNCHES = {"ccl": 0}
+
+# (TY, TX, k) of the CUDA kernel: each launch runs k synchronous rounds on a
+# TY x TX output tile inside a wrap-indexed (TY + 2k) x (TX + 2k) window in
+# shared memory. The wrapper passes it to the C function, and
+# tests/test_torch_ccl_tiles.py models the same schedule in numpy. The
+# fastest of the tiles timed at 480x640 on an H100 (csrc/ccl.cu, PERF.md),
+# and the only instance the library builds.
+CCL_TILE = (32, 32, 8)
 
 
 class LSDParams(NamedTuple):
@@ -90,22 +102,44 @@ def _ccl_torch(labels: torch.Tensor, maxlab: torch.Tensor, compat_bits: torch.Te
     return lab, mx
 
 
-def _ccl_cuda(labels: torch.Tensor, maxlab: torch.Tensor, compat_bits: torch.Tensor, rounds: int):
+def _check_ccl_planes(labels, maxlab, compat_bits):
     for t, name in ((labels, "labels"), (maxlab, "maxlab"), (compat_bits, "compat_bits")):
         cuda_lib.require_plane(t, torch.int32, f"ccl_propagate {name}")
     if not (labels.shape == maxlab.shape == compat_bits.shape):
         raise ValueError("ccl_propagate: planes differ in shape")
     if not (labels.device == maxlab.device == compat_bits.device):
         raise ValueError("ccl_propagate: planes on different devices")
+
+
+def _ccl_cuda(labels, maxlab, compat_bits, rounds: int):
+    _check_ccl_planes(labels, maxlab, compat_bits)
     H, W = labels.shape
     lab_out, mx_out, lab_tmp, mx_tmp = (torch.empty_like(labels) for _ in range(4))
+    n = ctypes.c_int(0)
     code = cuda_lib.library().tpuslam_ccl(
+        labels.data_ptr(), maxlab.data_ptr(), compat_bits.data_ptr(),
+        lab_out.data_ptr(), mx_out.data_ptr(), lab_tmp.data_ptr(), mx_tmp.data_ptr(),
+        H, W, int(rounds), *CCL_TILE, ctypes.byref(n), cuda_lib.stream_of(labels),
+    )
+    cuda_lib.check(code, "ccl_propagate")
+    LAUNCHES["ccl"] += 1
+    KERNEL_LAUNCHES["ccl"] += n.value
+    return lab_out, mx_out
+
+
+def _ccl_per_round_cuda(labels, maxlab, compat_bits, rounds: int):
+    """The per-round form of the kernel (its first form): one launch per
+    round, for timing and bit-equality checks beside :func:`_ccl_cuda` on
+    the card. The detector never calls it, and it counts no launches."""
+    _check_ccl_planes(labels, maxlab, compat_bits)
+    H, W = labels.shape
+    lab_out, mx_out, lab_tmp, mx_tmp = (torch.empty_like(labels) for _ in range(4))
+    code = cuda_lib.library().tpuslam_ccl_per_round(
         labels.data_ptr(), maxlab.data_ptr(), compat_bits.data_ptr(),
         lab_out.data_ptr(), mx_out.data_ptr(), lab_tmp.data_ptr(), mx_tmp.data_ptr(),
         H, W, int(rounds), cuda_lib.stream_of(labels),
     )
-    cuda_lib.check(code, "ccl_propagate")
-    LAUNCHES["ccl"] += 1
+    cuda_lib.check(code, "ccl_propagate (per round)")
     return lab_out, mx_out
 
 

@@ -5,7 +5,8 @@
     sys.map_lines(); sys.keyframe_graph()
     sys.save_trajectory_tum(path); sys.shutdown()
 
-Same signature as ``tpuslam.system.System`` plus ``device``. This port runs
+Same signature as ``tpuslam.system.System`` plus ``device``, the card
+unless ``device="cpu"`` is passed (without a card the default raises). This port runs
 stereo tracking with relocalization and, with ``mapping=True``, synchronous
 local mapping after each keyframe (culling, fusion, LM+Schur local BA on
 ``device``). ``loop_closing=True`` and ``sensor="mono"`` raise
@@ -23,6 +24,7 @@ import numpy as np
 
 from tpuslam_torch.backend.loop_closing import KeyFrameDatabase
 from tpuslam_torch.backend.mapping import LocalMapper, MapperConfig
+from tpuslam_torch.device import resolve_device
 from tpuslam_torch.frontend.tracking import FrameResult, Tracker, TrackerConfig, TrackingState
 from tpuslam_torch.geometry.camera import Intrinsics
 from tpuslam_torch.io.trajectory import save_trajectory_kitti, save_trajectory_tum
@@ -68,7 +70,7 @@ class System:
         log_path: Optional[str] = None,
         tracker_cfg: Optional[TrackerConfig] = None,
         mapper_cfg: Optional[MapperConfig] = None,
-        device="cpu",
+        device="cuda",
     ):
         if not isinstance(settings, Intrinsics):
             raise TypeError("settings: pass tpuslam_torch.Intrinsics (settings files are not ported yet)")
@@ -78,6 +80,7 @@ class System:
             raise ValueError(f"unknown sensor mode {sensor!r}")
         if loop_closing:
             raise NotImplementedError("loop_closing=True is not ported yet")
+        device = resolve_device(device)
         self.sensor = sensor
         self.cam = settings
         self.map = SlamMap()
