@@ -10,25 +10,33 @@ first failure and catches nothing):
    CUDA device is a failure (the script never falls back to the CPU);
 2. build: compile the hand-written CUDA kernels from tpuslam_torch/csrc;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the slice's two image shapes (480x640 and the 384x512 pyramid level):
-   blur within 1e-5 on [0, 1] images, gradients within 1e-3 on the 0..255
-   scale, connected-component propagation exactly equal; blur and CCL also
-   bit-equal to their baseline forms (their first forms: two launches;
-   one launch per round).
+   the slice's two image shapes (480x640 and the 384x512 pyramid level) and
+   at 240x320 (the half-resolution bench path's): blur within 1e-5 on
+   [0, 1] images, the LBD gradients form (gx, gy of the image times 255)
+   within 1e-3 on the 0..255 scale, connected-component propagation exactly
+   equal; the detector's fused front (lsd_front: prefilter, gradients,
+   support, compat plane, label seeds) with mag within 1e-3 and its integer
+   planes equal except where a threshold decides by less than 1e-3 (counted
+   and printed; any other difference fails). Each kernel is also held bit
+   for bit to its baseline form, the form it replaced: blur to two launches,
+   gradients to `img * 255` then the four-plane kernel, lsd_front to that
+   chain behind the blur kernel plus the eager compat loop (162 launches),
+   CCL to one launch per round.
    Device time per call: CUDA events around 100 back-to-back calls queued
    behind a spin kernel (so no host gap enters), the baseline forms in turns
    with the kernels (old, new, new, old); the blur's yardstick is one
    F.conv2d with the 7x7 outer product of the taps over a plane padded
-   once; each kernel's bound from its shape (bytes at 3.35 TB/s,
-   operations at 67 T/s). Gradients, unchanged since its first form, has
-   no baseline form: its baseline time is its own;
+   once; each kernel's bound from its shape and this run's data (bytes at
+   3.35 TB/s, operations at 67 T/s). Device launches per call of each form,
+   counted by torch.profiler over one call: 1 for lsd_front and gradients;
 4. the tracking slice: System(cam, sensor="stereo", mapping=False,
    loop_closing=False, device="cuda") over 40 rendered VGA stereo frames.
    Every frame after initialisation must track OK, at least 2 keyframes,
    ATE no worse than the JAX package's on the same frames + 0.01 m, and
    each kernel's call count equal to frames x its per-frame count, with
-   one device launch per call for blur and gradients and ceil(64 / k) for
-   CCL;
+   one device launch per call for blur, gradients and lsd_front and
+   ceil(64 / k) for CCL; then, on a fresh System, 3 steady frames under
+   torch.profiler: device busy ms and device launches per frame;
 5. the mapping slice: the same with mapping=True (local mapping and local
    BA at every keyframe, on the card). The same checks against the JAX
    package's mapping ATE, plus a local BA at every keyframe event after the
@@ -42,7 +50,8 @@ first failure and catches nothing):
    frame 20's, its kernel launches one frame's worth.
 
 Output: a {"kernels": [...]} JSON line (calls and launches per call from
-the mapping slice; times, bounds and errors at 480x640 from phase 3),
+the mapping slice; times, bounds, errors and profiled launches per call at
+480x640 from phase 3),
 the card line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -70,16 +79,18 @@ JAX_ATE_M = 0.007307378698761408
 JAX_MAPPING_ATE_M = 0.009802508959604729
 ATE_MARGIN_M = 0.01
 RELOC_FRAME = 20
-# kernel calls per stereo frame on the slice (two cameras): blur 3 per
-# camera (prefilter at 2 levels + pyramid), gradients 4 (detector + LBD at
-# 2 levels), propagation 2 (one per level)
-PER_FRAME = {"blur": 6, "gradients": 8, "ccl": 4}
+# kernel calls per stereo frame on the slice (two cameras, two levels each):
+# the pyramid's blur per camera; per camera and level the LBD gradients, the
+# detector's front (its prefilter blur inside) and the propagation
+PER_FRAME = {"blur": 2, "gradients": 4, "lsd_front": 4, "ccl": 4}
 KERNELS = {
     "blur": ("tpuslam_torch/csrc/image.cu", "tpuslam/kernels/pallas_image.py:148"),
     "gradients": ("tpuslam_torch/csrc/image.cu", "tpuslam/kernels/pallas_image.py:86"),
+    "lsd_front": ("tpuslam_torch/csrc/lsd_front.cu", "tpuslam/kernels/pallas_image.py:86"),
     "ccl": ("tpuslam_torch/csrc/ccl.cu", "tpuslam/kernels/pallas_ccl.py:121"),
 }
-TOL = {"blur": 1e-5, "gradients": 1e-3, "ccl": 0}
+TOL = {"blur": 1e-5, "gradients": 1e-3, "lsd_front": 1e-3, "ccl": 0}
+PROFILE_WARM, PROFILE_FRAMES = 10, 3  # frames before the profiled ones, profiled frames
 
 
 def fail(msg: str) -> None:
@@ -184,16 +195,22 @@ def host_paced_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
-def bound_us(name: str, H: int, W: int, ntaps: int, rounds: int, compat_bits: int):
+def bound_us(name: str, H: int, W: int, ntaps: int, rounds: int, compat_bits: int, n_support: int):
     """(least time in us, "bytes" or "operations") of one call at (H, W):
     each input read once and each output written once, at 3.35 TB/s, and
-    the operations these inputs need at 67 T/s. CCL's work depends on the
-    data: a min and a max per compat bit set, per round (`compat_bits` is
-    the number of bits set on the plane)."""
+    the operations these inputs need at 67 T/s. Data-dependent work is
+    counted for this run's planes: CCL's a min and a max per compat bit set
+    (`compat_bits` on the plane), per round; the front's compat test (two
+    products and a sum for the dot, two products for the threshold, a
+    compare) per direction of a supported pixel (`n_support`)."""
     px = H * W
     nbytes, ops = {
         "blur": (8 * px, 4 * ntaps * px),  # 1 plane in, 1 out; a multiply and an add per tap and pass
-        "gradients": (20 * px, 10 * px),  # 1 in, 4 out; differences, halvings, squares, sum, sqrt, atan2
+        "gradients": (12 * px, 8 * px),  # 1 in, gx and gy out; 4 scalings, 2 differences, 2 halvings
+        # 1 f32 in; mag, support (1 B), labels0, maxlab0, compat out. Blur,
+        # scale, differences, halvings, squares, sum, sqrt and the support
+        # compare per pixel, then the compat tests
+        "lsd_front": (21 * px, (4 * ntaps + 10) * px + 6 * 8 * n_support),
         "ccl": (20 * px, 2 * rounds * compat_bits),  # 3 int32 in, 2 out
     }[name]
     tb, to = nbytes / PEAK_BYTES_PER_S, ops / PEAK_OPS_PER_S
@@ -207,10 +224,48 @@ def in_turns(old, new):
     return (n1 + n2) / 2, (o1 + o2) / 2
 
 
+def device_events(prof):
+    """(device busy us, kernel launches, memcpy/memset events) of a
+    torch.profiler run, from its device-side events only (host ops repeat
+    their kernels' time)."""
+    from torch.autograd import DeviceType
+
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    n_copies = sum(e.count for e in dev if e.key.startswith(("Memcpy", "Memset")))
+    return sum(e.self_device_time_total for e in dev), sum(e.count for e in dev) - n_copies, n_copies
+
+
+def profiled(run, tries: int = 3):
+    """(profile, device_events) of run() under torch.profiler (CPU and CUDA
+    activity). A trace that holds no device event at all is taken again, up
+    to `tries` times: now and then a trace taken in a process that has taken
+    many (the kernel phase) gets none of its device events from the tracer."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for t in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        events = device_events(prof)
+        if events[0] > 0:
+            return prof, events
+        print(f"torch.profiler: no device events in trace {t + 1} of {tries}", flush=True)
+    fail("torch.profiler saw no device work")
+
+
+def profiled_launches(fn) -> int:
+    """Device kernel launches of one call of fn, counted by torch.profiler."""
+    fn()
+    return profiled(fn)[1][1]
+
+
 def kernel_phase(frames, card):
-    """Each kernel against its plain version (and the redesigned ones bit
-    for bit against their baseline forms) at 480x640 and 384x512, with device
-    times. Returns {name: fields of the kernels line at 480x640}."""
+    """Each kernel against its plain version and bit for bit against its
+    baseline form at 480x640, 384x512 and 240x320, with device times and
+    launches per call. Returns {name: fields of the kernels line at
+    480x640}."""
     import torch
     import torch.nn.functional as F
 
@@ -218,17 +273,22 @@ def kernel_phase(frames, card):
 
     left = torch.from_numpy(frames[0][0]).cuda().float() / 255.0
     level1 = image.build_pyramid(left, 2, 0.8)[1].contiguous()  # 384x512
+    half = image.resize_linear(left, (240, 320)).contiguous()
     params = lsd.LSDParams()
     R = params.ccl_rounds
     sigma = params.prefilter_sigma
     ntaps = image._blur_taps(sigma).numel()
+    want_lpc = launches_per_call()
     res = {}
-    for img in (left, level1):
+    for img in (left, level1, half):
         H, W = img.shape
-        g = img * 255.0
-        _, _, _, _, lab0, mx0, cb = lsd.ccl_inputs(img, params)
+        _, sup, lab0, mx0, cb = lsd.ccl_inputs(img, params)
         n_bits = int(sum(((cb >> d) & 1).sum() for d in range(8)))
-        print(f"ccl planes {(H, W)}: {int((cb != 0).sum())} pixels with compat bits, {n_bits} bits", flush=True)
+        n_support = int(sup.sum())
+        print(
+            f"front planes {(H, W)}: {n_support} supported pixels, {int((cb != 0).sum())} with compat bits, {n_bits} bits",
+            flush=True,
+        )
         taps = image._blur_taps(sigma).cuda()
         r = taps.numel() // 2
         padded = F.pad(img[None, None], (r, r, r, r), mode="replicate")
@@ -237,36 +297,46 @@ def kernel_phase(frames, card):
             # name: (kernel, plain, baseline form (reps), library call, reps of the kernel)
             "blur": (lambda: image.gaussian_blur(img, sigma), lambda: image.gaussian_blur_torch(img, sigma),
                      (lambda: image._blur_two_pass_cuda(img, sigma), REPS), lambda: F.conv2d(padded, taps2d), REPS),
-            # unchanged since its first form: no baseline form
-            "gradients": (lambda: image.image_gradients(g), lambda: image.image_gradients_torch(g), None, None, REPS),
+            "gradients": (lambda: image.gradients_xy(img, 255.0), lambda: image.gradients_xy_torch(img, 255.0),
+                          (lambda: image._gradients_cuda(img * 255.0)[:2], REPS), None, REPS),
+            # 162 launches a call: 5 calls fit the card's queue of pending launches
+            "lsd_front": (lambda: lsd.ccl_inputs(img, params), lambda: lsd.ccl_inputs_torch(img, params),
+                          (lambda: lsd._ccl_inputs_chain_cuda(img, params), 5), None, REPS),
             "ccl": (lambda: lsd.ccl_propagate(lab0, mx0, cb, R), lambda: lsd._ccl_torch(lab0, mx0, cb, R),
                     (lambda: lsd._ccl_per_round_cuda(lab0, mx0, cb, R), 10), None, REPS),
         }
         for name, (kern, plain, baseline, lib, reps) in cases.items():
-            outs_k, outs_p = (x if isinstance(x, tuple) else (x,) for x in (kern(), plain()))
+            outs_k, outs_p, outs_o = (x if isinstance(x, tuple) else (x,) for x in (kern(), plain(), baseline[0]()))
             torch.cuda.synchronize()
-            err = max(float((a.double() - b.double()).abs().max()) for a, b in zip(outs_k, outs_p))
-            if baseline:
-                outs_o = baseline[0]()
-                same_old = all(torch.equal(a, b) for a, b in zip(outs_k, outs_o if isinstance(outs_o, tuple) else (outs_o,)))
-                old_txt = f"bit-equal to the baseline form: {same_old}"
+            n_near = None
+            if name == "lsd_front":
+                gx, gy, _, _ = image.image_gradients_torch(image.gaussian_blur_torch(img, sigma) * 255.0)
+                err, n_near, n_other = lsd.front_disagreements(outs_k, outs_p, gx, gy, params, TOL[name])
+                within = err <= TOL[name] and n_other == 0
+                plain_txt = f"; integer planes differ at {n_near} pixels where a threshold decides by < 1e-3, {n_other} elsewhere"
             else:
-                same_old, old_txt = True, "unchanged (no baseline form)"
-            ok = err <= TOL[name] and same_old
-            print(f"kernel {name:9s} {(H, W)}: max_abs_err={err:.3g} (tol {TOL[name]}), {old_txt} {'ok' if ok else 'FAIL'}", flush=True)
+                err = max(float((a.double() - b.double()).abs().max()) for a, b in zip(outs_k, outs_p))
+                within, plain_txt = err <= TOL[name], ""
+            same_old = len(outs_k) == len(outs_o) and all(torch.equal(a, b) for a, b in zip(outs_k, outs_o))
+            ok = within and same_old
+            print(
+                f"kernel {name:9s} {(H, W)}: max_abs_err={err:.3g} (tol {TOL[name]}){plain_txt}, "
+                f"bit-equal to the baseline form: {same_old} {'ok' if ok else 'FAIL'}",
+                flush=True,
+            )
             if not ok:
                 fail(f"{name} kernel disagrees with its plain version or its baseline form at {(H, W)}")
-            if baseline:
-                dev_us, old_us = in_turns(baseline, (kern, reps))
-            else:
-                dev_us = old_us = device_us(kern, reps)
-            plain_ms = host_paced_ms(plain, 10 if name == "ccl" else REPS)
+            lpc, old_lpc = profiled_launches(kern), profiled_launches(baseline[0])
+            print(f"kernel {name:9s} {(H, W)}: device launches per call (torch.profiler) {lpc}, baseline form {old_lpc}", flush=True)
+            if name in ("gradients", "lsd_front") and lpc != want_lpc[name]:
+                fail(f"{name}: {lpc} device launches per call, expected {want_lpc[name]}")
+            dev_us, old_us = in_turns(baseline, (kern, reps))
+            plain_ms = host_paced_ms(plain, 10 if name in ("ccl", "lsd_front") else REPS)
             lib_ms = device_us(lib) / 1e3 if lib else None
-            b_us, b_by = bound_us(name, H, W, ntaps, R, n_bits)
+            b_us, b_by = bound_us(name, H, W, ntaps, R, n_bits, n_support)
             lib_txt = f"{lib_ms * 1e3:.3f} us" if lib else "none"
-            old_txt = f"baseline form {old_us:.3f} us" if baseline else "no baseline form"
             print(
-                f"kernel {name:9s} {(H, W)}: device {dev_us:.3f} us/call, {old_txt}, bound {b_us:.3f} us "
+                f"kernel {name:9s} {(H, W)}: device {dev_us:.3f} us/call, baseline form {old_us:.3f} us, bound {b_us:.3f} us "
                 f"({b_by}, {b_us / dev_us:.1%} of it), plain {plain_ms:.4f} ms (host-paced), library {lib_txt} on {card}",
                 flush=True,
             )
@@ -275,10 +345,52 @@ def kernel_phase(frames, card):
                 res[name] = dict(
                     shape=f"{H}x{W}", max_abs_err=err, device_us=dev_us, ms=dev_us / 1e3, plain_ms=plain_ms,
                     bound_us=b_us, bound_ms=b_us / 1e3, bound_by=b_by, library_ms=lib_ms, baseline_device_us=old_us,
+                    profiled_launches_per_call=lpc, baseline_launches_per_call=old_lpc,
                 )
+                if n_near is not None:
+                    res[name]["near_threshold_px"] = n_near
             else:
                 prev["max_abs_err"] = max(prev["max_abs_err"], err)
     return res
+
+
+def profile_phase(cam, frames, card) -> None:
+    """A fresh tracking System over PROFILE_WARM frames, then PROFILE_FRAMES
+    steady frames under torch.profiler: device busy ms and device launches
+    per frame, and the largest device items."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from tpuslam_torch.system import System
+
+    sys_ = System(cam, sensor="stereo", mapping=False, loop_closing=False, device="cuda")
+    for f in range(PROFILE_WARM):
+        sys_.track_stereo(*frames[f], f * 0.05)
+    n = PROFILE_FRAMES
+    todo = iter(range(PROFILE_WARM, len(frames)))  # a trace that is taken again tracks the next frames
+    walls = []
+
+    def run():
+        t = time.perf_counter()
+        for _ in range(n):
+            f = next(todo)
+            sys_.track_stereo(*frames[f], f * 0.05)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+
+    prof, (busy_us, n_kernels, n_copies) = profiled(run)
+    sys_.shutdown()
+    wall, first = walls[-1], PROFILE_WARM + n * (len(walls) - 1)
+    states = [r.state.name for r in sys_.trajectory[first:]]
+    print(
+        f"profile: frames {first}-{first + n - 1} {states}: device busy {busy_us / 1e3 / n:.3f} ms/frame, "
+        f"{n_kernels / n:.1f} kernel launches and {n_copies / n:.1f} memcpy/memset per frame, "
+        f"{wall * 1e3 / n:.2f} ms/frame under the profiler (device idle {1 - busy_us / 1e6 / wall:.1%}) on {card}",
+        flush=True,
+    )
+    dev = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA), key=lambda e: -e.self_device_time_total)
+    for e in dev[:10]:
+        print(f"profile: {e.self_device_time_total / 1e3 / n:8.3f} ms/frame {e.count / n:7.1f} calls/frame  {e.key[:90]}", flush=True)
 
 
 def reset_launches() -> None:
@@ -297,11 +409,11 @@ def read_launches():
 
 
 def launches_per_call() -> dict:
-    """Device launches each kernel call must make: one for blur and
-    gradients, ceil(R / k) for CCL."""
+    """Device launches each kernel call must make: one for blur, gradients
+    and lsd_front, ceil(R / k) for CCL."""
     from tpuslam_torch.kernels import lsd
 
-    return {"blur": 1, "gradients": 1, "ccl": -(-lsd.LSDParams().ccl_rounds // lsd.CCL_TILE[2])}
+    return {"blur": 1, "gradients": 1, "lsd_front": 1, "ccl": -(-lsd.LSDParams().ccl_rounds // lsd.CCL_TILE[2])}
 
 
 def check_launches(tag: str, launches, n_frames: int) -> None:
@@ -493,6 +605,7 @@ def main() -> int:
     kres = kernel_phase(frames, card)
 
     run_slice("slice", cam, scene, frames, card, mapping=False, jax_ate=JAX_ATE_M)
+    profile_phase(cam, frames, card)
     sys_, launches = run_slice("mapping", cam, scene, frames, card, mapping=True, jax_ate=JAX_MAPPING_ATE_M)
     ba_phase(sys_, cam, card)
     reloc_phase(sys_, scene, frames)

@@ -35,6 +35,17 @@ def _image(shape, dev, seed=0):
     return torch.rand(shape, generator=g).to(dev)
 
 
+def _bright_border(shape, dev, seed=0):
+    """A random image whose border rows and columns are random 0s and 1s:
+    strong gradients and compat bits next to the border."""
+    x = _image(shape, dev, seed).clone()
+    g = torch.Generator().manual_seed(seed + 1)
+    edge = (torch.rand(shape, generator=g) > 0.5).float().to(dev)
+    for sl in ((0, slice(None)), (-1, slice(None)), (slice(None), 0), (slice(None), -1)):
+        x[sl] = edge[sl]
+    return x
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("sigma", [0.75, 0.9375, 5.0])  # radius 3, 3, 15
 def test_blur_kernel_matches_plain(dev, shape, sigma):
@@ -65,6 +76,57 @@ def test_gradients_kernel_matches_plain(dev, shape):
     torch.testing.assert_close(out[1], ref[1], rtol=0, atol=0)
     torch.testing.assert_close(out[2], ref[2], rtol=0, atol=1e-3)  # 0..255 scale
     torch.testing.assert_close(out[3], ref[3], rtol=0, atol=1e-5)  # atan2f ulp
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_gradients_xy_kernel_bit_equal_to_two_launch_chain(dev, shape):
+    """Each sample scaled before differencing: bit for bit `img * 255` then
+    the four-plane gradients kernel, and the plain version."""
+    x = _image(shape, dev, seed=6)
+    gx, gy = image.gradients_xy(x, 255.0)
+    chain = image._gradients_cuda(x * 255.0)
+    plain = image.gradients_xy_torch(x, 255.0)
+    assert torch.equal(gx, chain[0]) and torch.equal(gy, chain[1])
+    assert torch.equal(gx, plain[0]) and torch.equal(gy, plain[1])
+
+
+FRONT_IMAGES = [(shape, "random") for shape in SHAPES] + [((65, 97), "bright border"), ((480, 640), "bright border"), ((240, 320), "rendered")]
+
+
+def _front_image(shape, kind, dev):
+    if kind == "rendered":
+        _, frames = stereo_scene(2)
+        return torch.from_numpy(image01(frames[1][0])).to(dev)
+    return _bright_border(shape, dev, seed=5) if kind == "bright border" else _image(shape, dev, seed=4)
+
+
+@pytest.mark.parametrize("shape,kind", FRONT_IMAGES)
+def test_front_kernel_bit_equal_to_chain(dev, shape, kind):
+    """One launch of the fused front against the chain it replaces (blur
+    kernel, `* 255`, gradients kernel, eager compat loop) on the card: every
+    plane bit for bit."""
+    x = _front_image(shape, kind, dev)
+    params = lsd.LSDParams()
+    got = lsd.ccl_inputs(x, params)
+    ref = lsd._ccl_inputs_chain_cuda(x, params)
+    assert [t.dtype for t in got] == [torch.float32, torch.bool, torch.int32, torch.int32, torch.int32]
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert int((got[4] != 0).sum()) > 20
+
+
+@pytest.mark.parametrize("shape,kind", FRONT_IMAGES)
+def test_front_kernel_matches_plain(dev, shape, kind):
+    """Against the plain version on the card, whose blur is cuDNN's: mag
+    within 1e-3 on the 0..255 scale; the integer planes differ only where a
+    threshold decides by less than 1e-3 (lsd.front_disagreements)."""
+    x = _front_image(shape, kind, dev)
+    params = lsd.LSDParams()
+    got = lsd.ccl_inputs(x, params)
+    plain = lsd.ccl_inputs_torch(x, params)
+    gx, gy, _, _ = image.image_gradients_torch(image.gaussian_blur_torch(x, params.prefilter_sigma) * 255.0)
+    err, _, n_other = lsd.front_disagreements(got, plain, gx, gy, params)
+    assert err <= 1e-3 and n_other == 0
 
 
 def _ccl_planes(shape, seed):
@@ -105,7 +167,7 @@ def test_ccl_kernel_bit_equal_to_per_round_form(dev, shape):
 def test_ccl_kernel_bit_exact_on_detector_plane(dev):
     _, frames = stereo_scene(2)
     x = torch.from_numpy(image01(frames[1][0])).to(dev)
-    _, _, _, _, lab0, mx0, cb = lsd.ccl_inputs(x, lsd.LSDParams())
+    _, _, lab0, mx0, cb = lsd.ccl_inputs(x, lsd.LSDParams())
     out = lsd.ccl_propagate(lab0, mx0, cb, 64)
     ref = lsd._ccl_torch(lab0, mx0, cb, 64)
     assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
@@ -116,19 +178,26 @@ def test_launch_counts(dev):
     before = [dict(d) for d in (image.LAUNCHES, lsd.LAUNCHES, image.KERNEL_LAUNCHES, lsd.KERNEL_LAUNCHES)]
     image.gaussian_blur(x, 0.75)
     image.image_gradients(x)
+    image.gradients_xy(x, 255.0)  # both gradient forms count under "gradients"
+    lsd.ccl_inputs(x)
     image.gaussian_blur_torch(x, 0.75)  # plain versions count nothing
     image.image_gradients_torch(x)
+    image.gradients_xy_torch(x, 255.0)
+    lsd.ccl_inputs_torch(x)
     image._blur_two_pass_cuda(x, 0.75)  # nor do the baseline forms
+    lsd._ccl_inputs_chain_cuda(x)
     i = torch.zeros((64, 96), dtype=torch.int32, device=dev)
     lsd.ccl_propagate(i, i, i, 64)  # one call of ceil(64 / k) launches counts once
     lsd._ccl_per_round_cuda(i, i, i, 5)
     lsd.ccl_propagate(i, i, i, 0)  # a copy, no launch
     assert image.LAUNCHES["blur"] == before[0]["blur"] + 1
-    assert image.LAUNCHES["gradients"] == before[0]["gradients"] + 1
+    assert image.LAUNCHES["gradients"] == before[0]["gradients"] + 2
+    assert lsd.LAUNCHES["lsd_front"] == before[1]["lsd_front"] + 1
     assert lsd.LAUNCHES["ccl"] == before[1]["ccl"] + 2
-    # launches per call: 1 for blur and gradients, ceil(64 / k) for CCL
+    # launches per call: 1 for blur, gradients and the front, ceil(64 / k) for CCL
     assert image.KERNEL_LAUNCHES["blur"] == before[2]["blur"] + 1
-    assert image.KERNEL_LAUNCHES["gradients"] == before[2]["gradients"] + 1
+    assert image.KERNEL_LAUNCHES["gradients"] == before[2]["gradients"] + 2
+    assert lsd.KERNEL_LAUNCHES["lsd_front"] == before[3]["lsd_front"] + 1
     assert lsd.KERNEL_LAUNCHES["ccl"] == before[3]["ccl"] + -(-64 // K)
 
 
@@ -149,6 +218,29 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         assert code != 0 and n.value == 0
     with pytest.raises(RuntimeError, match="CUDA error"):  # radius 16: more taps than the kernel takes
         image.gaussian_blur(torch.zeros((16, 16), device=dev), 5.3)
+    with pytest.raises(ValueError):
+        image.gradients_xy(torch.zeros((16, 32), device=dev)[:, ::2], 255.0)  # not contiguous
+
+
+def test_front_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    z = torch.zeros((16, 16), device=dev)
+    with pytest.raises(ValueError):
+        lsd.ccl_inputs(torch.zeros((16, 32), device=dev)[:, ::2])  # not contiguous
+    with pytest.raises(TypeError):
+        lsd.ccl_inputs(z.double())
+    for sigma in (5.3, 0.0):  # radius 16; no prefilter
+        with pytest.raises(ValueError, match="prefilter"):
+            lsd.ccl_inputs(z, lsd.LSDParams(prefilter_sigma=sigma))
+    with pytest.raises(ValueError, match="rho"):  # the mag-0 border in the support
+        lsd.ccl_inputs(z, lsd.LSDParams(quant=-1.0))
+    # the C function takes only the built tile and the halo of the taps' radius
+    taps = image._blur_taps(0.75).numpy()
+    p, n = z.data_ptr(), ctypes.c_int(0)
+    for tile, halo in ((16, 5), (32, 4), (32, 6)):
+        code = cuda_lib.library().tpuslam_lsd_front(
+            p, p, p, p, p, p, 16, 16, taps.ctypes.data, taps.size, 5.0, 0.9, tile, halo, ctypes.byref(n), cuda_lib.stream_of(z)
+        )
+        assert code != 0 and n.value == 0
 
 
 def test_system_runs_on_the_card_by_default(dev):
@@ -159,10 +251,13 @@ def test_system_runs_on_the_card_by_default(dev):
     _, frames = stereo_scene(2)
     s = System(QVGA, loop_closing=False)
     assert s.tracker.device.type == s.mapper.device.type == s.kf_db.device.type == "cuda"
-    before = lsd.LAUNCHES["ccl"]
+    before = {**image.LAUNCHES, **lsd.LAUNCHES}
     for f, (il, ir) in enumerate(frames):
         s.track_stereo(il, ir, 0.05 * f)
-    assert lsd.LAUNCHES["ccl"] > before
+    # per stereo frame: the pyramid's blur per camera; per camera and level
+    # the LBD gradients, the detector's front and its propagation
+    after = {**image.LAUNCHES, **lsd.LAUNCHES}
+    assert {k: after[k] - before[k] for k in after} == {"blur": 2 * 2, "gradients": 4 * 2, "lsd_front": 4 * 2, "ccl": 4 * 2}
     assert all(r.state.name == "OK" for r in s.trajectory)
 
 

@@ -115,7 +115,7 @@ def test_ccl_bit_exact_against_xla_and_pallas(rounds):
 
 def test_ccl_bit_exact_on_rendered_compat_plane(frame):
     """The detector's own compat plane (rendered frame), 32 rounds."""
-    _, _, _, _, labels0, maxlab0, compat = tlsd.ccl_inputs(torch.from_numpy(frame), tlsd.LSDParams())
+    _, _, labels0, maxlab0, compat = tlsd.ccl_inputs(torch.from_numpy(frame), tlsd.LSDParams())
     out = [np_of(a) for a in tlsd.ccl_propagate(labels0, maxlab0, compat, 32)]
     ref = [np.asarray(a) for a in jlsd._ccl_xla(*(jnp.asarray(np_of(t)) for t in (labels0, maxlab0, compat)), 32)]
     assert (np_of(compat) != 0).sum() > 1000  # a real plane, not an empty one
@@ -204,6 +204,7 @@ def test_cpu_tensors_run_the_plain_versions_and_count_nothing(frame):
     x = torch.from_numpy(frame)
     timage.gaussian_blur(x, 0.75)
     timage.image_gradients(x)
+    timage.gradients_xy(x, 255.0)
     tlsd.detect_lines(x, 64, tlsd.LSDParams(ccl_rounds=12))
     assert (timage.LAUNCHES, tlsd.LAUNCHES) == before
 
@@ -214,6 +215,10 @@ def test_wrappers_refuse_other_devices():
         timage.gaussian_blur(x, 0.75)
     with pytest.raises(ValueError, match="unsupported device"):
         timage.image_gradients(x)
+    with pytest.raises(ValueError, match="unsupported device"):
+        timage.gradients_xy(x, 255.0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tlsd.ccl_inputs(x)
     i = torch.zeros((16, 16), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         tlsd.ccl_propagate(i, i, i, 4)

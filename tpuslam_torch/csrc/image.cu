@@ -7,17 +7,25 @@
 // and follows the math of the main path's plain versions
 // (tpuslam/kernels/image.py image_gradients, gaussian_blur): the blur uses
 // edge-replicated reads, as image.gaussian_blur's edge padding does (the
-// Pallas twin renormalised its border taps instead).
+// Pallas twin renormalised its border taps instead). The detector's own
+// prefilter and gradients run inside lsd_front.cu's fused kernel.
 //
-// What bounds them: both are memory-bound stencils. The gradients read one
-// float per pixel and write four (gx, gy, mag, angle): 20 B/pixel, 6.1 MB
-// at 480x640, 1.8 us at 3.35 TB/s. The blur reads one plane and writes one:
-// 8 B/pixel, 2.5 MB at 480x640, 0.73 us; its 4 flops per tap and pixel
-// (0.13 us at 67 TFLOP/s for 7 taps) are far below that.
+// What bounds them: both are memory-bound stencils. gradients_xy_kernel, the
+// form the front end calls for the LBD descriptors, reads one float per
+// pixel and writes two (gx, gy of the image times `scale`): 12 B/pixel,
+// 3.7 MB at 480x640, 1.10 us at 3.35 TB/s. gradients_kernel (gx, gy, mag and
+// angle, the counterpart of the JAX image_gradients) writes four: 20
+// B/pixel, 1.8 us. The blur reads one plane and writes one: 8 B/pixel, 2.5 MB
+// at 480x640, 0.73 us; its 4 flops per tap and pixel (0.13 us at 67 TFLOP/s
+// for 7 taps) are far below that.
 //
 // Gradients: one thread per pixel, 32x8 blocks so a warp reads one
-// contiguous row segment (coalesced); atan2f fused into the same pass
-// (Mosaic had no atan2, so the Pallas kernel left the angle to XLA).
+// contiguous row segment (coalesced). gradients_xy_kernel multiplies each
+// sample by `scale` before differencing, so it is bit for bit the two-launch
+// chain `img * scale` then gradients_kernel, without the scaled plane's
+// round trip and without the angle plane no caller of the front end reads.
+// gradients_kernel fuses atan2f into the same pass (Mosaic had no atan2, so
+// the Pallas kernel left the angle to XLA).
 //
 // Blur (blur_tile_kernel): one launch. Each block loads the
 // (32 + 2r) x (32 + 2r) input window of its 32x32 output tile into shared
@@ -50,14 +58,12 @@
 
 #include <cuda_runtime.h>
 
+#include "taps.cuh"
+
 namespace {
 
-constexpr int kMaxTaps = 32;
-
-struct Taps {
-  float w[kMaxTaps];
-  int n;
-};
+using tpuslam::make_taps;
+using tpuslam::Taps;
 
 __global__ void gradients_kernel(const float* __restrict__ img, float* __restrict__ gx,
                                  float* __restrict__ gy, float* __restrict__ mag,
@@ -74,6 +80,16 @@ __global__ void gradients_kernel(const float* __restrict__ img, float* __restric
   gy[i] = gyv;
   mag[i] = (col_in && row_in) ? sqrtf(gxv * gxv + gyv * gyv) : 0.0f;
   angle[i] = atan2f(gxv, -gyv);
+}
+
+__global__ void gradients_xy_kernel(const float* __restrict__ img, float* __restrict__ gx,
+                                    float* __restrict__ gy, int H, int W, float scale) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= W || y >= H) return;
+  const long i = static_cast<long>(y) * W + x;
+  gx[i] = (x > 0 && x < W - 1) ? (img[i + 1] * scale - img[i - 1] * scale) * 0.5f : 0.0f;
+  gy[i] = (y > 0 && y < H - 1) ? (img[i + W] * scale - img[i - W] * scale) * 0.5f : 0.0f;
 }
 
 constexpr int kBlurTile = 32;  // output tile is kBlurTile x kBlurTile
@@ -147,13 +163,6 @@ dim3 grid_for(int H, int W, dim3 block) {
   return dim3((W + block.x - 1) / block.x, (H + block.y - 1) / block.y);
 }
 
-bool make_taps(const float* taps, int ntaps, Taps* t) {
-  if (ntaps < 1 || ntaps > kMaxTaps || ntaps % 2 == 0) return false;
-  t->n = ntaps;
-  for (int k = 0; k < ntaps; ++k) t->w[k] = taps[k];
-  return true;
-}
-
 }  // namespace
 
 extern "C" {
@@ -171,6 +180,16 @@ int tpuslam_gradients(const float* img, float* gx, float* gy, float* mag, float*
   return static_cast<int>(cudaGetLastError());
 }
 
+// (H, W) float32 image -> gx, gy of `img * scale`, each (H, W) float32, zero
+// on the image's first and last columns (gx) and rows (gy).
+int tpuslam_gradients_xy(const float* img, float* gx, float* gy, int H, int W, float scale,
+                         void* stream) {
+  const dim3 block(32, 8);
+  gradients_xy_kernel<<<grid_for(H, W, block), block, 0, static_cast<cudaStream_t>(stream)>>>(
+      img, gx, gy, H, W, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Separable blur of `img` into `out` in one launch. `taps` is a host array
 // of `ntaps` (odd, <= 32) float32 weights; *n_launches is increased by the
 // kernel launches made (1).
@@ -179,24 +198,9 @@ int tpuslam_blur(const float* img, float* out, int H, int W, const float* taps, 
   Taps t;
   if (!make_taps(taps, ntaps, &t)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (ntaps / 2) {
-    case 1: launch_blur<1>(img, out, H, W, t, s); break;
-    case 2: launch_blur<2>(img, out, H, W, t, s); break;
-    case 3: launch_blur<3>(img, out, H, W, t, s); break;
-    case 4: launch_blur<4>(img, out, H, W, t, s); break;
-    case 5: launch_blur<5>(img, out, H, W, t, s); break;
-    case 6: launch_blur<6>(img, out, H, W, t, s); break;
-    case 7: launch_blur<7>(img, out, H, W, t, s); break;
-    case 8: launch_blur<8>(img, out, H, W, t, s); break;
-    case 9: launch_blur<9>(img, out, H, W, t, s); break;
-    case 10: launch_blur<10>(img, out, H, W, t, s); break;
-    case 11: launch_blur<11>(img, out, H, W, t, s); break;
-    case 12: launch_blur<12>(img, out, H, W, t, s); break;
-    case 13: launch_blur<13>(img, out, H, W, t, s); break;
-    case 14: launch_blur<14>(img, out, H, W, t, s); break;
-    case 15: launch_blur<15>(img, out, H, W, t, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);  // radius 0: not a blur the port makes
-  }
+  const bool ok = tpuslam::with_radius(
+      ntaps / 2, [&](auto r) { launch_blur<decltype(r)::value>(img, out, H, W, t, s); });
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess) ++*n_launches;
   return static_cast<int>(err);

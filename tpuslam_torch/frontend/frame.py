@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from tpuslam_torch.geometry.camera import Distortion, Intrinsics
-from tpuslam_torch.kernels.image import build_pyramid, image_gradients
+from tpuslam_torch.kernels.image import build_pyramid, gradients_xy
 from tpuslam_torch.kernels.lbd import LBDParams, lbd_descriptors
 from tpuslam_torch.kernels.lsd import DetectedLines, LSDParams, detect_lines, topk_stable
 from tpuslam_torch.kernels.match import (
@@ -106,7 +106,7 @@ def extract_features(img: torch.Tensor, params: FrontendParams = FrontendParams(
     per_level = []
     for lim in build_pyramid(img, params.n_levels, params.scale):
         det: DetectedLines = detect_lines(lim, params.max_lines, params.lsd)
-        gx, gy, _, _ = image_gradients(lim * 255.0)
+        gx, gy = gradients_xy(lim, 255.0)
         desc, bits = lbd_descriptors(gx, gy, det.endpoints, params.lbd)
         per_level.append((det, desc, bits))
     return _merge_levels(per_level, params)

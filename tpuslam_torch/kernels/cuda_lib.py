@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels under ``tpuslam_torch/csrc``.
 
 The sources compile with ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded with ``ctypes``. The build happens at first
-use, from the package's own sources only, into ``tpuslam_torch/_build/``;
-the library's file name carries a hash of the sources and flags, so an
-edited source builds anew. A file lock serialises concurrent builds (several
-test workers may start one at once).
+with a plain C interface, loaded with ``ctypes``: one ``nvcc -c`` per source,
+all started at once, then one link. The build happens at first use, from the
+package's own sources only, into ``tpuslam_torch/_build/``; the library's
+file name carries a hash of the sources, headers and flags, so an edited
+source builds anew. A file lock serialises concurrent builds (several test
+workers may start one at once).
 
 Each C entry point takes data pointers, sizes and the CUDA stream, launches
 on that stream without synchronising, and returns ``cudaGetLastError()``;
@@ -28,13 +29,14 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("image.cu", "ccl.cu")
+SOURCES = ("image.cu", "lsd_front.cu", "ccl.cu")
+HEADERS = ("taps.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3",
     # no fused multiply-add: keeps float rounding equal to the plain versions'
     "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills, into the build log
 )
 
@@ -51,7 +53,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC_DIR / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -71,12 +73,24 @@ def build() -> Path:
             if out.exists():
                 return out
             tmp = out.with_name(f"{out.stem}.tmp{os.getpid()}.so")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC_DIR / s) for s in SOURCES)]
-            res = subprocess.run(cmd, capture_output=True, text=True, check=False)
-            out.with_suffix(".log").write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-            if res.returncode != 0:
+            objs = [out.with_name(f"{out.stem}.tmp{os.getpid()}.{Path(src).stem}.o") for src in SOURCES]
+            cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC_DIR / src)] for o, src in zip(objs, SOURCES)]
+            procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
+            logs = [p.communicate()[0] for p in procs]
+            link = [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]
+            failed = any(p.returncode for p in procs)
+            if not failed:
+                res = subprocess.run(link, capture_output=True, text=True, check=False)
+                logs.append(res.stdout + res.stderr)
+                failed = res.returncode != 0
+            out.with_suffix(".log").write_text(
+                "".join(" ".join(c) + "\n" + log for c, log in zip([*cmds, link], logs))
+            )
+            for o in objs:
+                o.unlink(missing_ok=True)
+            if failed:
                 tmp.unlink(missing_ok=True)
-                raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}")
+                raise RuntimeError(f"nvcc failed:\n{''.join(logs)}")
             os.replace(tmp, out)
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
@@ -88,8 +102,13 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     lib = ctypes.CDLL(str(build()))
     P, I, IP = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    F = ctypes.c_float
     lib.tpuslam_gradients.argtypes = [P, P, P, P, P, I, I, P]
     lib.tpuslam_gradients.restype = I
+    lib.tpuslam_gradients_xy.argtypes = [P, P, P, I, I, F, P]
+    lib.tpuslam_gradients_xy.restype = I
+    lib.tpuslam_lsd_front.argtypes = [P, P, P, P, P, P, I, I, P, I, F, F, I, I, IP, P]
+    lib.tpuslam_lsd_front.restype = I
     lib.tpuslam_blur.argtypes = [P, P, I, I, P, I, IP, P]
     lib.tpuslam_blur.restype = I
     lib.tpuslam_blur_two_pass.argtypes = [P, P, P, I, I, P, I, P]

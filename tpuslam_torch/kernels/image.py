@@ -1,11 +1,13 @@
 """Image pyramid and gradient field (torch).
 
-Counterpart of ``tpuslam.kernels.image``. Two of the functions are kernel
-wrappers: :func:`gaussian_blur` and :func:`image_gradients` launch the CUDA
-kernels of ``csrc/image.cu`` on a CUDA tensor and run their plain PyTorch
-versions (:func:`gaussian_blur_torch`, :func:`image_gradients_torch`) on a
-CPU tensor. ``LAUNCHES`` counts the kernel calls made on the card,
-``KERNEL_LAUNCHES`` the device launches of those calls (one per call).
+Counterpart of ``tpuslam.kernels.image``. Three of the functions are kernel
+wrappers: :func:`gaussian_blur`, :func:`image_gradients` and
+:func:`gradients_xy` launch the CUDA kernels of ``csrc/image.cu`` on a CUDA
+tensor and run their plain PyTorch versions (:func:`gaussian_blur_torch`,
+:func:`image_gradients_torch`, :func:`gradients_xy_torch`) on a CPU tensor.
+``LAUNCHES`` counts the kernel calls made on the card, ``KERNEL_LAUNCHES``
+the device launches of those calls (one per call); both gradient forms
+count under "gradients". The ``_*_cuda`` functions launch without counting.
 """
 
 from __future__ import annotations
@@ -61,7 +63,8 @@ def _blur_host_taps(img: torch.Tensor, sigma: float) -> np.ndarray:
     return np.ascontiguousarray(_blur_taps(sigma).numpy())
 
 
-def _blur_cuda(img: torch.Tensor, sigma: float) -> torch.Tensor:
+def _blur_cuda(img: torch.Tensor, sigma: float):
+    """(blurred plane, device launches made)."""
     taps = _blur_host_taps(img, sigma)
     H, W = img.shape
     out = torch.empty_like(img)
@@ -70,9 +73,7 @@ def _blur_cuda(img: torch.Tensor, sigma: float) -> torch.Tensor:
         img.data_ptr(), out.data_ptr(), H, W, taps.ctypes.data, taps.size, ctypes.byref(n), cuda_lib.stream_of(img)
     )
     cuda_lib.check(code, "gaussian_blur")
-    LAUNCHES["blur"] += 1
-    KERNEL_LAUNCHES["blur"] += n.value
-    return out
+    return out, n.value
 
 
 def _blur_two_pass_cuda(img: torch.Tensor, sigma: float) -> torch.Tensor:
@@ -95,8 +96,19 @@ def gaussian_blur(img: torch.Tensor, sigma: float) -> torch.Tensor:
     """Separable Gaussian blur of an (H, W) float32 image, radius ceil(3 sigma),
     edge padding. Kernel on a CUDA tensor, plain version on a CPU tensor."""
     if cuda_lib.on_card(img):
-        return _blur_cuda(img, sigma)
+        out, n = _blur_cuda(img, sigma)
+        LAUNCHES["blur"] += 1
+        KERNEL_LAUNCHES["blur"] += n
+        return out
     return gaussian_blur_torch(img, sigma)
+
+
+def _central_differences(img: torch.Tensor):
+    gx = torch.zeros_like(img)
+    gy = torch.zeros_like(img)
+    gx[:, 1:-1] = (img[:, 2:] - img[:, :-2]) * 0.5
+    gy[1:-1, :] = (img[2:, :] - img[:-2, :]) * 0.5
+    return gx, gy
 
 
 def image_gradients_torch(img: torch.Tensor):
@@ -104,10 +116,7 @@ def image_gradients_torch(img: torch.Tensor):
 
     Returns (gx, gy, mag, angle), angle = atan2(gx, -gy) the level-line angle.
     """
-    gx = torch.zeros_like(img)
-    gy = torch.zeros_like(img)
-    gx[:, 1:-1] = (img[:, 2:] - img[:, :-2]) * 0.5
-    gy[1:-1, :] = (img[2:, :] - img[:-2, :]) * 0.5
+    gx, gy = _central_differences(img)
     mag = sqrt_rn(gx * gx + gy * gy)
     border = torch.zeros_like(img)
     border[1:-1, 1:-1] = 1.0
@@ -124,8 +133,6 @@ def _gradients_cuda(img: torch.Tensor):
         H, W, cuda_lib.stream_of(img),
     )
     cuda_lib.check(code, "image_gradients")
-    LAUNCHES["gradients"] += 1
-    KERNEL_LAUNCHES["gradients"] += 1
     return gx, gy, mag, angle
 
 
@@ -133,8 +140,42 @@ def image_gradients(img: torch.Tensor):
     """(gx, gy, mag, angle) of an (H, W) float32 image. Kernel on a CUDA
     tensor, plain version on a CPU tensor."""
     if cuda_lib.on_card(img):
-        return _gradients_cuda(img)
+        out = _gradients_cuda(img)
+        LAUNCHES["gradients"] += 1
+        KERNEL_LAUNCHES["gradients"] += 1
+        return out
     return image_gradients_torch(img)
+
+
+def gradients_xy_torch(img: torch.Tensor, scale: float):
+    """Plain version: (gx, gy) of ``img * scale``, bit for bit
+    ``image_gradients_torch(img * scale)[:2]``."""
+    return _central_differences(img * scale)
+
+
+def _gradients_xy_cuda(img: torch.Tensor, scale: float):
+    cuda_lib.require_plane(img, torch.float32, "gradients_xy")
+    H, W = img.shape
+    gx, gy = torch.empty_like(img), torch.empty_like(img)
+    code = cuda_lib.library().tpuslam_gradients_xy(
+        img.data_ptr(), gx.data_ptr(), gy.data_ptr(), H, W, scale, cuda_lib.stream_of(img)
+    )
+    cuda_lib.check(code, "gradients_xy")
+    return gx, gy
+
+
+def gradients_xy(img: torch.Tensor, scale: float):
+    """(gx, gy) of ``img * scale`` for an (H, W) float32 image, in one pass
+    that reads ``img`` and writes only gx and gy (the LBD descriptors read
+    nothing else). Kernel on a CUDA tensor, plain version on a CPU tensor;
+    each sample is scaled before differencing, so the two agree bit for bit
+    with ``image_gradients(img * scale)[:2]``."""
+    if cuda_lib.on_card(img):
+        out = _gradients_xy_cuda(img, scale)
+        LAUNCHES["gradients"] += 1
+        KERNEL_LAUNCHES["gradients"] += 1
+        return out
+    return gradients_xy_torch(img, scale)
 
 
 def pyramid_shapes(height: int, width: int, n_levels: int, scale: float = 0.8):

@@ -1,13 +1,20 @@
 """LSD-style line segment detector by connected-component labelling (torch).
 
-Counterpart of ``tpuslam.kernels.lsd``; see that module for the method. The
-label propagation is a kernel wrapper: :func:`ccl_propagate` launches the
-CUDA kernel of ``csrc/ccl.cu`` on a CUDA tensor and runs the plain PyTorch
-version :func:`_ccl_torch` on a CPU tensor; both are bit-equal to
-``tpuslam.kernels.lsd._ccl_xla``. ``LAUNCHES["ccl"]`` counts kernel calls
-made on the card, ``KERNEL_LAUNCHES["ccl"]`` the device launches of those
-calls: each launch runs k rounds on shared-memory tiles (:data:`CCL_TILE`),
-so a call of R rounds is ceil(R / k) launches.
+Counterpart of ``tpuslam.kernels.lsd``; see that module for the method. Two
+steps are kernel wrappers, each launching a CUDA kernel on a CUDA tensor and
+running its plain PyTorch version on a CPU tensor:
+
+- :func:`ccl_inputs`, the detector's front (prefilter, gradients, support,
+  compat plane, label seeds): one launch of ``csrc/lsd_front.cu``'s fused
+  kernel per call; plain version :func:`ccl_inputs_torch`.
+- :func:`ccl_propagate`, the label propagation (``csrc/ccl.cu``); plain
+  version :func:`_ccl_torch`. Both are bit-equal to
+  ``tpuslam.kernels.lsd._ccl_xla``. Each launch runs k rounds on
+  shared-memory tiles (:data:`CCL_TILE`), so a call of R rounds is
+  ceil(R / k) launches.
+
+``LAUNCHES`` counts the kernel calls made on the card, ``KERNEL_LAUNCHES``
+the device launches of those calls, under "lsd_front" and "ccl".
 
 Three places differ in form from the JAX code, not in result:
 
@@ -33,11 +40,23 @@ from typing import NamedTuple
 
 import torch
 
-from tpuslam_torch.kernels import cuda_lib
-from tpuslam_torch.kernels.image import gaussian_blur, image_gradients, sqrt_rn
+from tpuslam_torch.kernels import cuda_lib, image
 
-LAUNCHES = {"ccl": 0}
-KERNEL_LAUNCHES = {"ccl": 0}
+LAUNCHES = {"lsd_front": 0, "ccl": 0}
+KERNEL_LAUNCHES = {"lsd_front": 0, "ccl": 0}
+
+# Output tile side of the fused front kernel (csrc/lsd_front.cu): each block
+# reads the edge-clamped (T + 2h) x (T + 2h) window around its T x T tile,
+# h = front_halo(r) for a prefilter of radius r. The wrapper passes T and h
+# to the C function, which refuses any other pair, and
+# tests/test_torch_lsd_front.py models the same tiling in numpy.
+FRONT_TILE = 32
+
+
+def front_halo(radius: int) -> int:
+    """The front kernel's halo: the blur's radius, 1 for the central
+    differences and 1 for the compat neighbours."""
+    return radius + 2
 
 # (TY, TX, k) of the CUDA kernel: each launch runs k synchronous rounds on a
 # TY x TX output tile inside a wrap-indexed (TY + 2k) x (TX + 2k) window in
@@ -163,7 +182,7 @@ def _hypot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a, b = torch.abs(a), torch.abs(b)
     hi, lo = torch.maximum(a, b), torch.minimum(a, b)
     safe = torch.where(hi == 0, torch.ones_like(hi), hi)
-    return torch.where(hi == 0, hi, hi * sqrt_rn(1 + torch.square(lo / safe)))
+    return torch.where(hi == 0, hi, hi * image.sqrt_rn(1 + torch.square(lo / safe)))
 
 
 def _principal_direction(mxx, myy, mxy):
@@ -178,34 +197,125 @@ def _principal_direction(mxx, myy, mxy):
     return ev / torch.clamp(torch.linalg.norm(ev, dim=-1, keepdim=True), min=1e-9)
 
 
-def ccl_inputs(img: torch.Tensor, params: LSDParams = LSDParams()):
-    """The detector up to label propagation: prefilter, gradients, support
-    mask and the bit-packed neighbour-compatibility plane. Returns (gx, gy,
-    mag, support, labels0, maxlab0, compat_bits); the last three are what
-    :func:`ccl_propagate` takes."""
-    H, W = img.shape
+def _thresholds(params: LSDParams):
+    """(rho, cos_tol): the support threshold on the 0..255 gradient scale
+    and the cosine of the angle tolerance."""
+    return params.quant / math.sin(params.angle_tol), math.cos(params.angle_tol)
+
+
+def _front_planes(gx, gy, mag, params: LSDParams):
+    """Support mask, bit-packed neighbour-compatibility plane (angle
+    agreement through the gradient dot product, as in the JAX package) and
+    label seeds from the gradients; returns what :func:`ccl_inputs` does."""
+    H, W = mag.shape
     N = H * W
-    dev = img.device
-    if params.prefilter_sigma > 0:
-        img = gaussian_blur(img, params.prefilter_sigma)
-    gx, gy, mag, _ = image_gradients(img * 255.0)  # thresholds on 0..255
-
-    rho = params.quant / math.sin(params.angle_tol)
+    rho, cos_tol = _thresholds(params)
     support = mag > rho
-
-    # neighbour compatibility as one bit-packed int32 plane (angle agreement
-    # through the gradient dot product, as in the JAX package)
-    cos_tol = math.cos(params.angle_tol)
-    compat_bits = torch.zeros((H, W), dtype=torch.int32, device=dev)
+    compat_bits = torch.zeros((H, W), dtype=torch.int32, device=mag.device)
     for d, (dy, dx) in enumerate(_OFFSETS):
         dots = gx * _shift(gx, dy, dx) + gy * _shift(gy, dy, dx)
         ok = support & _shift(support, dy, dx) & (dots > cos_tol * mag * _shift(mag, dy, dx))
         compat_bits = compat_bits | (ok.to(torch.int32) << d)
 
-    idx = torch.arange(N, dtype=torch.int32, device=dev).view(H, W)
+    idx = torch.arange(N, dtype=torch.int32, device=mag.device).view(H, W)
     labels0 = torch.where(support, idx, torch.full_like(idx, N))
     maxlab0 = torch.where(support, idx, torch.full_like(idx, -1))
-    return gx, gy, mag, support, labels0, maxlab0, compat_bits
+    return mag, support, labels0, maxlab0, compat_bits
+
+
+def ccl_inputs_torch(img: torch.Tensor, params: LSDParams = LSDParams()):
+    """Plain version of :func:`ccl_inputs`: prefilter, gradients of the
+    image times 255, then :func:`_front_planes`, in eager PyTorch."""
+    if params.prefilter_sigma > 0:
+        img = image.gaussian_blur_torch(img, params.prefilter_sigma)
+    gx, gy, mag, _ = image.image_gradients_torch(img * 255.0)  # thresholds on 0..255
+    return _front_planes(gx, gy, mag, params)
+
+
+def _front_radius(params: LSDParams) -> int:
+    if not params.prefilter_sigma > 0:
+        raise ValueError("ccl_inputs: the front kernel needs a prefilter (prefilter_sigma > 0)")
+    r = image._blur_taps(params.prefilter_sigma).numel() // 2
+    if r > 15:
+        raise ValueError(f"ccl_inputs: prefilter radius {r} above the front kernel's 15")
+    if not _thresholds(params)[0] >= 0:
+        # a negative rho would put the mag-0 image border in the support,
+        # where the plain version's compat plane wraps around
+        raise ValueError("ccl_inputs: the support threshold rho = quant / sin(angle_tol) must be >= 0")
+    return r
+
+
+def _lsd_front_cuda(img: torch.Tensor, params: LSDParams):
+    """(planes of :func:`ccl_inputs`, device launches made)."""
+    cuda_lib.require_plane(img, torch.float32, "ccl_inputs")
+    r = _front_radius(params)
+    taps = image._blur_host_taps(img, params.prefilter_sigma)
+    rho, cos_tol = _thresholds(params)
+    H, W = img.shape
+    mag = torch.empty_like(img)
+    support = torch.empty((H, W), dtype=torch.bool, device=img.device)
+    labels0, maxlab0, compat_bits = (torch.empty((H, W), dtype=torch.int32, device=img.device) for _ in range(3))
+    n = ctypes.c_int(0)
+    code = cuda_lib.library().tpuslam_lsd_front(
+        img.data_ptr(), mag.data_ptr(), support.data_ptr(), labels0.data_ptr(), maxlab0.data_ptr(),
+        compat_bits.data_ptr(), H, W, taps.ctypes.data, taps.size, rho, cos_tol,
+        FRONT_TILE, front_halo(r), ctypes.byref(n), cuda_lib.stream_of(img),
+    )
+    cuda_lib.check(code, "ccl_inputs")
+    return (mag, support, labels0, maxlab0, compat_bits), n.value
+
+
+def _ccl_inputs_chain_cuda(img: torch.Tensor, params: LSDParams = LSDParams()):
+    """The chain that the front kernel replaces on the card: the blur
+    kernel, ``* 255``, the four-plane gradients kernel, then
+    :func:`_front_planes` in eager PyTorch (162 launches on an H100, counted
+    by torch.profiler). For timing and bit-equality checks beside the
+    kernel; the detector never calls it, and it counts no launches."""
+    cuda_lib.require_plane(img, torch.float32, "ccl_inputs (chain)")
+    if params.prefilter_sigma > 0:
+        img, _ = image._blur_cuda(img, params.prefilter_sigma)
+    gx, gy, mag, _ = image._gradients_cuda(img * 255.0)
+    return _front_planes(gx, gy, mag, params)
+
+
+def ccl_inputs(img: torch.Tensor, params: LSDParams = LSDParams()):
+    """The detector up to label propagation, from an (H, W) float32 level
+    image in [0, 1]: prefilter, gradients on the 0..255 scale, support mask
+    and the bit-packed neighbour-compatibility plane. Returns (mag, support,
+    labels0, maxlab0, compat_bits); the last three are what
+    :func:`ccl_propagate` takes. One kernel launch on a CUDA tensor, the
+    plain version on a CPU tensor."""
+    if cuda_lib.on_card(img):
+        out, n = _lsd_front_cuda(img, params)
+        LAUNCHES["lsd_front"] += 1
+        KERNEL_LAUNCHES["lsd_front"] += n
+        return out
+    return ccl_inputs_torch(img, params)
+
+
+def front_disagreements(got, ref, gx, gy, params: LSDParams = LSDParams(), tol: float = 1e-3):
+    """Compare two results of :func:`ccl_inputs` for one image whose blur
+    was rounded differently (the kernel's tap order against cuDNN's or
+    XLA's). ``gx``, ``gy`` are the gradients behind ``ref``. A threshold
+    decides a pixel's integer planes by less than ``tol`` when its magnitude
+    lies within ``tol`` of rho, and a compat bit's when its dot product lies
+    within ``tol`` relative of its threshold or either end is such a pixel.
+    Returns (max |mag difference|, pixels that differ only where a threshold
+    decides by less than ``tol``, pixels that differ elsewhere)."""
+    mag = ref[0]
+    rho, cos_tol = _thresholds(params)
+    near = (mag - rho).abs() <= tol
+    near_bits = torch.zeros_like(ref[4])
+    for d, (dy, dx) in enumerate(_OFFSETS):
+        dots = gx * _shift(gx, dy, dx) + gy * _shift(gy, dy, dx)
+        thr = cos_tol * mag * _shift(mag, dy, dx)
+        tie = ((dots - thr).abs() <= tol * thr.abs()) | near | _shift(near, dy, dx)
+        near_bits = near_bits | (tie.to(torch.int32) << d)
+    differs = (got[1] != ref[1]) | (got[2] != ref[2]) | (got[3] != ref[3])
+    bit_diff = got[4] ^ ref[4]
+    elsewhere = (differs & ~near) | ((bit_diff & ~near_bits) != 0)
+    n_near = int(((differs | (bit_diff != 0)) & ~elsewhere).sum())
+    return float((got[0].double() - mag.double()).abs().max()), n_near, int(elsewhere.sum())
 
 
 def detect_lines(img: torch.Tensor, max_lines: int = 256, params: LSDParams = LSDParams()) -> DetectedLines:
@@ -216,7 +326,7 @@ def detect_lines(img: torch.Tensor, max_lines: int = 256, params: LSDParams = LS
     N = H * W
     K = max_lines
     dev = img.device
-    gx, gy, mag, support, labels0, maxlab0, compat_bits = ccl_inputs(img, params)
+    mag, support, labels0, maxlab0, compat_bits = ccl_inputs(img, params)
 
     # connected components: min/max-label propagation + pointer jumps
     jumps = params.ccl_jumps if W <= 768 else max(params.ccl_jumps, 3)
