@@ -11,7 +11,7 @@ first failure and catches nothing):
 2. build: compile the hand-written CUDA kernels from tpuslam_torch/csrc;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the slice's two image shapes (480x640 and the 384x512 pyramid level) and
-   at 240x320 (the half-resolution bench path's): blur within 1e-5 on
+   the bench path's (240x320 and its 192x256 level): blur within 1e-5 on
    [0, 1] images, the LBD gradients form (gx, gy of the image times 255)
    within 1e-3 on the 0..255 scale, connected-component propagation exactly
    equal; the detector's fused front (lsd_front: prefilter, gradients,
@@ -47,11 +47,26 @@ first failure and catches nothing):
    whitened residuals within 0.5 px, cost within 1%);
 7. relocalization: the tracker forced LOST and fed frame 20 again must come
    back OK through the keyframe database, its camera centre within 5 cm of
-   frame 20's, its kernel launches one frame's worth.
+   frame 20's, its kernel launches one frame's worth;
+8. the bench path: System(..., mapping=True, loop_closing=False) with the
+   JAX package's bench configuration (`tpuslam_torch.system.bench_configs`:
+   pipelined semi-direct chunks of 6, direct stereo, host-halved frames,
+   the two-rung local-BA ladder) over the same 40 frames. One trajectory
+   entry per frame, every frame OK, ATE no worse than the JAX package's for
+   this configuration + 0.01 m, keyframes only from anchors (or frames the
+   synchronous path tracked), each kernel's calls equal to its count per
+   left-image extraction (blur 1, gradients 2, lsd_front 2, CCL 2) times
+   the anchors and synchronous extractions; tracking frames/s over the
+   steady frames (after the first chunk) including the final flush,
+   local-BA ms per keyframe with each solve's rung; then, on a fresh
+   System, the host synchronizations of the chunk program alone (must be 0)
+   and of one steady chunk's calls (dispatch + resolve; target 1),
+   torch.profiler device busy ms and launches of one steady chunk's calls,
+   and of the anchor's step and one follower's step run alone.
 
-Output: a {"kernels": [...]} JSON line (calls and launches per call from
-the mapping slice; times, bounds, errors and profiled launches per call at
-480x640 from phase 3),
+Output: a {"kernels": [...]} JSON line (calls per path and launches per
+call from the bench run; times, bounds, errors and profiled launches per
+call at 480x640 from phase 3, device us at every shape timed),
 the card line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -77,6 +92,15 @@ JAX_ATE_M = 0.007307378698761408
 # on the same 40 frames (XLA:CPU, in-process BA; 4 keyframes, identical with
 # and without the JAX map's native graph mirror); see PERF.md
 JAX_MAPPING_ATE_M = 0.009802508959604729
+# the same for the bench configuration (tpuslam.system.System(...,
+# mapping=True, loop_closing=False, tracker_cfg / mapper_cfg of
+# tests/test_torch_semidirect.py's jax_bench_config, which equal
+# bench_configs here) on the same 40 frames, XLA:CPU, with cv2 hidden (so
+# host_prescale takes its numpy form, the one this port has), keyframes
+# finished at the next event (TPUSLAM_KF_DEFER_MS=0) and the native map
+# mirror off (TPUSLAM_NATIVE_MAP=0): `python tests/test_torch_semidirect.py`
+# prints it (keyframes at frames 0, 13, 19)
+JAX_BENCH_ATE_M = 0.0336553673054669
 ATE_MARGIN_M = 0.01
 RELOC_FRAME = 20
 # kernel calls per stereo frame on the slice (two cameras, two levels each):
@@ -90,6 +114,11 @@ KERNELS = {
     "ccl": ("tpuslam_torch/csrc/ccl.cu", "tpuslam/kernels/pallas_ccl.py:121"),
 }
 TOL = {"blur": 1e-5, "gradients": 1e-3, "lsd_front": 1e-3, "ccl": 0}
+# the bench path: chunks of 6; kernel calls of one left-image extraction at
+# half resolution (an anchor, or a frame on the synchronous path): the
+# pyramid's blur; per level the LBD gradients, the front and the propagation
+BENCH_C = 6
+PER_EXTRACTION = {"blur": 1, "gradients": 2, "lsd_front": 2, "ccl": 2}
 PROFILE_WARM, PROFILE_FRAMES = 10, 3  # frames before the profiled ones, profiled frames
 
 
@@ -274,13 +303,14 @@ def kernel_phase(frames, card):
     left = torch.from_numpy(frames[0][0]).cuda().float() / 255.0
     level1 = image.build_pyramid(left, 2, 0.8)[1].contiguous()  # 384x512
     half = image.resize_linear(left, (240, 320)).contiguous()
+    half1 = image.build_pyramid(half, 2, 0.8)[1].contiguous()  # 192x256, the bench path's level 1
     params = lsd.LSDParams()
     R = params.ccl_rounds
     sigma = params.prefilter_sigma
     ntaps = image._blur_taps(sigma).numel()
     want_lpc = launches_per_call()
     res = {}
-    for img in (left, level1, half):
+    for img in (left, level1, half, half1):
         H, W = img.shape
         _, sup, lab0, mx0, cb = lsd.ccl_inputs(img, params)
         n_bits = int(sum(((cb >> d) & 1).sum() for d in range(8)))
@@ -341,16 +371,20 @@ def kernel_phase(frames, card):
                 flush=True,
             )
             prev = res.get(name)
+            by_shape = f"{H}x{W}"
             if prev is None:  # the first shape, 480x640, fills the kernels line
                 res[name] = dict(
                     shape=f"{H}x{W}", max_abs_err=err, device_us=dev_us, ms=dev_us / 1e3, plain_ms=plain_ms,
                     bound_us=b_us, bound_ms=b_us / 1e3, bound_by=b_by, library_ms=lib_ms, baseline_device_us=old_us,
                     profiled_launches_per_call=lpc, baseline_launches_per_call=old_lpc,
+                    device_us_by_shape={by_shape: dev_us}, bound_us_by_shape={by_shape: b_us},
                 )
                 if n_near is not None:
                     res[name]["near_threshold_px"] = n_near
             else:
                 prev["max_abs_err"] = max(prev["max_abs_err"], err)
+                prev["device_us_by_shape"][by_shape] = dev_us
+                prev["bound_us_by_shape"][by_shape] = b_us
     return res
 
 
@@ -578,6 +612,237 @@ def reloc_phase(sys_, scene, frames) -> None:
     check_launches("reloc", launches, 1)
 
 
+def bench_system(cam):
+    from tpuslam_torch.system import System, bench_configs
+
+    tcfg, mcfg = bench_configs(BENCH_C)
+    return System(cam, sensor="stereo", mapping=True, loop_closing=False, tracker_cfg=tcfg, mapper_cfg=mcfg, device="cuda")
+
+
+def bench_phase(cam, scene, frames, card):
+    """The bench configuration over the frames, with the launch counts set
+    to 0 just before and read just after. Returns the launches."""
+    import torch
+
+    sys_ = bench_system(cam)
+    sys_.timer.warmup = 0  # keep every keyframe event's stage times
+    steady = BENCH_C + 1  # frames 1..C fill the first chunk, dispatched by frame C's call
+    reset_launches()
+    call_s = []
+    t0 = time.perf_counter()
+    for f, (il, ir) in enumerate(frames):
+        if f == steady:
+            torch.cuda.synchronize()
+            t_steady = time.perf_counter()
+        t = time.perf_counter()
+        sys_.track_stereo(il, ir, f * 0.05)
+        call_s.append(time.perf_counter() - t)
+    sys_.shutdown()  # the final flush: the last chunk, padded
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    launches = read_launches()
+
+    tr = sys_.tracker
+    traj = sys_.trajectory
+    states = [r.state.name for r in traj]
+    kfs = [r.frame_idx for r in traj if r.made_keyframe]
+    print(f"bench: anchors {tr.anchor_frames}, synchronous frames {tr.sync_frames}, keyframes at frames {kfs}", flush=True)
+    print(f"bench: states {states}", flush=True)
+    if [r.frame_idx for r in traj] != list(range(len(frames))):
+        fail(f"bench: trajectory frames {[r.frame_idx for r in traj]}, expected one entry per frame in order")
+    if any(st != "OK" for st in states):
+        fail("bench: a frame did not track OK")
+    allowed = set(tr.anchor_frames) | set(tr.sync_frames)
+    if not set(kfs) <= allowed:
+        fail(f"bench: keyframes at frames {sorted(set(kfs) - allowed)}, neither anchors nor synchronous frames")
+    ate = ate_of(traj, scene)
+    bound = JAX_BENCH_ATE_M + ATE_MARGIN_M
+    print(f"bench: ATE {ate:.5f} m, bound {bound:.5f} m (JAX package {JAX_BENCH_ATE_M} m + {ATE_MARGIN_M} m)", flush=True)
+    if not ate <= bound:
+        fail(f"bench: ATE {ate} m above {bound} m")
+
+    calls, device = launches
+    want_lpc = launches_per_call()
+    n_anchor, n_ext = len(tr.anchor_frames), len(tr.anchor_frames) + tr.n_sync_extractions
+    for name, per in PER_EXTRACTION.items():
+        want = per * n_ext
+        print(
+            f"bench: {name} calls {calls[name]} (expected {per} x {n_ext} extractions = {want}: {n_anchor} anchors, "
+            f"{tr.n_sync_extractions} synchronous), {calls[name] / n_anchor:.2f} per anchor, device launches {device[name]}",
+            flush=True,
+        )
+        if calls[name] != want or calls[name] == 0:
+            fail(f"bench: {name}: {calls[name]} calls, expected {want}")
+        if device[name] != want * want_lpc[name]:
+            fail(f"bench: {name}: {device[name]} device launches, expected {want_lpc[name]} per call")
+
+    n_steady = len(frames) - steady
+    wall = t_end - t_steady
+    chunk_calls = [dt for f, dt in enumerate(call_s[steady:], steady) if (f - 1) % BENCH_C == BENCH_C - 1]
+    other_calls = [dt for f, dt in enumerate(call_s[steady:], steady) if (f - 1) % BENCH_C != BENCH_C - 1]
+    print(
+        f"bench: frames {steady}-{len(frames) - 1} and the final flush: {wall * 1e3:.1f} ms for {n_steady} frames = "
+        f"{n_steady / wall:.2f} frames/s ({wall * 1e3 / n_steady:.2f} ms/frame); calls that dispatch a chunk and resolve the "
+        f"previous one median {statistics.median(chunk_calls) * 1e3:.2f} ms, buffering calls median "
+        f"{statistics.median(other_calls) * 1e3:.3f} ms; whole run {(t_end - t0):.2f} s on {card}",
+        flush=True,
+    )
+    ba = sys_.timer.times.get("mp.ba", [])
+    lm_ms = sys_.timer.times.get("local_mapping", [])
+    print(
+        f"bench: keyframe events {len(kfs)}, local BA (mp.ba) per keyframe event {', '.join(f'{x * 1e3:.2f}' for x in ba)} ms "
+        f"(median after the first {statistics.median(ba[1:]) * 1e3 if len(ba) > 1 else float('nan'):.2f} ms), local mapping "
+        f"{', '.join(f'{x * 1e3:.2f}' for x in lm_ms)} ms on {card}",
+        flush=True,
+    )
+    n_solves = sum(len(v) for v in sys_.mapper.solve_ms_by_rung.values())
+    if n_solves != len(kfs) - 1:
+        fail(f"bench: {n_solves} local BA solves for {len(kfs)} keyframe events (one per event after the first)")
+    for rung, ms in sys_.mapper.solve_ms_by_rung.items():
+        print(f"bench: solve rung (P, L, OL) = {rung}: {', '.join(f'{x:.2f}' for x in ms)} ms on {card}", flush=True)
+    return launches
+
+
+def count_syncs(run) -> list:
+    """Host synchronizations with the card inside run(), as
+    torch.cuda.set_sync_debug_mode("warn") reports them (each blocking read
+    back or blocking copy warns once): the innermost line of tpuslam_torch
+    (or of this script) on the Python stack of each."""
+    import traceback
+    import warnings
+
+    import torch
+
+    sites = []
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" in str(message):  # not the mode's own notice
+            ours = [fr for fr in traceback.extract_stack()[:-1] if fr.filename.startswith(REPO)]
+            fr = ours[-1] if ours else None
+            sites.append(f"{os.path.relpath(fr.filename, REPO)}:{fr.lineno}" if fr else f"{filename}:{lineno}")
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sites
+
+
+def bench_profile_phase(cam, frames, card) -> None:
+    """A fresh bench System: host syncs of the chunk program alone and of
+    one steady chunk's calls; torch.profiler over one steady chunk's calls,
+    the anchor's step and one follower's step."""
+    import numpy as np
+    import torch
+
+    from tpuslam_torch.frontend import pipeline
+    from tpuslam_torch.frontend.frame import host_prescale
+    from tpuslam_torch.kernels.align_direct import anchor_templates_body
+
+    sys_ = bench_system(cam)
+    tr = sys_.tracker
+    C = BENCH_C
+    f = 0
+
+    def feed(n):
+        nonlocal f
+        for _ in range(n):
+            sys_.track_stereo(*frames[f], f * 0.05)
+            f += 1
+
+    feed(1 + 2 * C)  # the initialization and two chunks
+    torch.cuda.synchronize()
+
+    # one steady chunk's calls: C - 1 buffering calls, then the dispatch of
+    # this chunk and the resolve of the previous one
+    n0 = len(sys_.trajectory)
+    syncs = count_syncs(lambda: feed(C))
+    resolved = sys_.trajectory[n0:]
+    print(
+        f"bench syncs: frames {f - C}-{f - 1}: {len(syncs)} host synchronizations at {syncs} (target 1, the resolve's read of "
+        f"the previous chunk's rows); the resolve completed frames {[r.frame_idx for r in resolved]}, keyframes among them "
+        f"{[r.frame_idx for r in resolved if r.made_keyframe]} (a keyframe reads its features and runs the mapper)",
+        flush=True,
+    )
+    if len(resolved) != C or (not any(r.made_keyframe for r in resolved) and len(syncs) != 1):
+        fail("bench: a steady chunk without a keyframe must resolve C frames with one host read")
+    n0 = len(sys_.trajectory)
+    walls = []
+
+    def run_chunk():
+        t = time.perf_counter()
+        feed(C)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+
+    _, (busy_us, n_kernels, n_copies) = profiled(run_chunk)
+    resolved = sys_.trajectory[n0:]
+    print(
+        f"bench profile: frames {f - C}-{f - 1} (dispatch of their chunk, resolve of frames "
+        f"{[r.frame_idx for r in resolved]}, keyframes {[r.frame_idx for r in resolved if r.made_keyframe]}): device busy "
+        f"{busy_us / 1e3:.3f} ms, {n_kernels} kernel launches and {n_copies} memcpy/memset per chunk, "
+        f"{walls[-1] * 1e3:.2f} ms under the profiler (device idle {1 - busy_us / 1e6 / walls[-1]:.1%}) on {card}",
+        flush=True,
+    )
+
+    # the chunk program alone, on the next frames' stack and the tracker's chain and local map
+    c = tr.cfg
+    g0 = min(f, len(frames) - C)  # a retaken trace tracked further frames
+    half = [[host_prescale(x, c.frontend) for x in frames[g]] for g in range(g0, g0 + C)]
+    stack = torch.from_numpy(np.stack([half[0][0], half[0][1]] + [p[0] for p in half[1:]])).cuda()
+    local = tr._local_map_arrays()
+    T_l, T_p = tr._dev_chain if tr._dev_chain is not None else (tr._pose_tensor(tr.T_cw),) * 2
+    sd, ap = tr._direct_lines(), tr._align_params()
+    args = (tr._fxb, cam, c.frontend, c.search_coarse, c.search_fine, c.pose_opt, c.min_track_inliers, sd, ap)
+
+    def whole():
+        pipeline.fused_stereo_semidirect(stack, T_l, T_p, local, *args)
+
+    whole()
+    torch.cuda.synchronize()
+    n_sync = count_syncs(whole)
+    torch.cuda.synchronize()
+    print(f"bench syncs: the chunk program alone (anchor + {C - 1} followers): {len(n_sync)} host synchronizations {n_sync}", flush=True)
+    if n_sync:
+        fail(f"bench: the chunk program synchronizes with the host at {n_sync}")
+    f32 = stack.to(torch.float32) / 255.0
+    A = ap.align_cap
+    lm = (local["plucker"], local["ep3d"], local["bits"], local["valid"])
+
+    def anchor():
+        out = pipeline._fused_frame_direct_body(
+            f32[:2], T_l, T_p, *lm, tr._fxb, cam, c.frontend, sd, c.search_coarse, c.search_fine, c.pose_opt, c.min_track_inliers
+        )
+        return out, anchor_templates_body(f32[0], out[6], lm[1][:A], lm[3][:A], cam, ap)
+
+    out, tm = anchor()
+
+    def follower():
+        pipeline._follower_step(f32[2], out[6], out[7], lm[0][:A], tm, cam, ap, c.min_track_inliers)
+
+    for name, run in (("whole chunk program", whole), ("anchor step (full frame + templates)", anchor), ("one follower step", follower)):
+        run()
+        walls = []
+
+        def timed():
+            t = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+
+        _, (busy_us, n_kernels, n_copies) = profiled(timed)
+        print(
+            f"bench profile: {name}: device busy {busy_us / 1e3:.3f} ms, {n_kernels} kernel launches, {n_copies} memcpy/memset, "
+            f"{walls[-1] * 1e3:.2f} ms under the profiler on {card}",
+            flush=True,
+        )
+    sys_.shutdown()
+
+
 def main() -> int:
     import torch
 
@@ -604,13 +869,15 @@ def main() -> int:
     cam, scene, frames = make_frames()
     kres = kernel_phase(frames, card)
 
-    run_slice("slice", cam, scene, frames, card, mapping=False, jax_ate=JAX_ATE_M)
+    _, slice_launches = run_slice("slice", cam, scene, frames, card, mapping=False, jax_ate=JAX_ATE_M)
     profile_phase(cam, frames, card)
-    sys_, launches = run_slice("mapping", cam, scene, frames, card, mapping=True, jax_ate=JAX_MAPPING_ATE_M)
+    sys_, map_launches = run_slice("mapping", cam, scene, frames, card, mapping=True, jax_ate=JAX_MAPPING_ATE_M)
     ba_phase(sys_, cam, card)
     reloc_phase(sys_, scene, frames)
+    bench_launches = bench_phase(cam, scene, frames, card)
+    bench_profile_phase(cam, frames, card)
 
-    calls, device = launches  # the mapping slice's run
+    calls, device = bench_launches  # the bench path's run
     kernels = [
         dict(
             name=name,
@@ -618,7 +885,8 @@ def main() -> int:
             source=KERNELS[name][0],
             replaces=KERNELS[name][1],
             launches=calls[name],
-            launches_per_call=device[name] // calls[name],  # exact: check_launches held it
+            launches_per_call=device[name] // calls[name],  # exact: the bench phase held it
+            launches_by_path={"slice": slice_launches[0][name], "mapping": map_launches[0][name], "bench": calls[name]},
             **kres[name],
         )
         for name in PER_FRAME

@@ -375,3 +375,65 @@ def test_relocalization_pieces_on_card_match_cpu(dev):
     assert float(okc) == float(okg) == 1.0
     torch.testing.assert_close(Tg.cpu(), Tc, rtol=0, atol=1e-3)  # float32 12x12 eigensolve
     torch.testing.assert_close(Tc, T, rtol=0, atol=5e-3)
+
+
+# kernel calls of one left-image feature extraction at half resolution (the
+# bench path's anchors and its synchronous frames): the pyramid's blur; per
+# level the LBD gradients, the detector's front and its propagation
+PER_EXTRACTION = {"blur": 1, "gradients": 2, "lsd_front": 2, "ccl": 2}
+
+
+def test_bench_path_on_card(dev):
+    """System with the bench configuration (semi-direct chunks of 6 on
+    host-halved VGA frames, mapping on) over 14 frames on the card: one
+    result per frame in order, every frame OK, keyframes from anchors (or the
+    initialization) only, and the hand kernels called once per extraction's
+    worth for each anchor and each synchronous extraction."""
+    from tpuslam_torch.system import System, bench_configs
+
+    _, frames = stereo_scene(14, cam=VGA)
+    tcfg, mcfg = bench_configs()
+    s = System(VGA, sensor="stereo", mapping=True, loop_closing=False, tracker_cfg=tcfg, mapper_cfg=mcfg, device=dev)
+    before = {**image.LAUNCHES, **lsd.LAUNCHES}
+    for f, (il, ir) in enumerate(frames):
+        s.track_stereo(il, ir, 0.05 * f)
+    s.shutdown()
+    after = {**image.LAUNCHES, **lsd.LAUNCHES}
+    tr = s.tracker
+    assert [r.frame_idx for r in s.trajectory] == list(range(14))
+    assert all(r.state.name == "OK" for r in s.trajectory)
+    assert tr.anchor_frames == [1, 7, 13] and tr.sync_frames == [0]
+    assert {r.frame_idx for r in s.trajectory if r.made_keyframe} <= {0, 1, 7, 13}
+    n = len(tr.anchor_frames) + tr.n_sync_extractions
+    assert {k: after[k] - before[k] for k in after} == {k: v * n for k, v in PER_EXTRACTION.items()}
+
+
+def test_chunk_on_card_matches_cpu(dev):
+    """One semi-direct chunk (C = 4, host-halved VGA frames) on identical
+    inputs on the card and on the CPU: the same accept flags, every pose
+    within 1e-3."""
+    from tpuslam_torch.frontend.frame import host_prescale
+    from tpuslam_torch.frontend.pipeline import fused_stereo_semidirect
+    from tpuslam_torch.frontend.tracking import Tracker
+    from tpuslam_torch.slammap.map import SlamMap
+    from tpuslam_torch.system import bench_configs
+
+    _, frames = stereo_scene(5, cam=VGA)
+    tcfg, _ = bench_configs(chunk=4)
+    tr = Tracker(VGA, SlamMap(), tcfg, device="cpu")
+    tr.track_stereo(*frames[0], 0.0)  # initialization: the local map
+    local = tr._local_map_arrays()
+    half = [[host_prescale(x, tcfg.frontend) for x in pair] for pair in frames[1:]]
+    stack = torch.from_numpy(np.stack([half[0][0], half[0][1]] + [p[0] for p in half[1:]]))
+    T = torch.eye(4)
+    packed = []
+    for d in ("cpu", dev):
+        out = fused_stereo_semidirect(
+            stack.to(d), T.to(d), T.to(d), {k: v.to(d) for k, v in local.items()}, tr._fxb, VGA, tcfg.frontend,
+            tcfg.search_coarse, tcfg.search_fine, tcfg.pose_opt, tcfg.min_track_inliers, tr._direct_lines(), tr._align_params(),
+        )
+        packed.append(out.packed.cpu().numpy())
+    c, g = packed
+    np.testing.assert_array_equal(g[:, 19], c[:, 19])
+    assert np.all(c[:, 19] == 1.0)
+    np.testing.assert_allclose(g[:, :16], c[:, :16], rtol=0, atol=1e-3)

@@ -34,6 +34,20 @@ def _lines(rng, n, dtype=np.float32):
 
 
 @pytest.mark.parametrize("scale", [1e-6, 0.3, 1.5])
+def test_se3_inverse_matches_jax(rng, scale):
+    """The inverse the chunk program's motion model takes, batched, and the
+    motion-model product T_last @ inv(T_prev) @ T_last."""
+    T = jse3.se3_exp(jnp.asarray(_tangents(rng, 16, scale)))
+    Ti_t = tse3.se3_inverse(torch.from_numpy(np.asarray(T)))
+    np.testing.assert_allclose(np_of(Ti_t), np.asarray(jse3.se3_inverse(T)), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(np_of(Ti_t @ torch.from_numpy(np.asarray(T))), np.broadcast_to(np.eye(4), (16, 4, 4)), atol=1e-5)
+    a, b = np.asarray(T[0]), np.asarray(T[1])
+    ref = jnp.asarray(a) @ jse3.se3_inverse(jnp.asarray(b)) @ jnp.asarray(a)
+    got = torch.from_numpy(a) @ tse3.se3_inverse(torch.from_numpy(b)) @ torch.from_numpy(a)
+    np.testing.assert_allclose(np_of(got), np.asarray(ref), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("scale", [1e-6, 0.3, 1.5])
 def test_se3_matches_jax(rng, scale):
     xi = _tangents(rng, 32, scale)
     T_t = tse3.se3_exp(torch.from_numpy(xi))

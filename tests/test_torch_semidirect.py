@@ -1,0 +1,325 @@
+"""The bench path: tpuslam_torch's chunked semi-direct tracker against
+tpuslam's, from the host prescale through one chunk program to whole
+System runs with mapping on.
+
+Run as a script, it prints the JAX package's ATE for the bench
+configuration on chip_smoke.py's 40 VGA frames (the constant
+``JAX_BENCH_ATE_M`` there; under a minute on a CPU):
+
+    python tests/test_torch_semidirect.py
+"""
+
+import dataclasses
+import os
+import sys
+
+if __name__ == "__main__":
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import numpy as np
+import pytest
+
+from torch_parity import QVGA, np_of, stereo_scene
+from tpuslam_torch import Intrinsics
+from tpuslam_torch.convert import chunk_inputs_from, mapper_config_from, tracker_config_from
+from tpuslam_torch.eval.ate import absolute_trajectory_error
+from tpuslam_torch.frontend import pipeline as tpipe
+from tpuslam_torch.frontend.frame import FrontendParams, host_prescale, prescaled_shape
+from tpuslam_torch.frontend.tracking import TrackingState
+from tpuslam_torch.system import System, bench_configs
+
+VGA = Intrinsics(fx=458.0, fy=457.0, cx=320.0, cy=240.0, width=640, height=480, baseline=0.11)
+HALF = FrontendParams(base_scale=0.5, prescaled=True)
+
+
+def jax_bench_config(chunk: int = 6):
+    """The JAX package's bench configuration (``tpuslam/bench.py``, lines
+    only, fusion applied at the keyframe): (TrackerConfig, MapperConfig)."""
+    from tpuslam.backend.local_ba import LocalBAConfig
+    from tpuslam.backend.mapping import MapperConfig
+    from tpuslam.frontend.frame import FrontendParams as JFrontendParams
+    from tpuslam.frontend.tracking import TrackerConfig
+    from tpuslam.kernels.align_direct import DirectAlignParams
+    from tpuslam.kernels.stereo_direct import DirectStereoParams
+
+    tcfg = TrackerConfig(
+        pipelined=True, chunk=chunk, direct_stereo=DirectStereoParams(),
+        frontend=JFrontendParams(base_scale=0.5, prescaled=True), semidirect=DirectAlignParams(),
+    )
+    mcfg = MapperConfig(ba=LocalBAConfig(pose_buckets=(8, 16), line_buckets=(128, 256), obs_buckets=(512, 1024)))
+    return tcfg, mcfg
+
+
+class _JaxAsOnTheCard:
+    """The JAX package as the port's parity runs take it: cv2 hidden (the
+    card's machine has none, so host_prescale takes its numpy form),
+    keyframes finished at the next event (TPUSLAM_KF_DEFER_MS=0) and the
+    native map mirror off (TPUSLAM_NATIVE_MAP=0)."""
+
+    ENV = {"TPUSLAM_KF_DEFER_MS": "0", "TPUSLAM_NATIVE_MAP": "0"}
+
+    def __enter__(self):
+        self._env = {k: os.environ.get(k) for k in self.ENV}
+        self._cv2 = sys.modules.get("cv2", False)
+        os.environ.update(self.ENV)
+        sys.modules["cv2"] = None
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self._env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        if self._cv2 is False:
+            sys.modules.pop("cv2", None)
+        else:
+            sys.modules["cv2"] = self._cv2
+
+
+def _ate(trajectory, scene) -> float:
+    est = np.stack([np.linalg.inv(r.T_cw)[:3, 3] for r in trajectory])
+    gt = np.stack([np.linalg.inv(scene.poses[r.frame_idx])[:3, 3] for r in trajectory])
+    return float(absolute_trajectory_error(est, gt).rmse)
+
+
+def run_jax(cam, frames, tcfg, mcfg):
+    """tpuslam.system.System(sensor="stereo", mapping=True,
+    loop_closing=False) over ``frames``; its trajectory in frame order."""
+    from tpuslam.geometry.camera import Intrinsics as JIntrinsics
+    from tpuslam.system import System as JSystem
+
+    with _JaxAsOnTheCard():
+        js = JSystem(JIntrinsics(*cam), sensor="stereo", mapping=True, loop_closing=False, tracker_cfg=tcfg, mapper_cfg=mcfg)
+        for f, (il, ir) in enumerate(frames):
+            js.track_stereo(il, ir, f * 0.05)
+        js.shutdown()
+    return sorted(js.trajectory, key=lambda r: r.frame_idx)
+
+
+def jax_reference_ate(cam, scene, frames, tcfg, mcfg) -> float:
+    """ATE RMSE (m) of :func:`run_jax` against the scene's ground truth."""
+    traj = run_jax(cam, frames, tcfg, mcfg)
+    assert [r.frame_idx for r in traj] == list(range(len(frames)))
+    kfs = [r.frame_idx for r in traj if r.made_keyframe]
+    print(f"JAX bench run: keyframes at frames {kfs}, states {[r.state.name for r in traj]}", flush=True)
+    return _ate(traj, scene)
+
+
+# ---- host prescale ---------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(480, 640), (481, 641), (240, 320), (33, 50)])
+def test_host_prescale_bit_equal_to_jax(shape):
+    """The 2x2 area mean, rounded to u8, bit for bit the JAX package's form
+    where cv2 is missing (float frames too); the shape prescaled_shape
+    gives."""
+    from tpuslam.frontend import frame as jframe
+
+    rng = np.random.default_rng(shape[0])
+    img = rng.integers(0, 256, shape, dtype=np.uint8)
+    jfe = jframe.FrontendParams(base_scale=0.5, prescaled=True)
+    with _JaxAsOnTheCard():
+        ref_u8 = jframe.host_prescale(img, jfe)
+        ref_f32 = jframe.host_prescale(img.astype(np.float32) / 255.0, jfe)
+    out = host_prescale(img, HALF)
+    assert out.dtype == np.uint8 and out.shape == prescaled_shape(*shape, HALF) == jframe.prescaled_shape(*shape, jfe)
+    np.testing.assert_array_equal(out, ref_u8)
+    np.testing.assert_array_equal(host_prescale(img.astype(np.float32) / 255.0, HALF), ref_f32)
+    assert host_prescale(img, FrontendParams()) is img
+
+
+# ---- one chunk -------------------------------------------------------------
+
+C_CHUNK = 4
+
+
+@pytest.fixture(scope="module")
+def chunk_case():
+    return make_chunk_case()
+
+
+def make_chunk_case():
+    """The JAX tracker initialized on frame 0 of the bench scene (VGA,
+    host-prescaled), its local map and pose chain, and the stack of the
+    next C_CHUNK frames: the inputs of one chunk, and the JAX package's
+    chunk program run on them."""
+    import jax.numpy as jnp
+
+    from tpuslam.frontend import pipeline as jpipe
+    from tpuslam.frontend.tracking import Tracker as JTracker
+    from tpuslam.geometry.camera import Intrinsics as JIntrinsics
+    from tpuslam.kernels.align_direct import inject_coord_scale_align
+    from tpuslam.kernels.stereo_direct import inject_coord_scale
+    from tpuslam.slammap.map import SlamMap as JSlamMap
+
+    _, frames = stereo_scene(C_CHUNK + 1, VGA)
+    half = [tuple(host_prescale(x, HALF) for x in pair) for pair in frames]
+    jcfg, _ = jax_bench_config(C_CHUNK)
+    with _JaxAsOnTheCard():
+        jt = JTracker(JIntrinsics(*VGA), JSlamMap(), jcfg)
+        jt.track_stereo(*frames[0], 0.0)
+        assert jt.state.name == "OK"
+        local = {k: np.asarray(v) for k, v in jt._local_map_arrays().items()}
+    T_last = np.asarray(jt.T_cw, np.float32)
+    T_prev = (np.linalg.inv(jt.velocity).astype(np.float32) @ T_last).astype(np.float32)
+    stack = np.stack([half[1][0], half[1][1]] + [p[0] for p in half[2:]])
+    fe = jcfg.frontend
+    sd = inject_coord_scale(jcfg.direct_stereo, fe.base_scale, fe.prescaled)
+    ap = inject_coord_scale_align(jcfg.semidirect, fe.base_scale, fe.prescaled)
+    ref = jpipe._fused_chunk_semidirect(
+        jnp.asarray(stack), jnp.asarray(T_last), jnp.asarray(T_prev),
+        jnp.asarray(local["plucker"]), jnp.asarray(local["ep3d"]), jnp.asarray(local["bits"]), jnp.asarray(local["valid"]),
+        float(VGA.fx * VGA.baseline), JIntrinsics(*VGA), fe, sd, ap,
+        jcfg.search_coarse, jcfg.search_fine, jcfg.pose_opt, jcfg.min_track_inliers,
+    )
+    return dict(stack=stack, T_last=T_last, T_prev=T_prev, local=local, jcfg=jcfg, ref=[np.asarray(x) for x in ref[3:]])
+
+
+def run_port_chunk(case, device="cpu"):
+    """The port's chunk program on the case's inputs, on ``device``:
+    (match_idx, inlier, packed, T_last, T_prevlast) as numpy."""
+    from tpuslam_torch.frontend.tracking import Tracker
+    from tpuslam_torch.slammap.map import SlamMap
+
+    frames, T_last, T_prev, local = chunk_inputs_from(case["stack"], case["T_last"], case["T_prev"], case["local"], device)
+    tr = Tracker(VGA, SlamMap(), tracker_config_from(case["jcfg"]), device=device)
+    c = tr.cfg
+    out = tpipe.fused_stereo_semidirect(
+        frames, T_last, T_prev, local, tr._fxb, VGA, c.frontend, c.search_coarse, c.search_fine, c.pose_opt,
+        c.min_track_inliers, tr._direct_lines(), tr._align_params(),
+    )
+    return [np_of(x) for x in (out.match_idx, out.inlier, out.packed, out.T_last, out.T_prevlast)]
+
+
+def _pose_gap(T, T_ref):
+    """(rotation angle rad, camera centre distance m) between two T_cw."""
+    T, T_ref = np.asarray(T, np.float64), np.asarray(T_ref, np.float64)
+    dR = T[:3, :3] @ T_ref[:3, :3].T
+    w = 0.5 * np.array([dR[2, 1] - dR[1, 2], dR[0, 2] - dR[2, 0], dR[1, 0] - dR[0, 1]])
+    ang = float(np.arctan2(np.linalg.norm(w), 0.5 * (np.trace(dR) - 1.0)))
+    c, c_ref = -T[:3, :3].T @ T[:3, 3], -T_ref[:3, :3].T @ T_ref[:3, 3]
+    return ang, float(np.linalg.norm(c - c_ref))
+
+
+# The anchor's two-stage pose LM (32 float32 LM iterations with accept
+# tests and chi2 re-gating) lands 1.5e-4 from XLA's in the pose entries even
+# on identical features and matches (camera centre 2.0e-4 m); the detector's
+# own rounding (endpoints up to 0.013 px apart) adds nothing visible on top
+# (1.8e-4 m for the whole chunk). Rotation agrees to 2e-5 rad.
+ANCHOR_TOL_RAD, ANCHOR_TOL_M = 1e-4, 3e-4
+
+
+def test_chunk_matches_jax(chunk_case):
+    """One semi-direct chunk (C = 4 at 240x320) on the same inputs: the same
+    accept flags and anchor matches; the anchor's pose within 1e-4 rad and
+    3e-4 m, the followers' within 1e-3 rad and 1e-3 m; the counts close."""
+    midx_ref, inl_ref, packed_ref, _, _ = chunk_case["ref"]
+    midx, inl, packed, T_l, _ = run_port_chunk(chunk_case)
+    assert packed.shape == packed_ref.shape == (C_CHUNK, 20)
+    np.testing.assert_array_equal(packed[:, 19], packed_ref[:, 19])
+    assert np.all(packed[:, 19] == 1.0)  # every frame accepted on the bench scene
+    for i in range(C_CHUNK):
+        ang, dc = _pose_gap(packed[i, :16].reshape(4, 4), packed_ref[i, :16].reshape(4, 4))
+        tol_rad, tol_m = (ANCHOR_TOL_RAD, ANCHOR_TOL_M) if i == 0 else (1e-3, 1e-3)
+        assert ang <= tol_rad and dc <= tol_m, (i, ang, dc)
+    np.testing.assert_array_equal(T_l, packed[-1, :16].reshape(4, 4))
+    # the anchor's matches; its matched / inlier / depth counts; the followers' aligned lines
+    assert np.mean(midx == midx_ref) >= 0.98 and np.mean(inl == inl_ref) >= 0.98
+    assert np.all(np.abs(packed[0, 16:19] - packed_ref[0, 16:19]) <= 0.05 * packed_ref[0, 16:19] + 2)
+    assert np.all(np.abs(packed[1:, 17] - packed_ref[1:, 17]) <= 3)
+
+
+# ---- whole System runs -----------------------------------------------------
+
+
+def _semidirect_qvga_config():
+    from tpuslam.frontend.tracking import TrackerConfig
+    from tpuslam.kernels.align_direct import DirectAlignParams
+    from tpuslam.kernels.stereo_direct import DirectStereoParams
+
+    # tests/test_semidirect.py's configuration: full-resolution QVGA, C = 4
+    return TrackerConfig(pipelined=True, chunk=4, direct_stereo=DirectStereoParams(max_disp=64.0), semidirect=DirectAlignParams()), None
+
+
+RUNS = {
+    # name: (camera, frames, config); frames 1-12 fill three chunks, 13 is a padded partial chunk
+    "qvga": (QVGA, 14, _semidirect_qvga_config),
+    # the bench configuration itself on VGA frames halved on the host: two chunks of 6, one partial
+    "prescaled": (VGA, 15, jax_bench_config),
+}
+
+
+@pytest.fixture(scope="module", params=list(RUNS))
+def system_runs(request):
+    cam, n, config = RUNS[request.param]
+    scene, frames = stereo_scene(n, cam)
+    jcfg, jmcfg = config()
+    jax_traj = run_jax(cam, frames, jcfg, jmcfg)
+    ts = System(
+        cam, sensor="stereo", mapping=True, loop_closing=False, tracker_cfg=tracker_config_from(jcfg),
+        mapper_cfg=None if jmcfg is None else mapper_config_from(jmcfg), device="cpu",
+    )
+    for f, (il, ir) in enumerate(frames):
+        ts.track_stereo(il, ir, f * 0.05)
+    ts.shutdown()
+    return request.param, scene, n, jax_traj, ts
+
+
+def test_system_one_result_per_frame(system_runs):
+    """One trajectory entry per input frame, in frame order, the padded
+    partial chunk included; every frame tracked."""
+    _, _, n, _, ts = system_runs
+    assert [r.frame_idx for r in ts.trajectory] == list(range(n))
+    assert all(r.state == TrackingState.OK for r in ts.trajectory)
+    C = ts.tracker.cfg.chunk
+    assert ts.tracker.anchor_frames == list(range(1, n, C))  # the last one a padded chunk's
+    assert ts.tracker.sync_frames == [0]  # only the initialization took the synchronous path
+
+
+def test_system_keyframes_only_from_anchors(system_runs):
+    _, _, _, jax_traj, ts = system_runs
+    kfs = [r.frame_idx for r in ts.trajectory if r.made_keyframe]
+    assert kfs[0] == 0 and len(kfs) >= 2
+    assert set(kfs) <= {0} | set(ts.tracker.anchor_frames), kfs
+    assert abs(len(kfs) - sum(r.made_keyframe for r in jax_traj)) <= 2
+
+
+def test_system_ate_within_jax(system_runs):
+    """ATE within the JAX package's ATE on the same frames + 0.01 m."""
+    name, scene, _, jax_traj, ts = system_runs
+    ate, ate_ref = _ate(ts.trajectory, scene), _ate(jax_traj, scene)
+    assert ate <= ate_ref + 0.01, (name, ate, ate_ref)
+
+
+@pytest.mark.parametrize("change", [dict(chunk=1), dict(semidirect=None), dict(direct_stereo=None), dict(fused=False)])
+def test_unported_pipelined_configurations_raise(change):
+    """Pipelined tracking runs the semi-direct chunks only: the single-frame
+    fused program, the full-detection chunks and the classic pipeline
+    raise."""
+    tcfg = dataclasses.replace(bench_configs()[0], **change)
+    with pytest.raises(NotImplementedError, match="semi-direct"):
+        System(QVGA, sensor="stereo", mapping=False, loop_closing=False, tracker_cfg=tcfg, device="cpu")
+
+
+def test_tracker_config_converts():
+    """The bench TrackerConfig carries into the port's types; the JAX
+    package's hybrid point fields are refused when set."""
+    from tpuslam.frontend.points import PointFrontendParams
+
+    jcfg, jmcfg = jax_bench_config()
+    assert tracker_config_from(jcfg) == bench_configs()[0]
+    assert mapper_config_from(jmcfg) == bench_configs()[1]
+    jcfg.points = PointFrontendParams()
+    with pytest.raises(ValueError, match="points"):
+        tracker_config_from(jcfg)
+
+
+if __name__ == "__main__":
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    from chip_smoke import make_frames
+
+    cam, scene, frames = make_frames()
+    print(f"JAX_BENCH_ATE_M = {jax_reference_ate(cam, scene, frames, *jax_bench_config())!r}", flush=True)

@@ -94,10 +94,10 @@ def test_unported_configurations_raise():
         System(QVGA, sensor="stereo", mapping=False, device="cpu")
     with pytest.raises(NotImplementedError, match="mono"):
         System(QVGA, sensor="mono", mapping=False, loop_closing=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="base_scale"):
+    with pytest.raises(NotImplementedError, match="base_scale"):  # the in-program resize; prescaled=True is ported
         s = System(
             QVGA, mapping=False, loop_closing=False,
-            tracker_cfg=TrackerConfig(frontend=FrontendParams(base_scale=0.5, prescaled=True)),
+            tracker_cfg=TrackerConfig(frontend=FrontendParams(base_scale=0.5, prescaled=False)),
             device="cpu",
         )
         s.track_stereo(np.zeros((240, 320), np.uint8), np.zeros((240, 320), np.uint8), 0.0)

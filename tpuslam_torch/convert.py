@@ -16,6 +16,9 @@ import torch
 from tpuslam_torch.backend.lm import BAProblem
 from tpuslam_torch.backend.mapping import MapperConfig
 from tpuslam_torch.frontend.frame import FrameFeatures
+from tpuslam_torch.frontend.tracking import TrackerConfig
+from tpuslam_torch.kernels.align_direct import DirectAlignParams
+from tpuslam_torch.kernels.stereo_direct import DirectStereoParams
 from tpuslam_torch.slammap.map import KeyFrame, SlamMap, features_to_device, features_to_numpy
 
 
@@ -90,6 +93,62 @@ def mapper_config_from(value) -> MapperConfig:
         default = getattr(ours, name)
         out[name] = params_from(type(default), v) if hasattr(default, "_fields") else v
     return MapperConfig(**out)
+
+
+# TrackerConfig fields whose default is None and whose value is a NamedTuple
+_TRACKER_PARAMS = {"direct_stereo": DirectStereoParams, "semidirect": DirectAlignParams}
+
+
+def tracker_config_from(value) -> TrackerConfig:
+    """TrackerConfig from a TrackerConfig-like dataclass (the JAX package's):
+    the front end, stereo, search and pose settings, the pipelined chunk
+    fields, ``direct_stereo`` and ``semidirect`` become this package's types.
+    The hybrid-point fields (``points``, ``point_local_capacity``,
+    ``direct_points``) are dropped when they hold their defaults and
+    refused otherwise."""
+    ours = TrackerConfig()
+    out = {}
+    for name, v in _ported_fields(value, {f.name for f in dataclasses.fields(TrackerConfig)}, "TrackerConfig").items():
+        default = getattr(ours, name)
+        if name in _TRACKER_PARAMS:
+            v = None if v is None else params_from(_TRACKER_PARAMS[name], v)
+        elif hasattr(default, "_fields"):
+            v = params_from(type(default), v)
+        out[name] = v
+    return TrackerConfig(**out)
+
+
+def tensor_from(value, device="cpu", dtype=None) -> torch.Tensor:
+    """A tensor on ``device`` from any array ``np.asarray`` reads (its dtype
+    kept unless ``dtype`` is given)."""
+    t = torch.from_numpy(np.array(value))  # a writable copy
+    return t.to(device=device, dtype=dtype) if dtype is not None else t.to(device)
+
+
+def local_map_from(value, device="cpu") -> dict:
+    """The tracker's local-map arrays from a mapping with the JAX tracker's
+    keys: plucker (NL, 6), ep3d (NL, 2, 3) and valid (NL,) as float32, the
+    uint32 descriptor words ``bits`` (NL, W) as int64."""
+    d = _as_mapping(value)
+    return dict(
+        plucker=tensor_from(d["plucker"], device, torch.float32),
+        ep3d=tensor_from(d["ep3d"], device, torch.float32),
+        bits=tensor_from(np.asarray(d["bits"]).astype(np.uint32).astype(np.int64), device),
+        valid=tensor_from(d["valid"], device, torch.float32),
+    )
+
+
+def chunk_inputs_from(frames, T_last, T_prevlast, local, device="cpu"):
+    """The inputs of one semi-direct chunk (``frontend.pipeline``): the
+    (C + 1, H, W) frame stack (u8 kept as u8), the pose chain (T_last,
+    T_prevlast) as float32 (4, 4) and the local-map arrays. Returns
+    (frames, T_last, T_prevlast, local) on ``device``."""
+    return (
+        tensor_from(frames, device),
+        tensor_from(T_last, device, torch.float32),
+        tensor_from(T_prevlast, device, torch.float32),
+        local_map_from(local, device),
+    )
 
 
 def map_state(m) -> dict:

@@ -2,9 +2,12 @@
 
 Counterpart of ``tpuslam.frontend.frame``: pyramid -> line detection -> LBD
 per level, the levels merged into one fixed-capacity set in level-0 pixel
-coordinates, and descriptor stereo for endpoint depths. Full resolution and
-zero distortion only: ``base_scale``/``prescaled`` (the half-resolution
-bench path) and radtan undistortion are not ported yet and raise.
+coordinates, and descriptor stereo for endpoint depths. Zero distortion
+only (radtan undistortion is not ported yet and raises). The half-resolution
+bench path is the host-prescaled form: :func:`host_prescale` halves each
+frame on the host before it goes to the device (``prescaled=True``), and the
+merged geometry is reported in full-resolution pixels; the in-program resize
+(``base_scale != 1`` without ``prescaled``) is not ported and raises.
 """
 
 from __future__ import annotations
@@ -32,8 +35,12 @@ class FrontendParams(NamedTuple):
     max_lines: int = 256  # merged per-frame capacity K
     n_levels: int = 2
     scale: float = 0.8
-    base_scale: float = 1.0  # detect at this fraction of the input size (not ported)
-    prescaled: bool = False  # caller downscales on the host (not ported)
+    # detect + describe at this fraction of the input resolution; geometry is
+    # reported at full resolution (sigma scaled up). Only with prescaled=True
+    base_scale: float = 1.0
+    # the caller (Tracker.track_stereo) downscales each frame to base_scale
+    # on the host with host_prescale before it goes to the device
+    prescaled: bool = False
     lsd: LSDParams = LSDParams()
     lbd: LBDParams = LBDParams()
     dist: Distortion = Distortion()  # radtan distortion (not ported: zero only)
@@ -97,10 +104,39 @@ def _merge_levels(per_level, params: FrontendParams) -> FrameFeatures:
     )
 
 
+def prescaled_shape(H: int, W: int, params: FrontendParams):
+    """Image shape the extractor gets for (H, W) input frames: (H, W) itself
+    unless prescaled host ingest is on."""
+    if not params.prescaled or params.base_scale == 1.0:
+        return H, W
+    s = params.base_scale
+    return max(16, int(round(H * s))), max(16, int(round(W * s)))
+
+
+def host_prescale(img, params: FrontendParams):
+    """Host-side downscale to ``base_scale`` for prescaled ingest, keeping the
+    dtype (u8 frames stay u8 on their way to the device): the 2x2 area mean
+    of ``tpuslam.frontend.frame.host_prescale`` without cv2, rounded to u8,
+    for base_scale 0.5. (The JAX package takes a cv2 Gaussian + bilinear
+    resize instead where cv2 imports; this package has no cv2 form.)"""
+    if not params.prescaled or params.base_scale == 1.0:
+        return img
+    img = np.asarray(img)
+    H, W = img.shape
+    bh, bw = prescaled_shape(H, W, params)
+    s = params.base_scale
+    if bh * 2 <= H and bw * 2 <= W and abs(s - 0.5) < 1e-6:
+        a = img[: bh * 2, : bw * 2].astype(np.float32)
+        m = 0.25 * (a[0::2, 0::2] + a[0::2, 1::2] + a[1::2, 0::2] + a[1::2, 1::2])
+        return m.round().astype(img.dtype) if img.dtype == np.uint8 else m.astype(img.dtype)
+    raise NotImplementedError(f"host_prescale: base_scale {s} (only the 2x2 area mean, base_scale 0.5, is ported)")
+
+
 def extract_features(img: torch.Tensor, params: FrontendParams = FrontendParams()) -> FrameFeatures:
-    """(H, W) float32 image in [0, 1] -> FrameFeatures, on the image's device."""
-    if params.base_scale != 1.0 or params.prescaled:
-        raise NotImplementedError("base_scale/prescaled (the half-resolution bench path) is not ported yet")
+    """(H, W) float32 image in [0, 1] -> FrameFeatures, on the image's device.
+    With ``prescaled`` the image is already at ``base_scale`` of the frame."""
+    if params.base_scale != 1.0 and not params.prescaled:
+        raise NotImplementedError("base_scale without prescaled (the in-program resize) is not ported yet")
     if not params.dist.is_zero:
         raise NotImplementedError("radtan undistortion is not ported yet")
     per_level = []

@@ -14,6 +14,7 @@ from tpuslam_torch.geometry.plucker import (  # noqa: F401
 from tpuslam_torch.geometry.se3 import (  # noqa: F401
     se3_apply,
     se3_exp,
+    se3_inverse,
     se3_orthonormalize,
     se3_retract,
     so3_exp,

@@ -97,6 +97,12 @@ def se3_orthonormalize(T: torch.Tensor) -> torch.Tensor:
     return _homogeneous(Rn, T[..., :3, 3])
 
 
+def se3_inverse(T: torch.Tensor) -> torch.Tensor:
+    """Inverse of a (..., 4, 4) rigid transform: [[R^T, -R^T t], [0, 1]]."""
+    Rt = T[..., :3, :3].transpose(-1, -2)
+    return _homogeneous(Rt, -(Rt @ T[..., :3, 3, None])[..., 0])
+
+
 def se3_apply(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     """Transform (..., 3) points by (..., 4, 4)."""
     return (T[..., :3, :3] @ pts[..., None])[..., 0] + T[..., :3, 3]

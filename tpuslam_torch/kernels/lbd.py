@@ -8,6 +8,7 @@ are int64 tensors holding the uint32 bit patterns of the JAX package.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -33,6 +34,13 @@ def _pair_pattern(n_floats: int, n_bits: int) -> np.ndarray:
             seen.add((i, j))
             pairs.append((i, j))
     return np.asarray(pairs, np.int32)
+
+
+@functools.lru_cache(maxsize=8)
+def _pairs_on(n_floats: int, n_bits: int, device: str) -> torch.Tensor:
+    """The pair pattern on ``device``, built and uploaded once (a host copy
+    per call would stall the card's queue)."""
+    return torch.from_numpy(_pair_pattern(n_floats, n_bits)).long().to(device)
 
 
 def _l2n(x: torch.Tensor) -> torch.Tensor:
@@ -117,7 +125,7 @@ def lbd_descriptors(
     desc = desc * keep
 
     # binarize with the fixed pair pattern, pack 32 bits per int64 word
-    pairs = torch.from_numpy(_pair_pattern(8 * m, params.n_bits)).long().to(dev)
+    pairs = _pairs_on(8 * m, params.n_bits, str(dev))
     bits = (desc[:, pairs[:, 0]] > desc[:, pairs[:, 1]]).to(torch.int64)  # (K, B)
     shifts = torch.arange(params.n_bits, device=dev) % 32
     words = (bits << shifts).view(K, params.n_bits // 32, 32).sum(dim=-1)

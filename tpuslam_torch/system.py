@@ -7,10 +7,11 @@
 
 Same signature as ``tpuslam.system.System`` plus ``device``, the card
 unless ``device="cpu"`` is passed (without a card the default raises). This port runs
-stereo tracking with relocalization and, with ``mapping=True``, synchronous
-local mapping after each keyframe (culling, fusion, LM+Schur local BA on
-``device``). ``loop_closing=True`` and ``sensor="mono"`` raise
-NotImplementedError.
+stereo tracking with relocalization (synchronous, or in pipelined
+semi-direct chunks: the JAX package's bench configuration) and, with
+``mapping=True``, synchronous local mapping after each keyframe (culling,
+fusion, LM+Schur local BA on ``device``). ``loop_closing=True`` and
+``sensor="mono"`` raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -56,6 +57,25 @@ class StageTimer:
                 n=len(arr),
             )
         return out
+
+
+def bench_configs(chunk: int = 6):
+    """The configuration the JAX package benchmarks (``tpuslam/bench.py``):
+    pipelined semi-direct chunks of ``chunk`` frames with direct stereo on
+    host-halved frames, and local BA on the two-rung bucket ladder (8, 128,
+    512) / (16, 256, 1024). Fusion applies at the keyframe (the JAX bench's
+    deferred fusion is not ported). Returns (TrackerConfig, MapperConfig)."""
+    from tpuslam_torch.backend.local_ba import LocalBAConfig
+    from tpuslam_torch.frontend.frame import FrontendParams
+    from tpuslam_torch.kernels.align_direct import DirectAlignParams
+    from tpuslam_torch.kernels.stereo_direct import DirectStereoParams
+
+    tcfg = TrackerConfig(
+        pipelined=True, chunk=chunk, direct_stereo=DirectStereoParams(),
+        frontend=FrontendParams(base_scale=0.5, prescaled=True), semidirect=DirectAlignParams(),
+    )
+    mcfg = MapperConfig(ba=LocalBAConfig(pose_buckets=(8, 16), line_buckets=(128, 256), obs_buckets=(512, 1024)))
+    return tcfg, mcfg
 
 
 class System:
@@ -127,14 +147,20 @@ class System:
 
     # ---- public API -----------------------------------------------------
     def track_stereo(self, img_left, img_right, timestamp: float) -> np.ndarray:
+        """Track one frame; returns the tracker's newest resolved pose (in
+        pipelined mode that of a frame one chunk back)."""
         t0 = time.perf_counter()
         r = self.tracker.track_stereo(img_left, img_right, timestamp)
         dt = time.perf_counter() - t0
         self.timer.add("track", dt)
         if self.mapper is not None:  # between-KF poll, as the JAX System does
             self.mapper.tick()
-        self.trajectory.append(r)
-        self._log(r, dt)
+        if r is not None:  # pipelined mode resolves a chunk later
+            self.trajectory.append(r)
+            self._log(r, dt)
+        for extra in self.tracker.pop_results():  # a resolve can complete several frames
+            self.trajectory.append(extra)
+            self._log(extra, 0.0)
         return np.asarray(self.tracker.T_cw)
 
     def track_frame(self, images, timestamp: float) -> np.ndarray:
@@ -175,8 +201,11 @@ class System:
         return self.timer.summary()
 
     def shutdown(self):
-        """Finish mapping and close the log. Tracking and mapping are
-        synchronous, so no frame or solve is in flight."""
+        """Track the frames still buffered or in flight (the trajectory then
+        holds one entry per input frame), finish mapping and close the log."""
+        for r in self.tracker.flush_all():
+            self.trajectory.append(r)
+            self._log(r, 0.0)
         if self.mapper is not None:
             self.mapper.finish()
         if self._log_f is not None:
