@@ -21,14 +21,23 @@ first failure and catches nothing):
    for bit to its baseline form, the form it replaced: blur to two launches,
    gradients to `img * 255` then the four-plane kernel, lsd_front to that
    chain behind the blur kernel plus the eager compat loop (162 launches),
-   CCL to one launch per round.
+   CCL to one launch per round. The blur also at BRIEF's sigma 2 (radius
+   6) on the image times 255 at 480x640 and 240x320 (FAST's shape on the
+   bench path), within 255e-5. The fixed-order moment sums (moments: each
+   of the three sums one detect_lines call makes, taken from a call at
+   480x640, 240x320 and 192x256: the components' 7 columns into 257 slots,
+   their normal moment, the merge's 7 columns over 256 segments) against
+   their plain version in item order within 1e-5 of each column's absolute
+   sum, and bit-equal over two calls; its yardstick is index_add_ under
+   torch.use_deterministic_algorithms(True).
    Device time per call: CUDA events around 100 back-to-back calls queued
    behind a spin kernel (so no host gap enters), the baseline forms in turns
    with the kernels (old, new, new, old); the blur's yardstick is one
-   F.conv2d with the 7x7 outer product of the taps over a plane padded
-   once; each kernel's bound from its shape and this run's data (bytes at
-   3.35 TB/s, operations at 67 T/s). Device launches per call of each form,
-   counted by torch.profiler over one call: 1 for lsd_front and gradients;
+   F.conv2d with the outer product of the taps (7x7, 13x13 for BRIEF's)
+   over a plane padded once; each kernel's bound from its shape and this
+   run's data (bytes at 3.35 TB/s, operations at 67 T/s). Device launches
+   per call of each form, counted by torch.profiler over one call: 1 for
+   lsd_front and gradients, 2 for moments (and the wrapper's own count);
 4. the tracking slice: System(cam, sensor="stereo", mapping=False,
    loop_closing=False, device="cuda") over 40 rendered VGA stereo frames.
    Every frame after initialisation must track OK, at least 2 keyframes,
@@ -62,7 +71,18 @@ first failure and catches nothing):
    System, the host synchronizations of the chunk program alone (must be 0)
    and of one steady chunk's calls (dispatch + resolve; target 1),
    torch.profiler device busy ms and launches of one steady chunk's calls,
-   and of the anchor's step and one follower's step run alone.
+   and of the anchor's step and one follower's step run alone; then the
+   same configuration run again over the same frames: the same keyframes
+   and bit-equal poses (the card runs repeat);
+9. the hybrid bench path: the same with bench_configs(points=True) (FAST
+   corners and BRIEF beside the lines, corner depths by direct stereo, the
+   joint pose LM, point templates on the followers, point landmarks and
+   their BA) over the same 40 frames with the scene's points drawn as dots:
+   every frame OK, ATE no worse than the JAX package's hybrid ATE + 0.01 m,
+   kernel calls per extraction (blur 2: the pyramid's and BRIEF's), live
+   and multi-observation point counts, frames/s; host syncs of its chunk
+   program (must be 0) and the device busy ms and launches of its anchor
+   and one follower.
 
 Output: a {"kernels": [...]} JSON line (calls per path and launches per
 call from the bench run; times, bounds, errors and profiled launches per
@@ -101,24 +121,38 @@ JAX_MAPPING_ATE_M = 0.009802508959604729
 # mirror off (TPUSLAM_NATIVE_MAP=0): `python tests/test_torch_semidirect.py`
 # prints it (keyframes at frames 0, 13, 19)
 JAX_BENCH_ATE_M = 0.0336553673054669
+# the same for the hybrid bench configuration (the above with
+# tcfg.points = PointFrontendParams(), as tpuslam/bench.py sets it under
+# TPUSLAM_BENCH_POINTS=1) on the 40 frames `make_frames(draw_points=True)`
+# renders, XLA:CPU, cv2 hidden, TPUSLAM_KF_DEFER_MS=0, TPUSLAM_NATIVE_MAP=0:
+# `python tests/test_torch_hybrid.py` prints it (keyframes at frames 0, 1, 7,
+# 13, 19, 25, 31)
+JAX_HYBRID_BENCH_ATE_M = 0.03508363848096205
 ATE_MARGIN_M = 0.01
 RELOC_FRAME = 20
 # kernel calls per stereo frame on the slice (two cameras, two levels each):
 # the pyramid's blur per camera; per camera and level the LBD gradients, the
-# detector's front (its prefilter blur inside) and the propagation
-PER_FRAME = {"blur": 2, "gradients": 4, "lsd_front": 4, "ccl": 4}
+# detector's front (its prefilter blur inside), the propagation and three
+# moment sums (the components' 7 columns and their normal moment, the
+# merge's 7 columns)
+PER_FRAME = {"blur": 2, "gradients": 4, "lsd_front": 4, "ccl": 4, "moments": 12}
 KERNELS = {
     "blur": ("tpuslam_torch/csrc/image.cu", "tpuslam/kernels/pallas_image.py:148"),
     "gradients": ("tpuslam_torch/csrc/image.cu", "tpuslam/kernels/pallas_image.py:86"),
     "lsd_front": ("tpuslam_torch/csrc/lsd_front.cu", "tpuslam/kernels/pallas_image.py:86"),
     "ccl": ("tpuslam_torch/csrc/ccl.cu", "tpuslam/kernels/pallas_ccl.py:121"),
+    # no Pallas kernel: XLA fuses these sums into its reductions (detect_lines' `red`)
+    "moments": ("tpuslam_torch/csrc/moments.cu", "tpuslam/kernels/lsd.py:219"),
 }
-TOL = {"blur": 1e-5, "gradients": 1e-3, "lsd_front": 1e-3, "ccl": 0}
+# blur_brief: the 1e-5 of [0, 1] images on BRIEF's 0..255 input; moments: relative
+TOL = {"blur": 1e-5, "blur_brief": 255e-5, "gradients": 1e-3, "lsd_front": 1e-3, "ccl": 0, "moments": 1e-5}
 # the bench path: chunks of 6; kernel calls of one left-image extraction at
 # half resolution (an anchor, or a frame on the synchronous path): the
 # pyramid's blur; per level the LBD gradients, the front and the propagation
 BENCH_C = 6
-PER_EXTRACTION = {"blur": 1, "gradients": 2, "lsd_front": 2, "ccl": 2}
+PER_EXTRACTION = {"blur": 1, "gradients": 2, "lsd_front": 2, "ccl": 2, "moments": 6}
+# the hybrid bench path adds BRIEF's smoothing blur (sigma 2, radius 6) per extraction
+PER_EXTRACTION_HYBRID = {**PER_EXTRACTION, "blur": 2}
 PROFILE_WARM, PROFILE_FRAMES = 10, 3  # frames before the profiled ones, profiled frames
 
 
@@ -135,9 +169,11 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def make_frames(n_frames: int = N_FRAMES):
+def make_frames(n_frames: int = N_FRAMES, draw_points: bool = False):
     """VGA stereo camera, the bench's scene (tpuslam/bench.py) and its
-    rendered (left, right) uint8 frames, all from seed 0."""
+    rendered (left, right) uint8 frames, all from seed 0; with
+    ``draw_points`` the scene's 3D points are drawn as dots (the hybrid
+    front end's corners; the same scene, lines and seed)."""
     import numpy as np
 
     from tpuslam_torch import Intrinsics
@@ -150,7 +186,10 @@ def make_frames(n_frames: int = N_FRAMES):
     Tb[0, 3] = -cam.baseline
     scene_r = scene._replace(poses=np.stack([Tb @ T for T in scene.poses]))
     frames = [
-        (render_wireframe_image(scene, f, noise=1.0, rng=rng), render_wireframe_image(scene_r, f, noise=1.0, rng=rng))
+        (
+            render_wireframe_image(scene, f, noise=1.0, rng=rng, draw_points=draw_points),
+            render_wireframe_image(scene_r, f, noise=1.0, rng=rng, draw_points=draw_points),
+        )
         for f in range(n_frames)
     ]
     return cam, scene, frames
@@ -171,13 +210,14 @@ PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 memory rate
 PEAK_OPS_PER_S = 67e12  # H100 SXM float32 peak outside the tensor cores
 
 
-def device_us(fn, reps: int = REPS) -> float:
+def device_us(fn, reps: int = REPS):
     """Device time per call (us): CUDA events around `reps` back-to-back
     calls, after 3 warm-up calls. The calls are enqueued behind a spin
     kernel (torch.cuda._sleep), so the host is ahead of the card and they run
     without host gaps; the start event must still be pending once the host
     has enqueued them all (else the run is repeated with fewer calls or a
-    longer spin)."""
+    longer spin). A call that waits for the card can never be ahead: that
+    fails."""
     import torch
 
     for _ in range(3):
@@ -246,6 +286,15 @@ def bound_us(name: str, H: int, W: int, ntaps: int, rounds: int, compat_bits: in
     return max(tb, to) * 1e6, ("bytes" if tb >= to else "operations")
 
 
+def moments_bound_us(N: int, V: int, S: int):
+    """(least time in us, "bytes" or "operations") of one moments call: V
+    float32 columns and an int32 slot per item read, (V, S) sums written;
+    an add per value."""
+    nbytes, ops = 4 * N * (V + 1) + 4 * V * S, N * V
+    tb, to = nbytes / PEAK_BYTES_PER_S, ops / PEAK_OPS_PER_S
+    return max(tb, to) * 1e6, ("bytes" if tb >= to else "operations")
+
+
 def in_turns(old, new):
     """Device us of two forms of one function, timed old, new, new, old;
     returns (new, old), each the mean of its two turns."""
@@ -253,28 +302,36 @@ def in_turns(old, new):
     return (n1 + n2) / 2, (o1 + o2) / 2
 
 
+# torch.cuda._sleep's kernel, which `profiled` launches first in each trace
+PROFILE_MARKER = "spin_kernel"
+
+
 def device_events(prof):
     """(device busy us, kernel launches, memcpy/memset events) of a
     torch.profiler run, from its device-side events only (host ops repeat
-    their kernels' time)."""
+    their kernels' time), without `profiled`'s marker kernel."""
     from torch.autograd import DeviceType
 
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and PROFILE_MARKER not in e.key]
     n_copies = sum(e.count for e in dev if e.key.startswith(("Memcpy", "Memset")))
     return sum(e.self_device_time_total for e in dev), sum(e.count for e in dev) - n_copies, n_copies
 
 
 def profiled(run, tries: int = 3):
     """(profile, device_events) of run() under torch.profiler (CPU and CUDA
-    activity). A trace that holds no device event at all is taken again, up
-    to `tries` times: now and then a trace taken in a process that has taken
-    many (the kernel phase) gets none of its device events from the tracer."""
+    activity). Each trace starts with a marker kernel, left out of the
+    counts: in a process that has run many kernels and timings (the kernel
+    phase), the tracer drops the first device event of most traces, whatever
+    its kernel and however long the trace has run (PERF.md section 7). A
+    trace that holds no device event but the marker is taken again, up to
+    `tries` times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for t in range(tries):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
             run()
             torch.cuda.synchronize()
         events = device_events(prof)
@@ -299,6 +356,7 @@ def kernel_phase(frames, card):
     import torch.nn.functional as F
 
     from tpuslam_torch.kernels import image, lsd
+    from tpuslam_torch.kernels.fast import FASTParams
 
     left = torch.from_numpy(frames[0][0]).cuda().float() / 255.0
     level1 = image.build_pyramid(left, 2, 0.8)[1].contiguous()  # 384x512
@@ -308,6 +366,8 @@ def kernel_phase(frames, card):
     R = params.ccl_rounds
     sigma = params.prefilter_sigma
     ntaps = image._blur_taps(sigma).numel()
+    bsig = FASTParams().blur_sigma  # BRIEF's smoothing: radius 6, on the image times 255
+    bntaps = image._blur_taps(bsig).numel()
     want_lpc = launches_per_call()
     res = {}
     for img in (left, level1, half, half1):
@@ -335,6 +395,14 @@ def kernel_phase(frames, card):
             "ccl": (lambda: lsd.ccl_propagate(lab0, mx0, cb, R), lambda: lsd._ccl_torch(lab0, mx0, cb, R),
                     (lambda: lsd._ccl_per_round_cuda(lab0, mx0, cb, R), 10), None, REPS),
         }
+        if img is left or img is half:  # FAST runs on the bench path's 240x320 left image
+            bimg = (img * 255.0).contiguous()
+            btaps = image._blur_taps(bsig).cuda()
+            br = btaps.numel() // 2
+            bpadded = F.pad(bimg[None, None], (br, br, br, br), mode="replicate")
+            btaps2d = torch.outer(btaps, btaps)[None, None]
+            cases["blur_brief"] = (lambda: image.gaussian_blur(bimg, bsig), lambda: image.gaussian_blur_torch(bimg, bsig),
+                                   (lambda: image._blur_two_pass_cuda(bimg, bsig), REPS), lambda: F.conv2d(bpadded, btaps2d), REPS)
         for name, (kern, plain, baseline, lib, reps) in cases.items():
             outs_k, outs_p, outs_o = (x if isinstance(x, tuple) else (x,) for x in (kern(), plain(), baseline[0]()))
             torch.cuda.synchronize()
@@ -363,7 +431,10 @@ def kernel_phase(frames, card):
             dev_us, old_us = in_turns(baseline, (kern, reps))
             plain_ms = host_paced_ms(plain, 10 if name in ("ccl", "lsd_front") else REPS)
             lib_ms = device_us(lib) / 1e3 if lib else None
-            b_us, b_by = bound_us(name, H, W, ntaps, R, n_bits, n_support)
+            if name == "blur_brief":
+                b_us, b_by = bound_us("blur", H, W, bntaps, R, n_bits, n_support)
+            else:
+                b_us, b_by = bound_us(name, H, W, ntaps, R, n_bits, n_support)
             lib_txt = f"{lib_ms * 1e3:.3f} us" if lib else "none"
             print(
                 f"kernel {name:9s} {(H, W)}: device {dev_us:.3f} us/call, baseline form {old_us:.3f} us, bound {b_us:.3f} us "
@@ -385,6 +456,113 @@ def kernel_phase(frames, card):
                 prev["max_abs_err"] = max(prev["max_abs_err"], err)
                 prev["device_us_by_shape"][by_shape] = dev_us
                 prev["bound_us_by_shape"][by_shape] = b_us
+    # BRIEF's blur is the blur kernel's second instance on the main path
+    res["blur"]["brief"] = dict(sigma=bsig, radius=bntaps // 2, **res.pop("blur_brief"))
+    res["moments"] = moments_phase((left, half, half1), card)
+    return res
+
+
+# the three moment sums of one detect_lines call, in call order
+MOMENT_SUMS = ("components", "normal", "merge")
+
+
+def detector_moment_inputs(img):
+    """{sum: (values, slot, S)} of the moment sums one detect_lines call
+    makes on ``img``: the components' 7 columns, their normal moment (1
+    column), and merge_collinear's 7 columns over the segments."""
+    from tpuslam_torch.kernels import lsd
+
+    seen, real = [], lsd.segment_moments
+
+    def grab(values, slot, S):
+        seen.append((values, slot, S))
+        return real(values, slot, S)
+
+    lsd.segment_moments = grab
+    try:
+        lsd.detect_lines(img, 256)
+    finally:
+        lsd.segment_moments = real
+    if len(seen) != len(MOMENT_SUMS):
+        fail(f"moments: detect_lines made {len(seen)} moment sums, expected {len(MOMENT_SUMS)}")
+    return dict(zip(MOMENT_SUMS, seen))
+
+
+def moments_phase(images, card) -> dict:
+    """The moments kernel on each of the detector's own sums at each image's
+    shape: against its plain version (index_add_ in item order, on the CPU),
+    bit-equal over two calls, device us, launches per call (the wrapper's
+    count and torch.profiler's), and the deterministic index_add_ yardstick.
+    Returns the kernels-line fields (the components' sum at the first shape
+    fills the top-level ones)."""
+    import torch
+
+    from tpuslam_torch.kernels import lsd
+
+    want = launches_per_call()["moments"]
+    res = None
+    for img in images:
+        H, W = img.shape
+        for which, (vals, slot, S) in detector_moment_inputs(img).items():
+            V, N = vals.shape
+            tag = f"kernel moments   {(H, W)} {which}"
+            a, b = lsd.segment_moments(vals, slot, S), lsd.segment_moments(vals, slot, S)
+            ref = lsd.segment_moments_torch(vals.cpu(), slot.cpu(), S)
+            scale = lsd.segment_moments_torch(vals.abs().cpu(), slot.cpu(), S)
+            err = float((a.cpu().double() - ref.double()).abs().max())
+            rel = float(((a.cpu().double() - ref.double()).abs() / (scale.double() + 1e-6)).max())
+            same = torch.equal(a, b)
+            ok = same and rel <= TOL["moments"]
+            print(
+                f"{tag}: {N} items, {V} columns, {S} slots; max_abs_err={err:.3g}, relative {rel:.3g} (tol "
+                f"{TOL['moments']}), two calls bit-equal: {same} {'ok' if ok else 'FAIL'}",
+                flush=True,
+            )
+            if not ok:
+                fail(f"moments kernel disagrees with its plain version or between two calls at {(H, W)} ({which})")
+
+            def kern():
+                return lsd.segment_moments(vals, slot, S)
+
+            before = lsd.KERNEL_LAUNCHES["moments"]
+            kern()
+            lpc = lsd.KERNEL_LAUNCHES["moments"] - before
+            profiler_lpc = profiled_launches(kern)
+            print(f"{tag}: launches per call {lpc} (wrapper's count), {profiler_lpc} (torch.profiler)", flush=True)
+            if lpc != want or profiler_lpc != want:
+                fail(f"moments: {lpc} (wrapper) and {profiler_lpc} (torch.profiler) device launches per call, expected {want}")
+            valsT, slot64 = vals.t().contiguous(), slot.long()
+
+            def library():  # one PyTorch call in its deterministic mode
+                torch.use_deterministic_algorithms(True)
+                try:
+                    return torch.zeros((S, V), dtype=torch.float32, device=vals.device).index_add_(0, slot64, valsT)
+                finally:
+                    torch.use_deterministic_algorithms(False)
+
+            lib_same = torch.equal(library(), library())
+            lib_us = device_us(library)
+            dev_us = device_us(kern)
+            plain_ms = host_paced_ms(lambda: lsd.segment_moments_torch(vals, slot, S), REPS)
+            b_us, b_by = moments_bound_us(N, V, S)
+            print(
+                f"{tag}: device {dev_us:.3f} us/call, bound {b_us:.3f} us ({b_by}, {b_us / dev_us:.1%} of it); "
+                f"deterministic index_add_ {lib_us:.3f} us (two calls bit-equal: {lib_same}); plain (index_add_ with "
+                f"atomics) {plain_ms:.4f} ms (host-paced) on {card}",
+                flush=True,
+            )
+            key = f"{H}x{W} {which}"
+            if res is None:
+                res = dict(
+                    shape=key, max_abs_err=err, max_rel_err=rel, device_us=dev_us, ms=dev_us / 1e3, plain_ms=plain_ms,
+                    bound_us=b_us, bound_ms=b_us / 1e3, bound_by=b_by, library_ms=lib_us / 1e3,
+                    profiled_launches_per_call=profiler_lpc, device_us_by_sum={}, bound_us_by_sum={}, library_us_by_sum={},
+                )
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+            res["max_rel_err"] = max(res["max_rel_err"], rel)
+            res["device_us_by_sum"][key] = dev_us
+            res["bound_us_by_sum"][key] = b_us
+            res["library_us_by_sum"][key] = lib_us
     return res
 
 
@@ -422,7 +600,8 @@ def profile_phase(cam, frames, card) -> None:
         f"{wall * 1e3 / n:.2f} ms/frame under the profiler (device idle {1 - busy_us / 1e6 / wall:.1%}) on {card}",
         flush=True,
     )
-    dev = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA), key=lambda e: -e.self_device_time_total)
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and PROFILE_MARKER not in e.key]
+    dev.sort(key=lambda e: -e.self_device_time_total)
     for e in dev[:10]:
         print(f"profile: {e.self_device_time_total / 1e3 / n:8.3f} ms/frame {e.count / n:7.1f} calls/frame  {e.key[:90]}", flush=True)
 
@@ -447,7 +626,7 @@ def launches_per_call() -> dict:
     and lsd_front, ceil(R / k) for CCL."""
     from tpuslam_torch.kernels import lsd
 
-    return {"blur": 1, "gradients": 1, "lsd_front": 1, "ccl": -(-lsd.LSDParams().ccl_rounds // lsd.CCL_TILE[2])}
+    return {"blur": 1, "gradients": 1, "lsd_front": 1, "ccl": -(-lsd.LSDParams().ccl_rounds // lsd.CCL_TILE[2]), "moments": 2}
 
 
 def check_launches(tag: str, launches, n_frames: int) -> None:
@@ -612,19 +791,23 @@ def reloc_phase(sys_, scene, frames) -> None:
     check_launches("reloc", launches, 1)
 
 
-def bench_system(cam):
+def bench_system(cam, points: bool = False):
     from tpuslam_torch.system import System, bench_configs
 
-    tcfg, mcfg = bench_configs(BENCH_C)
+    tcfg, mcfg = bench_configs(BENCH_C, points=points)
     return System(cam, sensor="stereo", mapping=True, loop_closing=False, tracker_cfg=tcfg, mapper_cfg=mcfg, device="cuda")
 
 
-def bench_phase(cam, scene, frames, card):
-    """The bench configuration over the frames, with the launch counts set
-    to 0 just before and read just after. Returns the launches."""
+def bench_phase(cam, scene, frames, card, points: bool = False):
+    """The bench configuration (its hybrid variant with ``points``) over the
+    frames, with the launch counts set to 0 just before and read just
+    after. Returns (launches, trajectory)."""
     import torch
 
-    sys_ = bench_system(cam)
+    tag = "bench hybrid" if points else "bench"
+    per_extraction = PER_EXTRACTION_HYBRID if points else PER_EXTRACTION
+    jax_ate = JAX_HYBRID_BENCH_ATE_M if points else JAX_BENCH_ATE_M
+    sys_ = bench_system(cam, points)
     sys_.timer.warmup = 0  # keep every keyframe event's stage times
     steady = BENCH_C + 1  # frames 1..C fill the first chunk, dispatched by frame C's call
     reset_launches()
@@ -646,42 +829,42 @@ def bench_phase(cam, scene, frames, card):
     traj = sys_.trajectory
     states = [r.state.name for r in traj]
     kfs = [r.frame_idx for r in traj if r.made_keyframe]
-    print(f"bench: anchors {tr.anchor_frames}, synchronous frames {tr.sync_frames}, keyframes at frames {kfs}", flush=True)
-    print(f"bench: states {states}", flush=True)
+    print(f"{tag}: anchors {tr.anchor_frames}, synchronous frames {tr.sync_frames}, keyframes at frames {kfs}", flush=True)
+    print(f"{tag}: states {states}", flush=True)
     if [r.frame_idx for r in traj] != list(range(len(frames))):
-        fail(f"bench: trajectory frames {[r.frame_idx for r in traj]}, expected one entry per frame in order")
+        fail(f"{tag}: trajectory frames {[r.frame_idx for r in traj]}, expected one entry per frame in order")
     if any(st != "OK" for st in states):
-        fail("bench: a frame did not track OK")
+        fail(f"{tag}: a frame did not track OK")
     allowed = set(tr.anchor_frames) | set(tr.sync_frames)
     if not set(kfs) <= allowed:
-        fail(f"bench: keyframes at frames {sorted(set(kfs) - allowed)}, neither anchors nor synchronous frames")
+        fail(f"{tag}: keyframes at frames {sorted(set(kfs) - allowed)}, neither anchors nor synchronous frames")
     ate = ate_of(traj, scene)
-    bound = JAX_BENCH_ATE_M + ATE_MARGIN_M
-    print(f"bench: ATE {ate:.5f} m, bound {bound:.5f} m (JAX package {JAX_BENCH_ATE_M} m + {ATE_MARGIN_M} m)", flush=True)
+    bound = jax_ate + ATE_MARGIN_M
+    print(f"{tag}: ATE {ate:.5f} m, bound {bound:.5f} m (JAX package {jax_ate} m + {ATE_MARGIN_M} m)", flush=True)
     if not ate <= bound:
-        fail(f"bench: ATE {ate} m above {bound} m")
+        fail(f"{tag}: ATE {ate} m above {bound} m")
 
     calls, device = launches
     want_lpc = launches_per_call()
     n_anchor, n_ext = len(tr.anchor_frames), len(tr.anchor_frames) + tr.n_sync_extractions
-    for name, per in PER_EXTRACTION.items():
+    for name, per in per_extraction.items():
         want = per * n_ext
         print(
-            f"bench: {name} calls {calls[name]} (expected {per} x {n_ext} extractions = {want}: {n_anchor} anchors, "
+            f"{tag}: {name} calls {calls[name]} (expected {per} x {n_ext} extractions = {want}: {n_anchor} anchors, "
             f"{tr.n_sync_extractions} synchronous), {calls[name] / n_anchor:.2f} per anchor, device launches {device[name]}",
             flush=True,
         )
         if calls[name] != want or calls[name] == 0:
-            fail(f"bench: {name}: {calls[name]} calls, expected {want}")
+            fail(f"{tag}: {name}: {calls[name]} calls, expected {want}")
         if device[name] != want * want_lpc[name]:
-            fail(f"bench: {name}: {device[name]} device launches, expected {want_lpc[name]} per call")
+            fail(f"{tag}: {name}: {device[name]} device launches, expected {want_lpc[name]} per call")
 
     n_steady = len(frames) - steady
     wall = t_end - t_steady
     chunk_calls = [dt for f, dt in enumerate(call_s[steady:], steady) if (f - 1) % BENCH_C == BENCH_C - 1]
     other_calls = [dt for f, dt in enumerate(call_s[steady:], steady) if (f - 1) % BENCH_C != BENCH_C - 1]
     print(
-        f"bench: frames {steady}-{len(frames) - 1} and the final flush: {wall * 1e3:.1f} ms for {n_steady} frames = "
+        f"{tag}: frames {steady}-{len(frames) - 1} and the final flush: {wall * 1e3:.1f} ms for {n_steady} frames = "
         f"{n_steady / wall:.2f} frames/s ({wall * 1e3 / n_steady:.2f} ms/frame); calls that dispatch a chunk and resolve the "
         f"previous one median {statistics.median(chunk_calls) * 1e3:.2f} ms, buffering calls median "
         f"{statistics.median(other_calls) * 1e3:.3f} ms; whole run {(t_end - t0):.2f} s on {card}",
@@ -690,17 +873,23 @@ def bench_phase(cam, scene, frames, card):
     ba = sys_.timer.times.get("mp.ba", [])
     lm_ms = sys_.timer.times.get("local_mapping", [])
     print(
-        f"bench: keyframe events {len(kfs)}, local BA (mp.ba) per keyframe event {', '.join(f'{x * 1e3:.2f}' for x in ba)} ms "
+        f"{tag}: keyframe events {len(kfs)}, local BA (mp.ba) per keyframe event {', '.join(f'{x * 1e3:.2f}' for x in ba)} ms "
         f"(median after the first {statistics.median(ba[1:]) * 1e3 if len(ba) > 1 else float('nan'):.2f} ms), local mapping "
         f"{', '.join(f'{x * 1e3:.2f}' for x in lm_ms)} ms on {card}",
         flush=True,
     )
     n_solves = sum(len(v) for v in sys_.mapper.solve_ms_by_rung.values())
     if n_solves != len(kfs) - 1:
-        fail(f"bench: {n_solves} local BA solves for {len(kfs)} keyframe events (one per event after the first)")
+        fail(f"{tag}: {n_solves} local BA solves for {len(kfs)} keyframe events (one per event after the first)")
     for rung, ms in sys_.mapper.solve_ms_by_rung.items():
-        print(f"bench: solve rung (P, L, OL) = {rung}: {', '.join(f'{x:.2f}' for x in ms)} ms on {card}", flush=True)
-    return launches
+        print(f"{tag}: solve rung (P, L, OL) = {rung}: {', '.join(f'{x:.2f}' for x in ms)} ms on {card}", flush=True)
+    if points:
+        pts = sys_.map_points()
+        n_multi = int((pts["n_obs"] >= 2).sum())
+        print(f"{tag}: live point landmarks {len(pts['ids'])}, seen from 2+ keyframes {n_multi}, live lines {len(sys_.map.lines.live_ids())}", flush=True)
+        if n_multi == 0:
+            fail(f"{tag}: no point landmark seen from two keyframes")
+    return launches, traj
 
 
 def count_syncs(run) -> list:
@@ -732,18 +921,20 @@ def count_syncs(run) -> list:
     return sites
 
 
-def bench_profile_phase(cam, frames, card) -> None:
-    """A fresh bench System: host syncs of the chunk program alone and of
-    one steady chunk's calls; torch.profiler over one steady chunk's calls,
-    the anchor's step and one follower's step."""
+def bench_profile_phase(cam, frames, card, points: bool = False) -> None:
+    """A fresh bench System (its hybrid variant with ``points``): host syncs
+    of the chunk program alone and of one steady chunk's calls;
+    torch.profiler over one steady chunk's calls, the anchor's step and one
+    follower's step."""
     import numpy as np
     import torch
 
     from tpuslam_torch.frontend import pipeline
     from tpuslam_torch.frontend.frame import host_prescale
-    from tpuslam_torch.kernels.align_direct import anchor_templates_body
+    from tpuslam_torch.kernels.align_direct import anchor_point_templates_body, anchor_templates_body
 
-    sys_ = bench_system(cam)
+    tag = "bench hybrid" if points else "bench"
+    sys_ = bench_system(cam, points)
     tr = sys_.tracker
     C = BENCH_C
     f = 0
@@ -763,13 +954,13 @@ def bench_profile_phase(cam, frames, card) -> None:
     syncs = count_syncs(lambda: feed(C))
     resolved = sys_.trajectory[n0:]
     print(
-        f"bench syncs: frames {f - C}-{f - 1}: {len(syncs)} host synchronizations at {syncs} (target 1, the resolve's read of "
+        f"{tag} syncs: frames {f - C}-{f - 1}: {len(syncs)} host synchronizations at {syncs} (target 1, the resolve's read of "
         f"the previous chunk's rows); the resolve completed frames {[r.frame_idx for r in resolved]}, keyframes among them "
         f"{[r.frame_idx for r in resolved if r.made_keyframe]} (a keyframe reads its features and runs the mapper)",
         flush=True,
     )
     if len(resolved) != C or (not any(r.made_keyframe for r in resolved) and len(syncs) != 1):
-        fail("bench: a steady chunk without a keyframe must resolve C frames with one host read")
+        fail(f"{tag}: a steady chunk without a keyframe must resolve C frames with one host read")
     n0 = len(sys_.trajectory)
     walls = []
 
@@ -782,49 +973,77 @@ def bench_profile_phase(cam, frames, card) -> None:
     _, (busy_us, n_kernels, n_copies) = profiled(run_chunk)
     resolved = sys_.trajectory[n0:]
     print(
-        f"bench profile: frames {f - C}-{f - 1} (dispatch of their chunk, resolve of frames "
+        f"{tag} profile: frames {f - C}-{f - 1} (dispatch of their chunk, resolve of frames "
         f"{[r.frame_idx for r in resolved]}, keyframes {[r.frame_idx for r in resolved if r.made_keyframe]}): device busy "
         f"{busy_us / 1e3:.3f} ms, {n_kernels} kernel launches and {n_copies} memcpy/memset per chunk, "
         f"{walls[-1] * 1e3:.2f} ms under the profiler (device idle {1 - busy_us / 1e6 / walls[-1]:.1%}) on {card}",
         flush=True,
     )
 
-    # the chunk program alone, on the next frames' stack and the tracker's chain and local map
+    # the chunk program alone, on the next frames' stack and the tracker's chain and local maps
     c = tr.cfg
     g0 = min(f, len(frames) - C)  # a retaken trace tracked further frames
     half = [[host_prescale(x, c.frontend) for x in frames[g]] for g in range(g0, g0 + C)]
     stack = torch.from_numpy(np.stack([half[0][0], half[0][1]] + [p[0] for p in half[1:]])).cuda()
     local = tr._local_map_arrays()
+    plocal = tr._point_local_arrays() if points else None
     T_l, T_p = tr._dev_chain if tr._dev_chain is not None else (tr._pose_tensor(tr.T_cw),) * 2
     sd, ap = tr._direct_lines(), tr._align_params()
-    args = (tr._fxb, cam, c.frontend, c.search_coarse, c.search_fine, c.pose_opt, c.min_track_inliers, sd, ap)
+    stages = (c.search_coarse, c.search_fine, c.pose_opt, c.min_track_inliers)
 
     def whole():
-        pipeline.fused_stereo_semidirect(stack, T_l, T_p, local, *args)
+        if points:
+            pipeline.fused_stereo_semidirect_hybrid(
+                stack, T_l, T_p, local, plocal, tr._fxb, cam, c.frontend, *stages, sd, tr._direct_points(), c.points, ap
+            )
+        else:
+            pipeline.fused_stereo_semidirect(stack, T_l, T_p, local, tr._fxb, cam, c.frontend, *stages, sd, ap)
 
     whole()
     torch.cuda.synchronize()
     n_sync = count_syncs(whole)
     torch.cuda.synchronize()
-    print(f"bench syncs: the chunk program alone (anchor + {C - 1} followers): {len(n_sync)} host synchronizations {n_sync}", flush=True)
+    print(f"{tag} syncs: the chunk program alone (anchor + {C - 1} followers): {len(n_sync)} host synchronizations {n_sync}", flush=True)
     if n_sync:
-        fail(f"bench: the chunk program synchronizes with the host at {n_sync}")
+        fail(f"{tag}: the chunk program synchronizes with the host at {n_sync}")
     f32 = stack.to(torch.float32) / 255.0
     A = ap.align_cap
-    lm = (local["plucker"], local["ep3d"], local["bits"], local["valid"])
 
     def anchor():
-        out = pipeline._fused_frame_direct_body(
-            f32[:2], T_l, T_p, *lm, tr._fxb, cam, c.frontend, sd, c.search_coarse, c.search_fine, c.pose_opt, c.min_track_inliers
-        )
-        return out, anchor_templates_body(f32[0], out[6], lm[1][:A], lm[3][:A], cam, ap)
+        if points:
+            out = pipeline._fused_frame_hybrid_body(
+                f32[:2], T_l, T_p, local, plocal, tr._fxb, cam, c.frontend, sd, tr._direct_points(), c.points, *stages
+            )
+            T_acc, T_prev = out[9], out[10]
+            tm_p = anchor_point_templates_body(f32[0], T_acc, plocal["xyz"][: ap.point_cap], plocal["valid"][: ap.point_cap], cam, ap)
+        else:
+            out = pipeline._fused_frame_direct_body(
+                f32[:2], T_l, T_p, local["plucker"], local["ep3d"], local["bits"], local["valid"], tr._fxb, cam, c.frontend,
+                sd, *stages,
+            )
+            T_acc, T_prev, tm_p = out[6], out[7], None
+        return T_acc, T_prev, anchor_templates_body(f32[0], T_acc, local["ep3d"][:A], local["valid"][:A], cam, ap), tm_p
 
-    out, tm = anchor()
+    T_acc, T_prev, tm, tm_p = anchor()
 
     def follower():
-        pipeline._follower_step(f32[2], out[6], out[7], lm[0][:A], tm, cam, ap, c.min_track_inliers)
+        pipeline._follower_step(f32[2], T_acc, T_prev, local["plucker"][:A], tm, cam, ap, c.min_track_inliers, tm_p=tm_p)
 
-    for name, run in (("whole chunk program", whole), ("anchor step (full frame + templates)", anchor), ("one follower step", follower)):
+    stages_run = [("whole chunk program", whole), ("anchor step (full frame + templates)", anchor), ("one follower step", follower)]
+    if points:  # the hybrid stages a later hand kernel could take, alone
+        from tpuslam_torch.kernels.align_direct import _search_point_templates
+        from tpuslam_torch.kernels.fast import detect_corners
+        from tpuslam_torch.kernels.stereo_direct import direct_point_disparity_body
+
+        fp = detect_corners(f32[0], c.points.max_points, c.points.fast)
+        sdp = tr._direct_points()
+        stages_run += [
+            ("FAST + BRIEF (detect_corners)", lambda: detect_corners(f32[0], c.points.max_points, c.points.fast)),
+            ("corner stereo (direct_point_disparity_body)", lambda: direct_point_disparity_body(f32[0], f32[1], fp.uv / c.frontend.base_scale, fp.valid, sdp)),
+            ("point templates (anchor_point_templates_body)", lambda: anchor_point_templates_body(f32[0], T_acc, plocal["xyz"][: ap.point_cap], plocal["valid"][: ap.point_cap], cam, ap)),
+            ("point template search (_search_point_templates, one round)", lambda: _search_point_templates(f32[2] * 255.0, T_acc, tm_p, cam, ap)),
+        ]
+    for name, run in stages_run:
         run()
         walls = []
 
@@ -836,11 +1055,30 @@ def bench_profile_phase(cam, frames, card) -> None:
 
         _, (busy_us, n_kernels, n_copies) = profiled(timed)
         print(
-            f"bench profile: {name}: device busy {busy_us / 1e3:.3f} ms, {n_kernels} kernel launches, {n_copies} memcpy/memset, "
+            f"{tag} profile: {name}: device busy {busy_us / 1e3:.3f} ms, {n_kernels} kernel launches, {n_copies} memcpy/memset, "
             f"{walls[-1] * 1e3:.2f} ms under the profiler on {card}",
             flush=True,
         )
     sys_.shutdown()
+
+
+def repeat_phase(cam, frames, traj) -> None:
+    """The lines-only bench configuration run again over the same frames:
+    the same keyframes and bit-equal poses as the first run ``traj``."""
+    import numpy as np
+
+    sys_ = bench_system(cam)
+    for f, (il, ir) in enumerate(frames):
+        sys_.track_stereo(il, ir, f * 0.05)
+    sys_.shutdown()
+    kfs = [[r.frame_idx for r in t if r.made_keyframe] for t in (traj, sys_.trajectory)]
+    same = [r.frame_idx for r in sys_.trajectory] == [r.frame_idx for r in traj] and all(
+        np.array_equal(a.T_cw, b.T_cw) for a, b in zip(traj, sys_.trajectory)
+    )
+    first = next((a.frame_idx for a, b in zip(traj, sys_.trajectory) if not np.array_equal(a.T_cw, b.T_cw)), None)
+    print(f"bench repeat: keyframes {kfs[0]} then {kfs[1]}; poses bit-equal: {same} (first differing frame {first})", flush=True)
+    if kfs[0] != kfs[1] or not same:
+        fail("bench: a second run of the bench path differs from the first")
 
 
 def main() -> int:
@@ -874,10 +1112,14 @@ def main() -> int:
     sys_, map_launches = run_slice("mapping", cam, scene, frames, card, mapping=True, jax_ate=JAX_MAPPING_ATE_M)
     ba_phase(sys_, cam, card)
     reloc_phase(sys_, scene, frames)
-    bench_launches = bench_phase(cam, scene, frames, card)
+    bench_launches, bench_traj = bench_phase(cam, scene, frames, card)
+    repeat_phase(cam, frames, bench_traj)
     bench_profile_phase(cam, frames, card)
+    _, dot_scene_, dot_frames = make_frames(draw_points=True)
+    hybrid_launches, _ = bench_phase(cam, dot_scene_, dot_frames, card, points=True)
+    bench_profile_phase(cam, dot_frames, card, points=True)
 
-    calls, device = bench_launches  # the bench path's run
+    calls, device = hybrid_launches  # this slice's path: the hybrid bench
     kernels = [
         dict(
             name=name,
@@ -885,8 +1127,11 @@ def main() -> int:
             source=KERNELS[name][0],
             replaces=KERNELS[name][1],
             launches=calls[name],
-            launches_per_call=device[name] // calls[name],  # exact: the bench phase held it
-            launches_by_path={"slice": slice_launches[0][name], "mapping": map_launches[0][name], "bench": calls[name]},
+            launches_per_call=device[name] // calls[name],  # exact: the bench phases held it
+            launches_by_path={
+                "slice": slice_launches[0][name], "mapping": map_launches[0][name], "bench": bench_launches[0][name],
+                "bench_hybrid": calls[name],
+            },
             **kres[name],
         )
         for name in PER_FRAME

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import QVGA, image01, stereo_scene
+from torch_parity import QVGA, dot_scene, image01, stereo_scene
 from tpuslam_torch.kernels import cuda_lib, image, lsd
 
 pytestmark = pytest.mark.cuda
@@ -55,6 +55,21 @@ def test_blur_kernel_matches_plain(dev, shape, sigma):
     torch.cuda.synchronize()
     # same float32 taps, tap-order sums against cuDNN's order, values in [0, 1]
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(480, 640), (240, 320)])
+def test_blur_kernel_matches_plain_at_brief_sigma(dev, shape):
+    """BRIEF's smoothing (sigma 2, radius 6) on a frame times 255, as
+    fast.detect_corners calls it: within the [0, 1] tolerance scaled to
+    0..255, and bit for bit the two-pass form."""
+    from tpuslam_torch.kernels.fast import FASTParams
+
+    x = _image(shape, dev, seed=7) * 255.0
+    sigma = FASTParams().blur_sigma
+    assert image._blur_taps(sigma).numel() == 13
+    out = image.gaussian_blur(x, sigma)
+    torch.testing.assert_close(out, image.gaussian_blur_torch(x, sigma), rtol=0, atol=255e-5)
+    assert torch.equal(out, image._blur_two_pass_cuda(x, sigma))
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -190,6 +205,8 @@ def test_launch_counts(dev):
     lsd.ccl_propagate(i, i, i, 64)  # one call of ceil(64 / k) launches counts once
     lsd._ccl_per_round_cuda(i, i, i, 5)
     lsd.ccl_propagate(i, i, i, 0)  # a copy, no launch
+    lsd.segment_moments(x[:7].contiguous(), torch.zeros(96, dtype=torch.int32, device=dev), 5)
+    lsd.segment_moments_torch(x[:7].cpu(), torch.zeros(96, dtype=torch.int32), 5)
     assert image.LAUNCHES["blur"] == before[0]["blur"] + 1
     assert image.LAUNCHES["gradients"] == before[0]["gradients"] + 2
     assert lsd.LAUNCHES["lsd_front"] == before[1]["lsd_front"] + 1
@@ -199,6 +216,8 @@ def test_launch_counts(dev):
     assert image.KERNEL_LAUNCHES["gradients"] == before[2]["gradients"] + 2
     assert lsd.KERNEL_LAUNCHES["lsd_front"] == before[3]["lsd_front"] + 1
     assert lsd.KERNEL_LAUNCHES["ccl"] == before[3]["ccl"] + -(-64 // K)
+    assert lsd.LAUNCHES["moments"] == before[1]["moments"] + 1
+    assert lsd.KERNEL_LAUNCHES["moments"] == before[3]["moments"] + 2  # partial sums, then the combine
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -255,9 +274,12 @@ def test_system_runs_on_the_card_by_default(dev):
     for f, (il, ir) in enumerate(frames):
         s.track_stereo(il, ir, 0.05 * f)
     # per stereo frame: the pyramid's blur per camera; per camera and level
-    # the LBD gradients, the detector's front and its propagation
+    # the LBD gradients, the detector's front, its propagation and three
+    # moment sums (the components' two, the merge's one)
     after = {**image.LAUNCHES, **lsd.LAUNCHES}
-    assert {k: after[k] - before[k] for k in after} == {"blur": 2 * 2, "gradients": 4 * 2, "lsd_front": 4 * 2, "ccl": 4 * 2}
+    assert {k: after[k] - before[k] for k in after} == {
+        "blur": 2 * 2, "gradients": 4 * 2, "lsd_front": 4 * 2, "ccl": 4 * 2, "moments": 12 * 2
+    }
     assert all(r.state.name == "OK" for r in s.trajectory)
 
 
@@ -380,7 +402,7 @@ def test_relocalization_pieces_on_card_match_cpu(dev):
 # kernel calls of one left-image feature extraction at half resolution (the
 # bench path's anchors and its synchronous frames): the pyramid's blur; per
 # level the LBD gradients, the detector's front and its propagation
-PER_EXTRACTION = {"blur": 1, "gradients": 2, "lsd_front": 2, "ccl": 2}
+PER_EXTRACTION = {"blur": 1, "gradients": 2, "lsd_front": 2, "ccl": 2, "moments": 6}
 
 
 def test_bench_path_on_card(dev):
@@ -437,3 +459,167 @@ def test_chunk_on_card_matches_cpu(dev):
     np.testing.assert_array_equal(g[:, 19], c[:, 19])
     assert np.all(c[:, 19] == 1.0)
     np.testing.assert_allclose(g[:, :16], c[:, :16], rtol=0, atol=1e-3)
+
+
+# ---- fixed-order moment sums ------------------------------------------------
+
+# the detector's sums at the bench's two levels and the slice's first: N
+# pixels, 7 columns, K + 1 = 257 slots (most pixels in the dump slot K)
+MOMENT_SHAPES = [(480 * 640, 7, 257), (240 * 320, 7, 257), (192 * 256, 7, 257), (240 * 320, 1, 257), (256, 7, 256)]
+
+
+def _moment_inputs(N, V, S, dev, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    slot = torch.randint(0, S, (N,), generator=g, dtype=torch.int32)
+    slot[: N // 2] = S - 1
+    vals = (torch.randn((V, N), generator=g) * 100.0).contiguous()
+    return vals.to(dev), slot.to(dev)
+
+
+@pytest.mark.parametrize("N, V, S", MOMENT_SHAPES)
+def test_moments_kernel_matches_plain_and_repeats(dev, N, V, S):
+    """The fixed-order sums against the plain version (index_add_ in item
+    order on the CPU) within 1e-5 relative of the column's absolute sum,
+    and bit for bit equal over two calls."""
+    vals, slot = _moment_inputs(N, V, S, dev)
+    a = lsd.segment_moments(vals, slot, S)
+    b = lsd.segment_moments(vals, slot, S)
+    ref = lsd.segment_moments_torch(vals.cpu(), slot.cpu(), S)
+    assert torch.equal(a, b)
+    scale = lsd.segment_moments_torch(vals.abs().cpu(), slot.cpu(), S)
+    assert float(((a.cpu() - ref).abs() / (scale + 1e-6)).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("N, V, S", MOMENT_SHAPES)
+def test_moments_kernel_writes_through_both_launches(dev, N, V, S):
+    """Scratch and output filled with NaN before a call of the C function:
+    the result equals the wrapper's, so the block launch wrote every partial
+    the combine reads and the combine wrote every sum."""
+    vals, slot = _moment_inputs(N, V, S, dev, seed=1)
+    ref = lsd.segment_moments(vals, slot, S)
+    partial = torch.full((lsd.MOMENTS_BLOCKS, V, S), float("nan"), device=dev)
+    out = torch.full((V, S), float("nan"), device=dev)
+    n = ctypes.c_int(0)
+    code = cuda_lib.library().tpuslam_moments(
+        vals.data_ptr(), slot.data_ptr(), partial.data_ptr(), out.data_ptr(), N, V, S, ctypes.byref(n), cuda_lib.stream_of(vals)
+    )
+    assert code == 0 and n.value == 2
+    assert torch.equal(out, ref)
+
+
+def test_moments_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    vals, slot = _moment_inputs(1000, 7, 257, dev)
+    with pytest.raises(ValueError):
+        lsd.segment_moments(vals, slot.long(), 257)  # int64 slots
+    with pytest.raises(ValueError):
+        lsd.segment_moments(vals, slot[:999], 257)
+    # the C function refuses more than 8 columns, and slots whose warp block
+    # (V, S + 33) floats does not fit 48 KB of shared memory
+    for V, S in ((9, 257), (7, 2000)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            lsd.segment_moments(torch.zeros((V, 1000), device=dev), slot, S)
+
+
+@pytest.mark.parametrize("shape", [(240, 320), (480, 640)])
+def test_detect_lines_bit_equal_across_runs(dev, shape):
+    """The detector run twice on one image gives bit-equal segments: its
+    float sums add in a fixed order on the card."""
+    cam = QVGA if shape == (240, 320) else VGA
+    _, frames = stereo_scene(1, cam)
+    img = torch.from_numpy(image01(frames[0][0])).to(dev)
+    a, b = lsd.detect_lines(img, 256), lsd.detect_lines(img, 256)
+    assert float(a.valid.sum()) > 20
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_mapping_run_repeats_on_card(dev):
+    """The 8-frame QVGA mapping run three times on the card: the same
+    keyframes and bit-equal trajectories (so the same ATE)."""
+    _, frames = stereo_scene(8)
+    runs = [_mapping_system(dev, frames) for _ in range(3)]
+    kfs = [[r.frame_idx for r in s.trajectory if r.made_keyframe] for s in runs]
+    assert kfs[0] == kfs[1] == kfs[2], kfs
+    poses = [np.stack([r.T_cw for r in s.trajectory]) for s in runs]
+    assert np.array_equal(poses[0], poses[1]) and np.array_equal(poses[0], poses[2])
+
+
+def test_hybrid_chunk_on_card_matches_cpu(dev):
+    """One hybrid semi-direct chunk (C = 6, host-halved VGA dot frames) on
+    identical inputs on the card and on the CPU: the same accept flags,
+    every pose within 1e-3, the corner counts equal."""
+    from tpuslam_torch.frontend.frame import host_prescale
+    from tpuslam_torch.frontend.pipeline import fused_stereo_semidirect_hybrid
+    from tpuslam_torch.frontend.tracking import Tracker
+    from tpuslam_torch.slammap.map import SlamMap
+    from tpuslam_torch.system import bench_configs
+
+    _, frames = dot_scene(7, VGA, seed=1, n_segments=140, n_points=200, motion_scale=0.02)
+    tcfg, _ = bench_configs(points=True)
+    tr = Tracker(VGA, SlamMap(), tcfg, device="cpu")
+    tr.track_stereo(*frames[0], 0.0)  # initialization: the local line and point maps
+    local, plocal = tr._local_map_arrays(), tr._point_local_arrays()
+    half = [[host_prescale(x, tcfg.frontend) for x in pair] for pair in frames[1:]]
+    stack = torch.from_numpy(np.stack([half[0][0], half[0][1]] + [p[0] for p in half[1:]]))
+    T = torch.from_numpy(tr.T_cw)
+    outs = []
+    for d in ("cpu", dev):
+        out = fused_stereo_semidirect_hybrid(
+            stack.to(d), T.to(d), T.to(d), {k: v.to(d) for k, v in local.items()}, {k: v.to(d) for k, v in plocal.items()},
+            tr._fxb, VGA, tcfg.frontend, tcfg.search_coarse, tcfg.search_fine, tcfg.pose_opt, tcfg.min_track_inliers,
+            tr._direct_lines(), tr._direct_points(), tcfg.points, tr._align_params(),
+        )
+        outs.append(out)
+    c, g = (o.packed.cpu().numpy() for o in outs)
+    np.testing.assert_array_equal(g[:, 19], c[:, 19])
+    assert np.all(c[:, 19] == 1.0)
+    np.testing.assert_allclose(g[:, :16], c[:, :16], rtol=0, atol=1e-3)
+    assert float(outs[0].pfeats.valid.sum()) == float(outs[1].pfeats.valid.sum()) >= 100
+
+
+def test_detect_corners_on_card_matches_cpu(dev):
+    """FAST and BRIEF on a host-halved VGA dot frame (the bench path's
+    240x320), on the card (BRIEF's blur through the hand kernel, radius 6)
+    and on the CPU: the same corners within 1e-3 px and the same BRIEF
+    words."""
+    from tpuslam_torch.frontend.frame import host_prescale
+    from tpuslam_torch.kernels.fast import detect_corners
+    from tpuslam_torch.system import bench_configs
+
+    _, frames = dot_scene(1, VGA, seed=1, n_segments=140, n_points=200, motion_scale=0.02)
+    tcfg, _ = bench_configs(points=True)
+    img = torch.from_numpy(image01(host_prescale(frames[0][0], tcfg.frontend)))
+    assert tuple(img.shape) == (240, 320)
+    before = image.LAUNCHES["blur"]
+    g = detect_corners(img.to(dev), tcfg.points.max_points, tcfg.points.fast)
+    assert image.LAUNCHES["blur"] == before + 1
+    c = detect_corners(img, tcfg.points.max_points, tcfg.points.fast)
+    gv, cv = g.valid.cpu() > 0.5, c.valid > 0.5
+    assert int(gv.sum()) == int(cv.sum()) >= 100
+    d = torch.cdist(g.uv.cpu()[gv], c.uv[cv], compute_mode="donot_use_mm_for_euclid_dist")
+    j = d.argmin(dim=1)
+    assert float(d[torch.arange(len(j)), j].max()) <= 1e-3
+    assert torch.equal(g.desc_bits.cpu()[gv], c.desc_bits[cv][j])
+
+
+def test_hybrid_bench_path_on_card(dev):
+    """System with bench_configs(points=True) over 13 VGA dot frames on the
+    card: one result per frame in order, every frame OK, live point
+    landmarks seen from two keyframes or more, and per extraction two blur
+    calls (the pyramid's and BRIEF's) beside the line kernels' counts."""
+    from tpuslam_torch.system import System, bench_configs
+
+    _, frames = dot_scene(13, VGA, seed=1, n_segments=140, n_points=200, motion_scale=0.02)
+    tcfg, mcfg = bench_configs(points=True)
+    s = System(VGA, sensor="stereo", mapping=True, loop_closing=False, tracker_cfg=tcfg, mapper_cfg=mcfg, device=dev)
+    before = {**image.LAUNCHES, **lsd.LAUNCHES}
+    for f, (il, ir) in enumerate(frames):
+        s.track_stereo(il, ir, 0.05 * f)
+    s.shutdown()
+    after = {**image.LAUNCHES, **lsd.LAUNCHES}
+    tr = s.tracker
+    assert [r.frame_idx for r in s.trajectory] == list(range(13)) and all(r.state.name == "OK" for r in s.trajectory)
+    n = len(tr.anchor_frames) + tr.n_sync_extractions
+    want = {k: v * n for k, v in PER_EXTRACTION.items()}
+    want["blur"] = 2 * n
+    assert {k: after[k] - before[k] for k in after} == want
+    assert (s.map_points()["n_obs"] >= 2).sum() >= 50

@@ -110,21 +110,20 @@ def test_bucket_ladder_matches_jax():
 
 
 def test_ba_configs_carry_ported_fields_only():
-    """The JAX LocalBAConfig's point buckets belong to hybrid points, which
-    are not ported: at their defaults they are dropped, otherwise refused,
-    directly and inside a MapperConfig."""
-    jcfg = jlba.LocalBAConfig(window_size=7)
-    assert set(jcfg._fields) - set(tlba.LocalBAConfig._fields) == {"point_buckets", "p_obs_buckets"}
+    """Every field of the JAX LocalBAConfig carries over, the point buckets
+    of hybrid points included, directly and inside a MapperConfig; a
+    MapperConfig field of a path not ported (mono triangulation) is dropped
+    at its default and refused otherwise."""
+    jcfg = jlba.LocalBAConfig(window_size=7, point_buckets=(64, 128), p_obs_buckets=(256, 512))
+    assert set(jcfg._fields) == set(tlba.LocalBAConfig._fields)
     cfg = params_from(tlba.LocalBAConfig, jcfg)
     assert isinstance(cfg.lm, type(tlba.LocalBAConfig().lm))
     assert all(getattr(cfg, k) == getattr(jcfg, k) for k in cfg._fields if k != "lm")
     assert tuple(cfg.lm) == tuple(jcfg.lm)
     assert mapper_config_from(JMapperConfig(ba=jcfg)).ba == cfg
-    for bad in (jlba.LocalBAConfig(point_buckets=(64,)), jlba.LocalBAConfig(p_obs_buckets=(256,))):
+    for bad in (JMapperConfig(tri_max_reproj_px=2.0), JMapperConfig(fuse_defer=True)):
         with pytest.raises(ValueError, match="not ported"):
-            params_from(tlba.LocalBAConfig, bad)
-        with pytest.raises(ValueError, match="not ported"):
-            mapper_config_from(JMapperConfig(ba=bad))
+            mapper_config_from(bad)
 
 
 @pytest.mark.parametrize("kid", [3, 6, 7])

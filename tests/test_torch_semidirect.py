@@ -19,7 +19,7 @@ if __name__ == "__main__":
 import numpy as np
 import pytest
 
-from torch_parity import QVGA, np_of, stereo_scene
+from torch_parity import QVGA, JaxAsOnTheCard, np_of, stereo_scene
 from tpuslam_torch import Intrinsics
 from tpuslam_torch.convert import chunk_inputs_from, mapper_config_from, tracker_config_from
 from tpuslam_torch.eval.ate import absolute_trajectory_error
@@ -50,33 +50,6 @@ def jax_bench_config(chunk: int = 6):
     return tcfg, mcfg
 
 
-class _JaxAsOnTheCard:
-    """The JAX package as the port's parity runs take it: cv2 hidden (the
-    card's machine has none, so host_prescale takes its numpy form),
-    keyframes finished at the next event (TPUSLAM_KF_DEFER_MS=0) and the
-    native map mirror off (TPUSLAM_NATIVE_MAP=0)."""
-
-    ENV = {"TPUSLAM_KF_DEFER_MS": "0", "TPUSLAM_NATIVE_MAP": "0"}
-
-    def __enter__(self):
-        self._env = {k: os.environ.get(k) for k in self.ENV}
-        self._cv2 = sys.modules.get("cv2", False)
-        os.environ.update(self.ENV)
-        sys.modules["cv2"] = None
-        return self
-
-    def __exit__(self, *exc):
-        for k, v in self._env.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-        if self._cv2 is False:
-            sys.modules.pop("cv2", None)
-        else:
-            sys.modules["cv2"] = self._cv2
-
-
 def _ate(trajectory, scene) -> float:
     est = np.stack([np.linalg.inv(r.T_cw)[:3, 3] for r in trajectory])
     gt = np.stack([np.linalg.inv(scene.poses[r.frame_idx])[:3, 3] for r in trajectory])
@@ -89,7 +62,7 @@ def run_jax(cam, frames, tcfg, mcfg):
     from tpuslam.geometry.camera import Intrinsics as JIntrinsics
     from tpuslam.system import System as JSystem
 
-    with _JaxAsOnTheCard():
+    with JaxAsOnTheCard():
         js = JSystem(JIntrinsics(*cam), sensor="stereo", mapping=True, loop_closing=False, tracker_cfg=tcfg, mapper_cfg=mcfg)
         for f, (il, ir) in enumerate(frames):
             js.track_stereo(il, ir, f * 0.05)
@@ -119,7 +92,7 @@ def test_host_prescale_bit_equal_to_jax(shape):
     rng = np.random.default_rng(shape[0])
     img = rng.integers(0, 256, shape, dtype=np.uint8)
     jfe = jframe.FrontendParams(base_scale=0.5, prescaled=True)
-    with _JaxAsOnTheCard():
+    with JaxAsOnTheCard():
         ref_u8 = jframe.host_prescale(img, jfe)
         ref_f32 = jframe.host_prescale(img.astype(np.float32) / 255.0, jfe)
     out = host_prescale(img, HALF)
@@ -156,7 +129,7 @@ def make_chunk_case():
     _, frames = stereo_scene(C_CHUNK + 1, VGA)
     half = [tuple(host_prescale(x, HALF) for x in pair) for pair in frames]
     jcfg, _ = jax_bench_config(C_CHUNK)
-    with _JaxAsOnTheCard():
+    with JaxAsOnTheCard():
         jt = JTracker(JIntrinsics(*VGA), JSlamMap(), jcfg)
         jt.track_stereo(*frames[0], 0.0)
         assert jt.state.name == "OK"
@@ -303,16 +276,21 @@ def test_unported_pipelined_configurations_raise(change):
 
 
 def test_tracker_config_converts():
-    """The bench TrackerConfig carries into the port's types; the JAX
-    package's hybrid point fields are refused when set."""
+    """The bench TrackerConfig carries into the port's types, the hybrid
+    point fields too; a JAX MapperConfig field of an unported path (mono
+    triangulation) is refused when set."""
     from tpuslam.frontend.points import PointFrontendParams
+    from tpuslam.kernels.stereo_direct import DirectPointStereoParams
 
     jcfg, jmcfg = jax_bench_config()
     assert tracker_config_from(jcfg) == bench_configs()[0]
     assert mapper_config_from(jmcfg) == bench_configs()[1]
-    jcfg.points = PointFrontendParams()
-    with pytest.raises(ValueError, match="points"):
-        tracker_config_from(jcfg)
+    jcfg.points, jcfg.direct_points, jcfg.point_local_capacity = PointFrontendParams(), DirectPointStereoParams(rows=3), 256
+    got = tracker_config_from(jcfg)
+    assert got.points == bench_configs(points=True)[0].points and got.direct_points.rows == 3 and got.point_local_capacity == 256
+    jmcfg.tri_depth_band = (0.35, 3.0)
+    with pytest.raises(ValueError, match="tri_depth_band"):
+        mapper_config_from(jmcfg)
 
 
 if __name__ == "__main__":

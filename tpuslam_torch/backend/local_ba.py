@@ -1,9 +1,10 @@
 """Local bundle adjustment: window assembly, LM+Schur solve, write-back (torch).
 
 Counterpart of ``tpuslam.backend.local_ba``: the window is the current
-keyframe and its best covisible keyframes, the landmarks are their lines,
-and the keyframes outside the window that observe those lines are held fixed
-(as is the oldest window keyframe, the gauge). The host gathers the window
+keyframe and its best covisible keyframes, the landmarks are their lines
+and (hybrid maps) their points, and the keyframes outside the window that
+observe those lines are held fixed (as is the oldest window keyframe, the
+gauge). The host gathers the window
 into padded buffers, ``backend.lm.run_lm`` solves it on the device, and the
 result is written back with the chi2 prune and the divergence guard.
 
@@ -35,7 +36,8 @@ class LocalBAConfig(NamedTuple):
     pose_buckets: Tuple[int, ...] = (8, 16, 24)
     line_buckets: Tuple[int, ...] = (128, 256, 512, 1024)
     obs_buckets: Tuple[int, ...] = (512, 1024, 2048, 4096)
-    # the point and point-observation buckets come with hybrid points
+    point_buckets: Tuple[int, ...] = (128, 256, 512, 1024)
+    p_obs_buckets: Tuple[int, ...] = (512, 1024, 2048, 4096)
     lm: LMConfig = LMConfig(max_iters=8)
     chi2_line: float = 7.378
     chi2_point: float = 5.991
@@ -87,17 +89,19 @@ def build_problem(
     fixed: List[int],
     line_ids: List[int],
     caps: Tuple[int, int, int],
+    point_ids: List[int] | None = None,
+    point_caps: Tuple[int, int] = (1, 1),
     device="cuda",
 ) -> Tuple[BAProblem, List[int], List[int], np.ndarray, np.ndarray]:
     """Gather a padded BAProblem. Returns (problem, kf_order, line_order,
     obs_table (n_obs, 3) of [kf_pos, line_pos, feature_slot], p_obs_table
-    (0, 3)). Observation rows follow the insertion order of the line store's
-    observation dicts, as in the JAX package. The point blocks are the empty
-    M = OP = 1 stubs of a line-only map (the point gather comes with hybrid
-    points)."""
+    (n_p_obs, 3) of [kf_pos, point_pos, corner_slot]). Observation rows
+    follow the insertion order of the stores' observation dicts, as in the
+    JAX package. A line-only map has empty M = OP = 1 point blocks."""
     device = resolve_device(device)
     P, L, OL = caps
-    M, OP = 1, 1
+    point_ids = point_ids or []
+    M, OP = point_caps
     kf_order = window + fixed
     kf_pos = {k: i for i, k in enumerate(kf_order)}
     line_pos = {l: i for i, l in enumerate(line_ids)}
@@ -125,6 +129,30 @@ def build_problem(
             if kid in kf_pos:
                 rows.append((kf_pos[kid], line_pos[l], kid, slot))
     rows = rows[:OL]
+    pst = slam_map.points
+    point_pos = {q: i for i, q in enumerate(point_ids)}
+    points = np.zeros((M, 3), np.float32)
+    point_valid = np.zeros(M, np.float32)
+    for q, i in point_pos.items():
+        points[i] = pst.xyz[q]
+        point_valid[i] = 1.0
+    prows = []
+    for q in point_ids:
+        for kid, slot in pst.obs.get(q, {}).items():
+            if kid in kf_pos:
+                prows.append((kf_pos[kid], point_pos[q], kid, slot))
+    prows = prows[:OP]
+    p_pose = np.zeros(OP, np.int32)
+    p_point = np.zeros(OP, np.int32)
+    p_uv = np.zeros((OP, 2), np.float32)
+    p_valid = np.zeros(OP, np.float32)
+    p_obs_table = np.zeros((len(prows), 3), np.int32)
+    for r, (pi, qi, kid, slot) in enumerate(prows):
+        p_pose[r] = pi
+        p_point[r] = qi
+        p_uv[r] = slam_map.keyframes[kid].point_features.uv[slot]
+        p_valid[r] = 1.0
+        p_obs_table[r] = (pi, qi, slot)
     l_pose = np.zeros(OL, np.int32)
     l_line = np.zeros(OL, np.int32)
     l_ep = np.zeros((OL, 2, 2), np.float32)
@@ -148,20 +176,20 @@ def build_problem(
         pose_free=dev(pose_free),
         lines=dev(lines),
         line_valid=dev(line_valid),
-        points=dev(np.zeros((M, 3), np.float32)),
-        point_valid=dev(np.zeros(M, np.float32)),
+        points=dev(points),
+        point_valid=dev(point_valid),
         l_pose=dev(l_pose),
         l_line=dev(l_line),
         l_endpoints=dev(l_ep),
         l_valid=dev(l_valid),
         l_sigma=dev(l_sigma),
-        p_pose=dev(np.zeros(OP, np.int32)),
-        p_point=dev(np.zeros(OP, np.int32)),
-        p_uv=dev(np.zeros((OP, 2), np.float32)),
-        p_valid=dev(np.zeros(OP, np.float32)),
+        p_pose=dev(p_pose),
+        p_point=dev(p_point),
+        p_uv=dev(p_uv),
+        p_valid=dev(p_valid),
         p_sigma=dev(np.ones(OP, np.float32)),
     )
-    return prob, kf_order, line_ids, obs_table, np.zeros((0, 3), np.int32)
+    return prob, kf_order, line_ids, obs_table, p_obs_table
 
 
 def _project_endpoints_to_line(ep: np.ndarray, L: np.ndarray) -> np.ndarray:
@@ -208,15 +236,25 @@ def assemble_problem(
     )
     line_ids = line_ids[:L]
 
+    # hybrid point blocks (M = OP = 1 stubs on a line-only map)
+    pst = slam_map.points
+    point_ids = [q for q in slam_map.window_point_ids(window) if pst.alive[q]]
+    if point_ids:
+        point_ids = point_ids[: _bucket(len(point_ids), cfg.point_buckets)]
+        n_p_obs = sum(sum(1 for k in pst.obs.get(q, {}) if k in window_set or k in fixed_kept) for q in point_ids)
+        M, OP = ladder_bucket((len(point_ids), n_p_obs), cfg.point_buckets, cfg.p_obs_buckets)
+    else:
+        M, OP = 1, 1
+
     prob, kf_order, line_order, obs_table, p_obs_table = build_problem(
-        slam_map, window, fixed, line_ids, (P, L, OL), device=device
+        slam_map, window, fixed, line_ids, (P, L, OL), point_ids, (M, OP), device=device
     )
     ctx = dict(
         window=window,
         fixed=fixed,
         kf_order=kf_order,
         line_order=line_order,
-        point_ids=[],
+        point_ids=point_ids,
         obs_table=obs_table,
         p_obs_table=p_obs_table,
         pose_free=prob.pose_free.cpu().numpy(),
@@ -224,29 +262,36 @@ def assemble_problem(
     return prob, ctx
 
 
-def _prune_lines(slam_map: SlamMap, cfg: LocalBAConfig, ctx: dict, inl_l) -> int:
-    """Erase the observations whose mask entry is 0, then kill the landmarks
-    that lost one here and fell below ``min_obs_keep``. Only those: a fresh
-    single-observation inlier line must survive to be re-observed (the
-    recent-landmark cull in the mapper judges never-confirmed lines)."""
-    st = slam_map.lines
-    kf_order, line_order, obs_table = ctx["kf_order"], ctx["line_order"], ctx["obs_table"]
+def _prune(slam_map: SlamMap, store, cfg: LocalBAConfig, kf_order, order, table: np.ndarray, inl) -> int:
+    """Erase the observations (rows of ``table``) whose mask entry is 0, then
+    kill the landmarks of ``store`` that lost one here and fell below
+    ``min_obs_keep``. Only those: a fresh single-observation inlier landmark
+    must survive to be re-observed (the recent-landmark cull in the mapper
+    judges never-confirmed ones)."""
     touched: set = set()
     n_pruned = 0
-    for r in range(obs_table.shape[0]):
-        if inl_l[r] < 0.5:
-            pi, li, _ = obs_table[r]
+    for r in range(table.shape[0]):
+        if inl[r] < 0.5:
+            pi, li, _ = table[r]
             kid = kf_order[pi]
             if kid not in slam_map.keyframes:
                 continue
-            lid = int(line_order[li])
-            st.erase_observation(lid, slam_map.keyframes[kid])
-            touched.add(lid)
+            lm = int(order[li])
+            store.erase_observation(lm, slam_map.keyframes[kid])
+            touched.add(lm)
             n_pruned += 1
-    for lid in touched:
-        if st.alive[lid] and st.n_obs[lid] < cfg.min_obs_keep:
-            st.kill(lid, slam_map.keyframes)
+    for lm in touched:
+        if store.alive[lm] and store.n_obs[lm] < cfg.min_obs_keep:
+            store.kill(lm, slam_map.keyframes)
     return n_pruned
+
+
+def _prune_both(slam_map: SlamMap, cfg: LocalBAConfig, ctx: dict, inl_l, inl_p) -> int:
+    """The line prune, then the point prune (hybrid maps)."""
+    n = _prune(slam_map, slam_map.lines, cfg, ctx["kf_order"], ctx["line_order"], ctx["obs_table"], np.asarray(inl_l))
+    if ctx["point_ids"]:
+        n += _prune(slam_map, slam_map.points, cfg, ctx["kf_order"], ctx["point_ids"], ctx["p_obs_table"], np.asarray(inl_p))
+    return n
 
 
 def apply_result(slam_map: SlamMap, cfg: LocalBAConfig, ctx: dict, res: dict) -> LocalBAStats:
@@ -256,7 +301,9 @@ def apply_result(slam_map: SlamMap, cfg: LocalBAConfig, ctx: dict, res: dict) ->
     st = slam_map.lines
     window, fixed, kf_order, line_order = ctx["window"], ctx["fixed"], ctx["kf_order"], ctx["line_order"]
     n_obs_total = int(ctx["obs_table"].shape[0]) + int(ctx["p_obs_table"].shape[0])
-    stats = dict(n_poses=len(window), n_fixed=len(fixed), n_lines=len(line_order), n_obs=n_obs_total, cost=res["cost"])
+    # n_obs counts both families on a rejected solve and the lines on a
+    # written-back one, as in the JAX package
+    stats = dict(n_poses=len(window), n_fixed=len(fixed), n_lines=len(line_order), cost=res["cost"])
 
     if cfg.reject_cost_per_obs > 0 and res.get("cost", 0.0) > cfg.reject_cost_per_obs * max(1, n_obs_total):
         import sys
@@ -268,8 +315,8 @@ def apply_result(slam_map: SlamMap, cfg: LocalBAConfig, ctx: dict, res: dict) ->
         )
         n_pruned = 0
         if cfg.prune_outliers and "inl_l0" in res:
-            n_pruned = _prune_lines(slam_map, cfg, ctx, np.asarray(res["inl_l0"]))
-        return LocalBAStats(n_pruned=n_pruned, **stats)
+            n_pruned = _prune_both(slam_map, cfg, ctx, res["inl_l0"], res["inl_p0"])
+        return LocalBAStats(n_obs=n_obs_total, n_pruned=n_pruned, **stats)
 
     new_poses = res["poses"]
     for i, kid in enumerate(kf_order):
@@ -280,11 +327,15 @@ def apply_result(slam_map: SlamMap, cfg: LocalBAConfig, ctx: dict, res: dict) ->
         if st.alive[lid]:
             st.plucker[lid] = new_lines[i]
             st.endpoints[lid] = _project_endpoints_to_line(st.endpoints[lid], new_lines[i])
+    pst = slam_map.points
+    for i, qid in enumerate(ctx["point_ids"]):
+        if pst.alive[qid]:
+            pst.xyz[qid] = res["points"][i]
 
     n_pruned = 0
     if cfg.prune_outliers and "inl_l" in res:
-        n_pruned = _prune_lines(slam_map, cfg, ctx, np.asarray(res["inl_l"]))
-    return LocalBAStats(n_pruned=n_pruned, **stats)
+        n_pruned = _prune_both(slam_map, cfg, ctx, res["inl_l"], res["inl_p"])
+    return LocalBAStats(n_obs=int(ctx["obs_table"].shape[0]), n_pruned=n_pruned, **stats)
 
 
 def initial_chi2_masks(prob: BAProblem, cam: Intrinsics, chi2_line, chi2_point):

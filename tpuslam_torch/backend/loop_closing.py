@@ -5,9 +5,10 @@ Counterpart of ``tpuslam.backend.loop_closing``'s ``KeyFrameDatabase`` and
 binary line descriptors against every stored keyframe. The JAX package
 computes the Hamming distances as a +-1 matmul on the MXU; here they are
 XOR + popcount on int64 words, as in ``kernels.match``. Both are exact
-integers, so the scores are equal. ``LoopCloser`` (detection, Sim(3)
-correction, the essential graph) is not ported yet, and neither are the
-point-descriptor rows of the hybrid front end.
+integers, so the scores are equal. With ``point_slots`` (the hybrid front
+end) each row carries the keyframe's BRIEF corner descriptors after its
+line descriptors, and a query scores both families. ``LoopCloser``
+(detection, Sim(3) correction, the essential graph) is not ported yet.
 """
 
 from __future__ import annotations
@@ -47,6 +48,19 @@ def _db_scores(
     return torch.cat(scores).to(torch.int32)
 
 
+def _words(bits) -> np.ndarray:
+    """uint32 descriptor words as numpy, from numpy or an int64 tensor."""
+    if isinstance(bits, torch.Tensor):
+        bits = bits.cpu().numpy()
+    return np.asarray(bits).astype(np.uint32)
+
+
+def _flags(valid) -> np.ndarray:
+    if isinstance(valid, torch.Tensor):
+        valid = valid.cpu().numpy()
+    return np.asarray(valid, np.float32)
+
+
 class KeyFrameDatabase:
     """Per-keyframe binary descriptors in a device tensor, scored densely.
 
@@ -55,9 +69,8 @@ class KeyFrameDatabase:
     rows."""
 
     def __init__(self, capacity_hint: int = 64, point_slots: int = 0, device="cuda"):
-        if point_slots:
-            raise NotImplementedError("point descriptor rows come with hybrid points, not ported yet")
         self._cap0 = max(8, int(capacity_hint))
+        self.point_slots = int(point_slots)
         self.device = resolve_device(device)
         self.clear()
 
@@ -78,9 +91,26 @@ class KeyFrameDatabase:
             self._bits = torch.cat([self._bits, torch.zeros_like(self._bits)])
             self._valid = torch.cat([self._valid, torch.zeros_like(self._valid)])
 
+    def _with_points(self, bits, valid, p_bits, p_valid):
+        """Line rows (K, W) uint32 and (K,) -> with ``point_slots`` corner
+        rows appended (padded or cut to point_slots), as int64 words."""
+        bits, valid = _words(bits), _flags(valid)
+        S = self.point_slots
+        if S:
+            pb = np.zeros((S, bits.shape[1]), np.uint32)
+            pv = np.zeros(S, np.float32)
+            if p_bits is not None:
+                p_bits = _words(p_bits)[:S]
+                pb[: p_bits.shape[0]] = p_bits
+                pv[: p_bits.shape[0]] = _flags(p_valid)[:S]
+            bits, valid = np.concatenate([bits, pb]), np.concatenate([valid, pv])
+        return bits.astype(np.int64), valid
+
     def add(self, kf: KeyFrame):
-        bits = np.asarray(kf.features.desc_bits).astype(np.uint32).astype(np.int64)
-        valid = np.asarray(kf.features.valid, np.float32)
+        pf = getattr(kf, "point_features", None)
+        bits, valid = self._with_points(
+            kf.features.desc_bits, kf.features.valid, None if pf is None else pf.desc_bits, None if pf is None else pf.valid
+        )
         K, W = bits.shape
         self._ensure_capacity(K, W)
         idx = len(self.kids)
@@ -115,17 +145,21 @@ class KeyFrameDatabase:
         valid[: len(keep)] = self._valid[keep_t]
         self._bits, self._valid = bits, valid
 
-    def query_bits(self, bits, valid) -> Dict[int, int]:
-        """Scores of every stored keyframe against descriptors ``bits`` (K, W)
-        (uint32 words as numpy, or int64 words as a tensor) and ``valid`` (K,)."""
+    def query_bits(self, bits, valid, p_bits=None, p_valid=None) -> Dict[int, int]:
+        """Scores of every stored keyframe against line descriptors ``bits``
+        (K, W) (uint32 words as numpy, or int64 words as a tensor) and
+        ``valid`` (K,), and with point_slots the corner descriptors
+        ``p_bits``, ``p_valid``."""
         if len(self) == 0:
             return {}
-        if not isinstance(bits, torch.Tensor):
-            bits = torch.from_numpy(np.asarray(bits).astype(np.uint32).astype(np.int64))
-        if not isinstance(valid, torch.Tensor):
-            valid = torch.from_numpy(np.asarray(valid, np.float32))
-        scores = _db_scores(bits.to(self.device), valid.to(self.device), self._bits, self._valid).cpu().numpy()
+        bits, valid = self._with_points(bits, valid, p_bits, p_valid)
+        cur_bits = torch.from_numpy(bits).to(self.device)
+        cur_valid = torch.from_numpy(valid).to(self.device)
+        scores = _db_scores(cur_bits, cur_valid, self._bits, self._valid).cpu().numpy()
         return {k: int(scores[i]) for i, k in enumerate(self.kids) if k is not None}
 
     def query(self, kf: KeyFrame) -> Dict[int, int]:
-        return self.query_bits(kf.features.desc_bits, kf.features.valid)
+        pf = getattr(kf, "point_features", None)
+        return self.query_bits(
+            kf.features.desc_bits, kf.features.valid, None if pf is None else pf.desc_bits, None if pf is None else pf.valid
+        )

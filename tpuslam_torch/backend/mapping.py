@@ -1,15 +1,15 @@
 """Local mapping: the stereo mapper's steps at each keyframe (torch).
 
-Counterpart of ``tpuslam.backend.mapping`` for stereo line maps. At each
-keyframe event, synchronously:
+Counterpart of ``tpuslam.backend.mapping`` for stereo maps of lines and,
+with the hybrid front end, points. At each keyframe event, synchronously:
 
-  MapLineCulling        -> drop recent landmarks not confirmed in time
-  SearchInNeighbors     -> fuse duplicate landmarks (projection-gated match)
+  MapLine/PointCulling  -> drop recent landmarks not confirmed in time
+  SearchInNeighbors     -> fuse duplicate lines and points (projection-gated match)
   UpdateConnections     -> covisibility recount
   LocalBundleAdjustment -> backend.local_ba (LM+Schur on the device)
   KeyFrameCulling       -> drop redundant keyframes
 
-Mono triangulation and hybrid points are not ported. Neither is the JAX
+Mono triangulation (of lines and points) is not ported. Neither is the JAX
 package's TPU machinery around the solve: the subprocess BA worker and the
 deferred fusion apply (both exist to hide the TPU's dispatch and compile
 costs). So ``tick`` and ``finish`` have nothing to do; they stay so that
@@ -29,19 +29,22 @@ from tpuslam_torch.backend.local_ba import LocalBAConfig, LocalBAStats, local_bu
 from tpuslam_torch.device import resolve_device
 from tpuslam_torch.frontend.matcher import ProjectionSearchParams, search_by_projection
 from tpuslam_torch.geometry.camera import Intrinsics
-from tpuslam_torch.slammap.map import KeyFrame, SlamMap, features_to_device
+from tpuslam_torch.kernels.match import MatchParams, match_descriptors, midpoint_radius_penalty
+from tpuslam_torch.slammap.map import KeyFrame, SlamMap, features_to_device, point_features_to_device
 
 
 @dataclass
 class MapperConfig:
     """The stereo mapper's settings; same names and defaults as
     ``tpuslam.backend.mapping.MapperConfig``. Its mono triangulation and
-    deferred-fusion fields belong to paths not ported and are absent."""
+    deferred-fusion fields belong to paths not ported and are absent, except
+    ``tri_point_match``, which point fusion uses."""
 
     ba: LocalBAConfig = field(default_factory=LocalBAConfig)
     ba_every: int = 1  # run local BA every N keyframes
     cull_min_obs: int = 2  # landmark must reach this within cull_horizon KFs
     cull_horizon: int = 3
+    tri_point_match: MatchParams = field(default_factory=lambda: MatchParams(max_dist=60.0, ratio=0.8))
     fuse_search: ProjectionSearchParams = field(
         default_factory=lambda: ProjectionSearchParams(radius=10.0, angle_tol=0.15)
     )
@@ -71,6 +74,7 @@ class LocalMapper:
         self.cfg = cfg
         self.device = resolve_device(device)
         self._recent: Dict[int, int] = {}  # line id -> kf id at creation
+        self._recent_pts: Dict[int, int] = {}  # point id -> kf id at creation
         self._kf_count = 0
         self.last_ba: LocalBAStats | None = None
         self.on_map_changed = None  # callback (e.g. tracker.invalidate_local_map)
@@ -116,28 +120,53 @@ class LocalMapper:
         for lid in kf.line_ids:
             if lid >= 0 and st.first_kf[lid] == kf.kid:
                 self._recent[int(lid)] = kf.kid
+        if kf.point_ids is not None:
+            pst = self.map.points
+            for pid in kf.point_ids:
+                if pid >= 0 and pst.first_kf[pid] == kf.kid:
+                    self._recent_pts[int(pid)] = kf.kid
 
     def _cull_recent(self, kf: KeyFrame):
-        st = self.map.lines
-        for lid, born in list(self._recent.items()):
-            if not st.alive[lid]:
-                del self._recent[lid]
-                continue
-            if kf.kid - born >= self.cfg.cull_horizon:
-                if st.n_obs[lid] < self.cfg.cull_min_obs:
-                    st.kill(lid, self.map.keyframes)
-                del self._recent[lid]
+        for store, recent in ((self.map.lines, self._recent), (self.map.points, self._recent_pts)):
+            for lm, born in list(recent.items()):
+                if not store.alive[lm]:
+                    del recent[lm]
+                    continue
+                if kf.kid - born >= self.cfg.cull_horizon:
+                    if store.n_obs[lm] < self.cfg.cull_min_obs:
+                        store.kill(lm, self.map.keyframes)
+                    del recent[lm]
 
     # ---- duplicate fusion -----------------------------------------------
     def _fuse_all(self, kf: KeyFrame):
-        """Match older local-map lines into this keyframe (one read back of
-        the matches); bind missed observations and merge duplicates."""
-        d = self._fuse_lines_dispatch(kf)
-        if d is None:
+        """Match older local-map lines and points into this keyframe (one
+        read back of both families' matches); bind missed observations and
+        merge duplicates."""
+        ld, pd = self._fuse_lines_dispatch(kf), self._fuse_points_dispatch(kf)
+        live = [d for d in (ld, pd) if d is not None]
+        if not live:
             return
-        m, ids = d
-        both = torch.stack([m.valid.to(torch.int64), m.idx]).cpu().numpy()
-        self._fuse_lines_apply(kf, ids, both[0] > 0, both[1])
+        both = torch.cat([torch.stack([m.valid.to(torch.int64), m.idx]) for m, _ in live], dim=1).cpu().numpy()
+        n = 0
+        for d, apply in ((ld, self._fuse_lines_apply), (pd, self._fuse_points_apply)):
+            if d is not None:
+                k = len(d[1])
+                apply(kf, d[1], both[0, n : n + k] > 0, both[1, n : n + k])
+                n += k
+
+    @staticmethod
+    def _padded_ids(old_ids: List[int]):
+        """ids padded to a doubling capacity from 128, as the JAX package
+        pads them, and their validity."""
+        n = len(old_ids)
+        cap = 128
+        while cap < n:
+            cap *= 2
+        ids = np.zeros(cap, np.int32)
+        ids[:n] = old_ids
+        validf = np.zeros(cap, np.float32)
+        validf[:n] = 1.0
+        return ids, validf
 
     def _fuse_lines_dispatch(self, kf: KeyFrame):
         st = self.map.lines
@@ -152,15 +181,7 @@ class LocalMapper:
         )
         if not old_ids:
             return None
-        # padded to a doubling capacity from 128, as the JAX package pads
-        n = len(old_ids)
-        cap = 128
-        while cap < n:
-            cap *= 2
-        ids = np.zeros(cap, np.int32)
-        ids[:n] = old_ids
-        validf = np.zeros(cap, np.float32)
-        validf[:n] = 1.0
+        ids, validf = self._padded_ids(old_ids)
 
         def dev(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -188,6 +209,54 @@ class LocalMapper:
                 # keep the better-observed landmark
                 keep, drop = (old, cur) if st.n_obs[old] >= st.n_obs[cur] else (cur, old)
                 st.replace(drop, keep, self.map.keyframes)
+
+    def _fuse_points_dispatch(self, kf: KeyFrame):
+        """The point analog: older neighbourhood points projected into this
+        keyframe on the host (float32 numpy, as the JAX package does), gated
+        by the fusion radius and matched by descriptor."""
+        if kf.point_features is None or kf.point_ids is None:
+            return None
+        pst = self.map.points
+        old_ids = sorted(
+            {
+                int(q)
+                for nk in self.map.covisible_keyframes(kf.kid, 5)
+                for q in (() if self.map.keyframes[nk].point_ids is None else self.map.keyframes[nk].point_ids)
+                if q >= 0 and pst.alive[q] and pst.first_kf[q] != kf.kid
+            }
+        )
+        if not old_ids:
+            return None
+        ids, validf = self._padded_ids(old_ids)
+        T = kf.T_cw
+        Xc = pst.xyz[ids] @ T[:3, :3].T + T[:3, 3]
+        cam = self.cam
+        Kmat = np.array([[cam.fx, 0.0, cam.cx], [0.0, cam.fy, cam.cy], [0.0, 0.0, 1.0]], np.float32)
+        pr = Xc @ Kmat.T
+        uv = pr[:, :2] / np.maximum(pr[:, 2:3], 1e-9)
+        validf *= (Xc[:, 2] > 0.05).astype(np.float32)
+
+        def dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+        pf = point_features_to_device(kf.point_features, self.device)
+        pen = midpoint_radius_penalty(dev(uv.astype(np.float32)), pf.uv, self.cfg.fuse_search.radius)
+        m = match_descriptors(
+            dev(pst.desc_bits[ids].astype(np.int64)), dev(validf), pf.desc_bits, pf.valid, self.cfg.tri_point_match, pen
+        )
+        return m, ids
+
+    def _fuse_points_apply(self, kf: KeyFrame, ids, mv, midx):
+        pst = self.map.points
+        for i in np.nonzero(mv)[0]:
+            slot = int(midx[i])
+            old = int(ids[i])
+            cur = int(kf.point_ids[slot])
+            if cur < 0:
+                pst.add_observation(old, kf, slot)
+            elif cur != old and pst.alive[cur] and pst.alive[old]:
+                keep, drop = (old, cur) if pst.n_obs[old] >= pst.n_obs[cur] else (cur, old)
+                pst.replace(drop, keep, self.map.keyframes)
 
     # ---- keyframe culling ----------------------------------------------
     def _cull_keyframes(self, kf: KeyFrame):

@@ -1,10 +1,19 @@
 """Pose-only optimization: the per-frame refine of the tracking path (torch).
 
-Counterpart of ``tpuslam.backend.pose_opt.pose_optimize`` for line
-observations: LM over one SE(3) pose with the landmarks fixed, ``rounds``
+Counterpart of ``tpuslam.backend.pose_opt.pose_optimize``: LM over one
+SE(3) pose with the landmarks fixed, line observations and, when given,
+point observations (the hybrid front end) in one normal system, ``rounds``
 rounds of ``iters_per_round`` iterations with chi-squared re-gating between
 rounds. The loops are Python loops over device tensors; the accept step is
 a ``torch.where`` on the device, so nothing in them waits for the device.
+
+With both families the IRLS weights follow the JAX package's as written:
+its ``jnp.linalg.norm(r, -1)`` takes -1 as the norm's ``ord``, so each
+family gets one Huber weight, from the matrix norm min_j sum_i |r_ij| over
+all its rows, instead of one per observation (:func:`_family_norm`). The
+lines-only LM keeps per-observation weights: there a common weight cancels
+in the step, and only gross outliers, which the JAX package does not
+down-weight, tell the two apart.
 """
 
 from __future__ import annotations
@@ -17,9 +26,10 @@ from tpuslam_torch.backend.residuals import (
     huber_weight,
     line_residuals,
     line_residuals_and_pose_jacobian,
+    point_residuals_and_jacobians,
 )
-from tpuslam_torch.geometry.camera import Intrinsics
-from tpuslam_torch.geometry.se3 import se3_retract
+from tpuslam_torch.geometry.camera import Intrinsics, project_points
+from tpuslam_torch.geometry.se3 import se3_apply, se3_retract
 
 _EPS = 1e-8
 
@@ -37,8 +47,20 @@ class PoseOptConfig(NamedTuple):
 class PoseOptResult(NamedTuple):
     pose: torch.Tensor  # (4, 4)
     inlier_lines: torch.Tensor  # (KL,) final line-observation inlier mask
+    inlier_points: torch.Tensor  # (KP,) final point-observation inlier mask (KP = 0 without points)
     cost: torch.Tensor  # final robust cost
     num_inliers: torch.Tensor  # inlier count (int32)
+
+
+def _family_norm(r: torch.Tensor) -> torch.Tensor:
+    """``jnp.linalg.norm(r, -1)`` of an (N, 2) residual matrix: ord -1, the
+    smallest column sum of absolute values."""
+    return torch.amin(torch.sum(torch.abs(r), dim=0))
+
+
+def _huber(sq: torch.Tensor, delta: float) -> torch.Tensor:
+    n = torch.sqrt(sq + _EPS)
+    return torch.where(n <= delta, sq, 2.0 * delta * n - delta * delta)
 
 
 def pose_optimize(
@@ -49,49 +71,70 @@ def pose_optimize(
     cam: Intrinsics,
     cfg: PoseOptConfig = PoseOptConfig(),
     l_sigma: Optional[torch.Tensor] = None,
+    points: Optional[torch.Tensor] = None,  # (KP, 3) world points matched to this frame
+    p_uv: Optional[torch.Tensor] = None,  # (KP, 2) their corner pixels
+    p_valid: Optional[torch.Tensor] = None,  # (KP,)
+    p_sigma: Optional[torch.Tensor] = None,
 ) -> PoseOptResult:
-    """Optimize one camera pose against fixed line landmarks with re-gating."""
+    """Optimize one camera pose against fixed landmarks with re-gating."""
     KL = lines.shape[0]
     dev, dt = T_init.device, T_init.dtype
     if l_sigma is None:
         l_sigma = torch.ones((KL,), dtype=dt, device=dev)
+    hybrid = points is not None
+    if hybrid and p_sigma is None:
+        p_sigma = torch.ones((points.shape[0],), dtype=dt, device=dev)
     eye6 = torch.eye(6, dtype=dt, device=dev)
 
     def whitened(T):
-        return line_residuals(T, lines, l_endpoints, cam) / l_sigma[:, None]
+        rl = line_residuals(T, lines, l_endpoints, cam) / l_sigma[:, None]
+        rp = (project_points(cam, se3_apply(T, points)) - p_uv) / p_sigma[:, None] if hybrid else None
+        return rl, rp
 
-    def robust_cost(T, ml):
-        rl = whitened(T)
-        sq = torch.sum(rl * rl, dim=-1)
-        n = torch.sqrt(sq + _EPS)
-        h = torch.where(n <= cfg.huber_line, sq, 2.0 * cfg.huber_line * n - cfg.huber_line * cfg.huber_line)
-        return torch.sum(h * ml)
+    def robust_cost(T, ml, mp):
+        rl, rp = whitened(T)
+        cost = torch.sum(_huber(torch.sum(rl * rl, dim=-1), cfg.huber_line) * ml)
+        if hybrid:
+            cost = cost + torch.sum(_huber(torch.sum(rp * rp, dim=-1), cfg.huber_point) * mp)
+        return cost
 
     T = T_init
     ml = l_valid.to(dt)
+    mp = p_valid.to(dt) if hybrid else None
     for _ in range(cfg.rounds):
         lam = torch.full((), cfg.lam0, dtype=dt, device=dev)  # a fill, not a host copy
-        cost = robust_cost(T, ml)
+        cost = robust_cost(T, ml, mp)
         for _ in range(cfg.iters_per_round):
             rl, Jl = line_residuals_and_pose_jacobian(T, lines, l_endpoints, cam)
             rl = rl / l_sigma[:, None]
             Jl = Jl / l_sigma[:, None, None]
-            wl = huber_weight(torch.linalg.norm(rl, dim=-1), cfg.huber_line) * ml
+            wl = huber_weight(_family_norm(rl) if hybrid else torch.linalg.norm(rl, dim=-1), cfg.huber_line) * ml
             H = torch.einsum("oia,o,oib->ab", Jl, wl, Jl)
-            b = -torch.einsum("oia,o,oi->a", Jl, wl, rl)
+            b = torch.einsum("oia,o,oi->a", Jl, wl, rl)
+            if hybrid:
+                rp, Jp, _ = point_residuals_and_jacobians(T, points, p_uv, cam)
+                rp = rp / p_sigma[:, None]
+                Jp = Jp / p_sigma[:, None, None]
+                wp = huber_weight(_family_norm(rp), cfg.huber_point) * mp
+                H = H + torch.einsum("oia,o,oib->ab", Jp, wp, Jp)
+                b = b + torch.einsum("oia,o,oi->a", Jp, wp, rp)
             Hd = H + lam * torch.diag(torch.diag(H)) + _EPS * eye6
-            dx = torch.linalg.solve_ex(Hd, b)[0]  # no error check: no device sync
+            dx = torch.linalg.solve_ex(Hd, -b)[0]  # no error check: no device sync
             T_cand = se3_retract(T, dx)
-            new_cost = robust_cost(T_cand, ml)
+            new_cost = robust_cost(T_cand, ml, mp)
             accept = new_cost < cost
             T = torch.where(accept, T_cand, T)
             lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 4.0), 1e-8, 1e4)
             cost = torch.where(accept, new_cost, cost)
-        rl = whitened(T)
+        rl, rp = whitened(T)
         ml = (torch.sum(rl * rl, dim=-1) < cfg.chi2_line).to(dt) * l_valid
+        if hybrid:
+            mp = (torch.sum(rp * rp, dim=-1) < cfg.chi2_point).to(dt) * p_valid
+    n_in = torch.sum(ml) + (torch.sum(mp) if hybrid else 0.0)
     return PoseOptResult(
         pose=T,
         inlier_lines=ml,
-        cost=robust_cost(T, ml),
-        num_inliers=torch.sum(ml).to(torch.int32),
+        inlier_points=mp if hybrid else torch.zeros((0,), dtype=dt, device=dev),
+        cost=robust_cost(T, ml, mp),
+        num_inliers=n_in.to(torch.int32),
     )

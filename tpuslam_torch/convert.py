@@ -16,10 +16,19 @@ import torch
 from tpuslam_torch.backend.lm import BAProblem
 from tpuslam_torch.backend.mapping import MapperConfig
 from tpuslam_torch.frontend.frame import FrameFeatures
+from tpuslam_torch.frontend.points import PointFrontendParams
 from tpuslam_torch.frontend.tracking import TrackerConfig
 from tpuslam_torch.kernels.align_direct import DirectAlignParams
-from tpuslam_torch.kernels.stereo_direct import DirectStereoParams
-from tpuslam_torch.slammap.map import KeyFrame, SlamMap, features_to_device, features_to_numpy
+from tpuslam_torch.kernels.fast import PointFeatures
+from tpuslam_torch.kernels.stereo_direct import DirectPointStereoParams, DirectStereoParams
+from tpuslam_torch.slammap.map import (
+    KeyFrame,
+    SlamMap,
+    features_to_device,
+    features_to_numpy,
+    point_features_to_device,
+    point_features_to_numpy,
+)
 
 
 def _as_mapping(value) -> Mapping[str, Any]:
@@ -66,6 +75,14 @@ def features_from(value, device="cpu") -> FrameFeatures:
     return features_to_device(FrameFeatures(**{name: np.asarray(d[name]) for name in FrameFeatures._fields}), device)
 
 
+def point_features_from(value, device="cpu") -> PointFeatures:
+    """PointFeatures (tensors on ``device``) from a mapping or NamedTuple of
+    arrays with PointFeatures' field names; uint32 descriptor words become
+    int64 words."""
+    d = _as_mapping(value)
+    return point_features_to_device(PointFeatures(**{name: np.asarray(d[name]) for name in PointFeatures._fields}), device)
+
+
 _BA_INDEX_FIELDS = ("l_pose", "l_line", "p_pose", "p_point")
 
 
@@ -85,8 +102,8 @@ def mapper_config_from(value) -> MapperConfig:
     """MapperConfig from a MapperConfig-like dataclass (the JAX package's).
 
     Fields of paths this package does not run (mono triangulation, deferred
-    fusion, the local BA's point buckets) are dropped when they hold their
-    class's defaults and refused otherwise."""
+    fusion) are dropped when they hold their class's defaults and refused
+    otherwise."""
     ours = MapperConfig()
     out = {}
     for name, v in _ported_fields(value, {f.name for f in dataclasses.fields(MapperConfig)}, "MapperConfig").items():
@@ -96,16 +113,20 @@ def mapper_config_from(value) -> MapperConfig:
 
 
 # TrackerConfig fields whose default is None and whose value is a NamedTuple
-_TRACKER_PARAMS = {"direct_stereo": DirectStereoParams, "semidirect": DirectAlignParams}
+_TRACKER_PARAMS = {
+    "direct_stereo": DirectStereoParams,
+    "semidirect": DirectAlignParams,
+    "points": PointFrontendParams,
+    "direct_points": DirectPointStereoParams,
+}
 
 
 def tracker_config_from(value) -> TrackerConfig:
     """TrackerConfig from a TrackerConfig-like dataclass (the JAX package's):
     the front end, stereo, search and pose settings, the pipelined chunk
-    fields, ``direct_stereo`` and ``semidirect`` become this package's types.
-    The hybrid-point fields (``points``, ``point_local_capacity``,
-    ``direct_points``) are dropped when they hold their defaults and
-    refused otherwise."""
+    fields, ``direct_stereo``, ``semidirect`` and the hybrid-point fields
+    (``points``, ``point_local_capacity``, ``direct_points``) become this
+    package's types."""
     ours = TrackerConfig()
     out = {}
     for name, v in _ported_fields(value, {f.name for f in dataclasses.fields(TrackerConfig)}, "TrackerConfig").items():
@@ -138,6 +159,18 @@ def local_map_from(value, device="cpu") -> dict:
     )
 
 
+def point_local_from(value, device="cpu") -> dict:
+    """The tracker's local point-map arrays from a mapping with the JAX
+    tracker's keys: xyz (NP, 3) and valid (NP,) as float32, the uint32
+    descriptor words ``bits`` (NP, W) as int64."""
+    d = _as_mapping(value)
+    return dict(
+        xyz=tensor_from(d["xyz"], device, torch.float32),
+        bits=tensor_from(np.asarray(d["bits"]).astype(np.uint32).astype(np.int64), device),
+        valid=tensor_from(d["valid"], device, torch.float32),
+    )
+
+
 def chunk_inputs_from(frames, T_last, T_prevlast, local, device="cpu"):
     """The inputs of one semi-direct chunk (``frontend.pipeline``): the
     (C + 1, H, W) frame stack (u8 kept as u8), the pose chain (T_last,
@@ -151,14 +184,10 @@ def chunk_inputs_from(frames, T_last, T_prevlast, local, device="cpu"):
     )
 
 
-def map_state(m) -> dict:
-    """Numpy/dict snapshot of a SlamMap of either package: the line store
-    (free list in order), the keyframes (poses, features, observations,
-    spanning tree) and the covisibility graph."""
-    st = m.lines
-    lines = dict(
-        plucker=np.asarray(st.plucker),
-        endpoints=np.asarray(st.endpoints),
+def _store_state(st, *arrays) -> dict:
+    """A landmark store's arrays, observation dicts and free list."""
+    out = {name: np.asarray(getattr(st, name)) for name in arrays}
+    out.update(
         alive=np.asarray(st.alive),
         desc_bits=np.asarray(st.desc_bits).astype(np.uint32),
         n_obs=np.asarray(st.n_obs),
@@ -167,6 +196,24 @@ def map_state(m) -> dict:
         next=int(st._next),
         free=[int(x) for x in st._free],
     )
+    return out
+
+
+def _restore_store(st, state: Mapping, *arrays) -> None:
+    for name in (*arrays, "alive", "desc_bits", "n_obs", "first_kf"):
+        getattr(st, name)[:] = state[name]
+    st.obs = {l: dict(o) for l, o in state["obs"].items()}
+    st._next = state["next"]
+    st._free = list(state["free"])
+
+
+def map_state(m) -> dict:
+    """Numpy/dict snapshot of a SlamMap of either package: the line and
+    point stores (free lists in order), the keyframes (poses, line and
+    corner features, observations, spanning tree) and the covisibility
+    graph."""
+    lines = _store_state(m.lines, "plucker", "endpoints")
+    points = _store_state(m.points, "xyz")
     keyframes = []
     for kid in sorted(m.keyframes):
         kf = m.keyframes[kid]
@@ -178,31 +225,32 @@ def map_state(m) -> dict:
                 T_cw=np.asarray(kf.T_cw, np.float32),
                 features={k: np.asarray(v) for k, v in _as_mapping(kf.features).items()},
                 line_ids=np.asarray(kf.line_ids, np.int32),
+                point_features=None
+                if kf.point_features is None
+                else {k: np.asarray(v) for k, v in _as_mapping(kf.point_features).items()},
+                point_ids=None if kf.point_ids is None else np.asarray(kf.point_ids, np.int32),
                 is_bad=bool(kf.is_bad),
                 parent=kf.parent,
                 children=sorted(int(c) for c in kf.children),
             )
         )
     covis = {int(a): {int(b): int(w) for b, w in row.items()} for a, row in m.covis.items()}
-    return dict(lines=lines, keyframes=keyframes, covis=covis, next_kid=int(m._next_kid), generation=int(m.generation))
+    return dict(
+        lines=lines, points=points, keyframes=keyframes, covis=covis, next_kid=int(m._next_kid), generation=int(m.generation)
+    )
 
 
 def slam_map_from(state: Mapping) -> SlamMap:
     """This package's SlamMap from a :func:`map_state` snapshot."""
-    ls = state["lines"]
-    m = SlamMap(line_capacity=len(ls["alive"]))
-    st = m.lines
-    st.plucker[:] = ls["plucker"]
-    st.endpoints[:] = ls["endpoints"]
-    st.alive[:] = ls["alive"]
-    st.desc_bits[:] = ls["desc_bits"]
-    st.n_obs[:] = ls["n_obs"]
-    st.first_kf[:] = ls["first_kf"]
-    st.obs = {l: dict(o) for l, o in ls["obs"].items()}
-    st._next = ls["next"]
-    st._free = list(ls["free"])
+    ls, ps = state["lines"], state["points"]
+    m = SlamMap(line_capacity=len(ls["alive"]), point_capacity=len(ps["alive"]))
+    _restore_store(m.lines, ls, "plucker", "endpoints")
+    _restore_store(m.points, ps, "xyz")
     for k in state["keyframes"]:
         feats = features_to_numpy(FrameFeatures(**{n: np.asarray(k["features"][n]) for n in FrameFeatures._fields}))
+        pf = k["point_features"]
+        if pf is not None:
+            pf = point_features_to_numpy(PointFeatures(**{n: np.asarray(pf[n]) for n in PointFeatures._fields}))
         m.keyframes[k["kid"]] = KeyFrame(
             kid=k["kid"],
             frame_idx=k["frame_idx"],
@@ -213,6 +261,8 @@ def slam_map_from(state: Mapping) -> SlamMap:
             is_bad=k["is_bad"],
             parent=k["parent"],
             children=set(k["children"]),
+            point_features=pf,
+            point_ids=None if k["point_ids"] is None else np.asarray(k["point_ids"], np.int32).copy(),
         )
     m.covis = {a: dict(row) for a, row in state["covis"].items()}
     m._next_kid = state["next_kid"]

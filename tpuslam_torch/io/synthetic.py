@@ -2,9 +2,11 @@
 
 ``make_wireframe_scene`` is a copy of the JAX package's
 (``tpuslam.io.synthetic``), so the same seed gives the same scene, and
-``observe_frame`` its segment projection.
+``observe_frame`` its segment and point projection.
 ``render_wireframe_image`` draws with numpy alone: the JAX package draws
-with ``cv2.line``, which the machines that run the port may not have.
+its lines with ``cv2.line``, which the machines that run the port may not
+have; its point dots (Gaussian splats, ``draw_points``) are numpy there too
+and are copied here step for step.
 """
 
 from __future__ import annotations
@@ -98,10 +100,12 @@ def make_wireframe_scene(
 class FrameObservations(NamedTuple):
     seg_uv: np.ndarray  # (S, 2, 2) projected segment endpoints (px)
     seg_visible: np.ndarray  # (S,) bool — both endpoints in front & in image
+    pt_uv: np.ndarray  # (Q, 2) projected scene points (px)
+    pt_visible: np.ndarray  # (Q,) bool — in front & in image
 
 
 def observe_frame(scene: SyntheticScene, frame: int, min_z: float = 0.2, margin: float = 0.0) -> FrameObservations:
-    """Projected segments of one frame (no noise)."""
+    """Projected segments and points of one frame (no noise)."""
     cam = scene.cam
     T = scene.poses[frame]
     R, t = T[:3, :3], T[:3, 3]
@@ -126,9 +130,12 @@ def observe_frame(scene: SyntheticScene, frame: int, min_z: float = 0.2, margin:
             uv[:, 1] < cam.height - margin
         )
 
+    pt_uv, pt_z = project(scene.points)
     return FrameObservations(
         seg_uv=np.stack([p_uv, q_uv], axis=1).astype(np.float32),
         seg_visible=(p_z > min_z) & (q_z > min_z) & in_image(p_uv) & in_image(q_uv),
+        pt_uv=pt_uv.astype(np.float32),
+        pt_visible=(pt_z > min_z) & in_image(pt_uv),
     )
 
 
@@ -161,6 +168,23 @@ def _draw_line_aa(img: np.ndarray, p, q, color: float, thickness: int) -> None:
     patch += (np.float32(color) - patch) * cover
 
 
+def _splat(img: np.ndarray, cx: float, cy: float, sigma: float, amp: float) -> None:
+    """Subtract ``amp`` times a Gaussian of ``sigma`` centred at (cx, cy),
+    over the pixels within 3 sigma + 2 of it, in place."""
+    H, W = img.shape
+    r = int(3 * sigma) + 2
+    x0, x1 = int(np.floor(cx)) - r, int(np.floor(cx)) + r + 1
+    y0, y1 = int(np.floor(cy)) - r, int(np.floor(cy)) + r + 1
+    x0c, x1c = max(x0, 0), min(x1, W)
+    y0c, y1c = max(y0, 0), min(y1, H)
+    if x0c >= x1c or y0c >= y1c:
+        return
+    xs = np.arange(x0c, x1c, dtype=np.float32) - cx
+    ys = np.arange(y0c, y1c, dtype=np.float32) - cy
+    g = np.exp(-(ys[:, None] ** 2 + xs[None, :] ** 2) / (2.0 * sigma * sigma))
+    img[y0c:y1c, x0c:x1c] -= amp * g
+
+
 def render_wireframe_image(
     scene: SyntheticScene,
     frame: int,
@@ -169,10 +193,17 @@ def render_wireframe_image(
     thickness: int = 2,
     noise: float = 2.0,
     rng: np.random.Generator | None = None,
+    draw_points: bool = False,
+    dot_radius: int = 2,
 ) -> np.ndarray:
     """Grayscale uint8 image of the wireframe: anti-aliased lines of
     ``thickness`` px between the rounded projected endpoints of every visible
-    segment, plus Gaussian noise of std ``noise`` when ``rng`` is given."""
+    segment, plus Gaussian noise of std ``noise`` when ``rng`` is given.
+
+    With ``draw_points`` each visible scene point is a dark Gaussian splat
+    (sigma 0.5 ``dot_radius`` + 0.5) at its exact projection, with up to
+    three smaller satellite splats at fixed per-point offsets, so FAST fires
+    at the projection and BRIEF sees a distinctive pattern around it."""
     cam = scene.cam
     obs = observe_frame(scene, frame)
     img = np.full((cam.height, cam.width), bg, np.float32)
@@ -180,6 +211,16 @@ def render_wireframe_image(
         p = np.round(obs.seg_uv[s, 0]).astype(int)
         q = np.round(obs.seg_uv[s, 1]).astype(int)
         _draw_line_aa(img, p, q, fg, thickness)
+    if draw_points:
+        amp = float(bg - fg)
+        for q_ in np.nonzero(obs.pt_visible)[0]:
+            cx, cy = float(obs.pt_uv[q_, 0]), float(obs.pt_uv[q_, 1])
+            _splat(img, cx, cy, 0.5 * dot_radius + 0.5, amp)
+            rsq = np.random.RandomState(1000 + int(q_))
+            for o in rsq.randint(-9, 10, (3, 2)):
+                if np.max(np.abs(o)) >= 4:  # keep satellites off the centre
+                    _splat(img, cx + float(o[0]), cy + float(o[1]), 0.8, amp)
+        np.clip(img, 0, 255, out=img)
     if noise > 0 and rng is not None:
         img = img + rng.normal(size=img.shape) * noise
     return np.clip(img, 0, 255).astype(np.uint8)

@@ -15,8 +15,14 @@ PyTorch on the caller's device. Its Gauss-Newton takes the Jacobian by
 ``jax.jacfwd``; here it is written out: for the camera-frame line (n, v)
 under the left perturbation exp(xi^) T, dn/d(rho, phi) = [-[v]x, -[n]x], and
 the residual r = m^T l / sqrt(l1^2 + l2^2 + eps) of l = K_L n has
-dr/dl = m / |l|_12 - r / |l|_12^2 * (l1, l2, 0). The hybrid point templates
-come with hybrid points.
+dr/dl = m / |l|_12 - r / |l|_12^2 * (l1, l2, 0).
+
+Hybrid chunks align map points beside the lines: each point carries two 1-D
+templates through its anchor projection (a row profile searched along x and
+a column profile searched along y, :func:`anchor_point_templates_body`,
+:func:`_search_point_templates`), a full 2-DoF reprojection constraint in
+the same Gauss-Newton (:func:`align_frame_hybrid_body`); the point residual's
+Jacobian is written out too (:func:`point_sample_residuals_and_jacobian`).
 
 The sample points and their projections round as the JAX package's jitted
 bodies do: XLA contracts each ``a * b + c`` there into one fused
@@ -33,17 +39,16 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from tpuslam_torch.geometry.camera import Intrinsics, line_projection_matrix
+from tpuslam_torch.geometry.camera import Intrinsics, line_projection_matrix, project_points
 from tpuslam_torch.geometry.plucker import plucker_transform
-from tpuslam_torch.geometry.se3 import se3_retract, so3_hat
+from tpuslam_torch.geometry.se3 import se3_apply, se3_retract, so3_hat
 from tpuslam_torch.kernels.stereo_direct import linspace, moving_mean, subpixel_argmin
 
 _EPS = 1e-9
 
 
 class DirectAlignParams(NamedTuple):
-    """Same fields and defaults as the JAX package's (``point_cap`` belongs
-    to the hybrid point templates, which are not ported yet)."""
+    """Same fields and defaults as the JAX package's."""
 
     n_samples: int = 6  # S sample points per landmark segment
     template: int = 8  # Wt template width (px along the search axis)
@@ -73,6 +78,15 @@ class AlignTemplates(NamedTuple):
     tmpl: torch.Tensor  # (A, S, Wt) float32 anchor intensity profile (0..255)
     vert: torch.Tensor  # (A,) float32 {0, 1}: 1 = search along y (line mostly horizontal)
     tvalid: torch.Tensor  # (A, S) float32 sample validity
+
+
+class PointAlignTemplates(NamedTuple):
+    """Per-point photometric templates: two orthogonal 1-D profiles through
+    the anchor projection."""
+
+    p3d: torch.Tensor  # (P, 3) world-frame map points
+    tmpl: torch.Tensor  # (P, 2, Wt) float32; [:, 0] = row searched along x, [:, 1] = column searched along y
+    tvalid: torch.Tensor  # (P, 2) float32 per-axis validity
 
 
 def inject_coord_scale_align(p: DirectAlignParams, base_scale: float, prescaled: bool) -> DirectAlignParams:
@@ -236,12 +250,45 @@ def line_sample_residuals_and_jacobian(T: torch.Tensor, plucker: torch.Tensor, m
     return r, dr_dl @ dl
 
 
-def _gn_pose(T0: torch.Tensor, plucker: torch.Tensor, m: torch.Tensor, w_ok: torch.Tensor, cam: Intrinsics, p: DirectAlignParams):
+_MIN_POINT_Z = 1e-3  # the point residual's depth floor (camera plane guard)
+
+
+def point_sample_residuals_and_jacobian(T: torch.Tensor, pts3d: torch.Tensor, m_p: torch.Tensor, cam: Intrinsics):
+    """Reprojection residuals (P, 2) of world points under T against the
+    measured pixels ``m_p``, the camera-frame depth floored at 1e-3 (an
+    outlier swinging behind the camera must not put inf into the normal
+    equations), and their Jacobians (P, 2, 6) w.r.t. the left pose
+    perturbation at 0: dX_c/d(rho, phi) = [I, -[X_c]x], through the floor
+    (zero where it holds) and the pinhole."""
+    Xc = se3_apply(T, pts3d)
+    live = (Xc[:, 2] > _MIN_POINT_Z).to(Xc.dtype)
+    z = torch.clamp(Xc[:, 2], min=_MIN_POINT_Z)
+    Xf = torch.stack([Xc[:, 0], Xc[:, 1], z], dim=-1)
+    r = project_points(cam, Xf) - m_p
+    zero = torch.zeros_like(z)
+    dpi = torch.stack(
+        [
+            torch.stack([cam.fx / z, zero, -cam.fx * Xc[:, 0] / (z * z) * live], dim=-1),
+            torch.stack([zero, cam.fy / z, -cam.fy * Xc[:, 1] / (z * z) * live], dim=-1),
+        ],
+        dim=-2,
+    )  # (P, 2, 3)
+    eye = torch.eye(3, dtype=Xc.dtype, device=Xc.device).expand(Xc.shape[0], 3, 3)
+    return r, dpi @ torch.cat([eye, -so3_hat(Xc)], dim=-1)
+
+
+def _gn_pose(
+    T0: torch.Tensor, plucker: torch.Tensor, m: torch.Tensor, w_ok: torch.Tensor, cam: Intrinsics, p: DirectAlignParams,
+    pts3d: torch.Tensor | None = None, m_p: torch.Tensor | None = None, w_p: torch.Tensor | None = None,
+):
     """Gauss-Newton over the left-perturbation pose tangent with Huber IRLS
     weights, ``p.gn_iters`` iterations and no host sync (the step is capped,
-    not branched on). Returns (T, r_final (A, S))."""
+    not branched on); with ``pts3d`` the 2-DoF point residuals of the hybrid
+    followers join the same system. Returns (T, r_final (A, S)), and
+    rp_final (P, 2) third with ``pts3d``."""
     mh = torch.cat([m, torch.ones_like(m[..., :1])], dim=-1)  # (A, S, 3)
     eye6 = torch.eye(6, dtype=T0.dtype, device=T0.device)
+    hybrid = pts3d is not None
     T = T0
     for _ in range(p.gn_iters):
         r, J = line_sample_residuals_and_jacobian(T, plucker, mh, cam)
@@ -250,13 +297,23 @@ def _gn_pose(T0: torch.Tensor, plucker: torch.Tensor, m: torch.Tensor, w_ok: tor
         wf = w.reshape(-1)
         H = Jf.T @ (Jf * wf[:, None])
         b = Jf.T @ (wf * r.reshape(-1))
+        if hybrid:
+            rp, Jp = point_sample_residuals_and_jacobian(T, pts3d, m_p, cam)
+            wp = w_p[:, None] * torch.clamp(p.huber_px / torch.clamp(torch.abs(rp), min=_EPS), max=1.0)
+            Jpf = Jp.reshape(-1, 6)
+            wpf = wp.reshape(-1)
+            H = H + Jpf.T @ (Jpf * wpf[:, None])
+            b = b + Jpf.T @ (wpf * rp.reshape(-1))
         lam = 1e-4 * torch.trace(H) / 6.0 + 1e-6
         xi = -torch.linalg.solve_ex(H + lam * eye6, b)[0]  # no error check: no device sync
         # a degenerate system (too few constraints) must not launch the pose
         nrm = torch.sqrt(torch.sum(xi * xi))
         xi = xi * torch.clamp(0.5 / torch.clamp(nrm, min=1e-9), max=1.0)
         T = se3_retract(T, xi)
-    return T, line_sample_residuals(T, plucker, mh, cam)[0]
+    r = line_sample_residuals(T, plucker, mh, cam)[0]
+    if hybrid:
+        return T, r, point_sample_residuals_and_jacobian(T, pts3d, m_p, cam)[0]
+    return T, r
 
 
 def align_frame_body(
@@ -280,3 +337,72 @@ def align_frame_body(
     good = ok * (torch.abs(r) < p.max_res_px).to(torch.float32)  # (A, S)
     line_good = (torch.sum(good, dim=-1) >= float(p.min_line_samples)).to(torch.float32)
     return T, torch.sum(good), torch.sum(line_good)
+
+
+def _point_windows(img255: torch.Tensor, uv: torch.Tensor, span: int, lo_off: int):
+    """Both axis windows of each point, x then y: (win (P, 2, span), inb
+    (P, 2, span))."""
+    P_ = uv.shape[0]
+    vert = torch.arange(2, dtype=torch.float32, device=uv.device).expand(P_, 2)  # 0: along x, 1: along y
+    return _axis_window(img255, uv[:, 0:1].expand(P_, 2), uv[:, 1:2].expand(P_, 2), vert, span, lo_off)
+
+
+def anchor_point_templates_body(
+    img: torch.Tensor,
+    T_anchor: torch.Tensor,
+    xyz: torch.Tensor,
+    validf: torch.Tensor,
+    cam: Intrinsics,
+    p: DirectAlignParams,
+) -> PointAlignTemplates:
+    """Two orthogonal 1-D templates per map point from the anchor image:
+    a row profile (searched along x) and a column profile (searched along
+    y), each gated on contrast on its own. img: (H, W) float32 in [0, 1];
+    xyz: (P, 3) world points (sliced to point_cap by the caller)."""
+    Wt = p.template
+    Xc, uv = _project(T_anchor, xyz, cam)
+    zok = Xc[:, 2] > p.min_z
+    win, inb = _point_windows(img * 255.0, uv * p.coord_scale, Wt, -(Wt // 2))  # (P, 2, Wt)
+    contrast = torch.std(win, dim=-1, correction=0)
+    tvalid = (zok[:, None] & torch.all(inb, dim=-1) & (contrast > p.min_contrast) & (validf > 0.5)[:, None]).to(torch.float32)
+    return PointAlignTemplates(p3d=xyz, tmpl=win, tvalid=tvalid)
+
+
+def _search_point_templates(img255: torch.Tensor, T: torch.Tensor, tm: PointAlignTemplates, cam: Intrinsics, p: DirectAlignParams):
+    """Slide each point's two templates around its projection under T.
+    Returns (m (P, 2) measured uv in full-res px, ok (P,) float32: both axes
+    pass their gates and the point is in front)."""
+    Wt, R = p.template, p.search
+    M = 2 * R + 1
+    Xc, uv = _project(T, tm.p3d, cam)
+    zok = Xc[:, 2] > p.min_z
+    uv = uv * p.coord_scale  # (P, 2) image px
+    win, inb = _point_windows(img255, uv, M - 1 + Wt, -(R + Wt // 2))  # (P, 2, span)
+    delta, cbest, uniq = _slide_zsad(win, inb, tm.tmpl, Wt, M, p.ratio)  # (P, 2)
+    m = (uv + delta) / p.coord_scale  # u from the x search, v from the y search
+    ok_axis = uniq & (cbest < p.max_cost) & (tm.tvalid > 0.5) & (torch.abs(delta) < float(R))
+    return m, (torch.all(ok_axis, dim=-1) & zok).to(torch.float32)
+
+
+def align_frame_hybrid_body(
+    img: torch.Tensor,
+    T_pred: torch.Tensor,
+    plucker: torch.Tensor,
+    tm: AlignTemplates,
+    tm_p: PointAlignTemplates,
+    cam: Intrinsics,
+    p: DirectAlignParams,
+):
+    """Hybrid semi-direct frame: line and point template search, one joint
+    Gauss-Newton per round. Returns (T_new, n_samples_good, n_units_good),
+    a unit being an aligned line or an aligned point, as float32 scalars."""
+    img255 = img * 255.0
+    T = T_pred
+    for _ in range(max(1, p.rounds)):
+        m, ok = _search_templates(img255, T, tm, cam, p)
+        m_p, ok_p = _search_point_templates(img255, T, tm_p, cam, p)
+        T, r, rp = _gn_pose(T, plucker, m, ok, cam, p, pts3d=tm_p.p3d, m_p=m_p, w_p=ok_p)
+    good_l = ok * (torch.abs(r) < p.max_res_px).to(torch.float32)  # (A, S)
+    line_good = (torch.sum(good_l, dim=-1) >= float(p.min_line_samples)).to(torch.float32)
+    good_p = ok_p * torch.all(torch.abs(rp) < p.max_res_px, dim=-1).to(torch.float32)
+    return T, torch.sum(good_l) + 2.0 * torch.sum(good_p), torch.sum(line_good) + torch.sum(good_p)

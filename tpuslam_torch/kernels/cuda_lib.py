@@ -29,7 +29,7 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("image.cu", "lsd_front.cu", "ccl.cu")
+SOURCES = ("image.cu", "lsd_front.cu", "ccl.cu", "moments.cu")
 HEADERS = ("taps.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -117,6 +117,8 @@ def library() -> ctypes.CDLL:
     lib.tpuslam_ccl.restype = I
     lib.tpuslam_ccl_per_round.argtypes = [P, P, P, P, P, P, P, I, I, I, P]
     lib.tpuslam_ccl_per_round.restype = I
+    lib.tpuslam_moments.argtypes = [P, P, P, P, I, I, I, IP, P]
+    lib.tpuslam_moments.restype = I
     lib.tpuslam_error_string.argtypes = [I]
     lib.tpuslam_error_string.restype = ctypes.c_char_p
     return lib

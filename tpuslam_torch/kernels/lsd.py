@@ -13,8 +13,15 @@ running its plain PyTorch version on a CPU tensor:
   shared-memory tiles (:data:`CCL_TILE`), so a call of R rounds is
   ceil(R / k) launches.
 
+- :func:`segment_moments`, the per-component moment sums of
+  :func:`detect_lines` and :func:`merge_collinear` (``csrc/moments.cu``:
+  block partial sums, then a fixed-order combine, two launches per call, no
+  float atomics, so every run on the card adds in one order); plain version
+  :func:`segment_moments_torch`. The JAX package has no Pallas kernel here:
+  XLA fuses these sums into its reductions.
+
 ``LAUNCHES`` counts the kernel calls made on the card, ``KERNEL_LAUNCHES``
-the device launches of those calls, under "lsd_front" and "ccl".
+the device launches of those calls, under "lsd_front", "ccl" and "moments".
 
 Three places differ in form from the JAX code, not in result:
 
@@ -26,7 +33,8 @@ Three places differ in form from the JAX code, not in result:
 - The per-component moments: XLA fuses the (K, N) one-hot compare into its
   reductions, eager PyTorch would materialise it (315 MB per temporary at
   VGA). Each label is instead mapped to its slot (other labels to a dump
-  slot K) and reduced with ``index_add_`` / ``scatter_reduce``. Float sums
+  slot K) and summed by :func:`segment_moments` (extents by
+  ``scatter_reduce``'s min and max, which do not depend on order). Float sums
   run in another order, so moments agree to float rounding, not bitwise.
 - ``jnp.hypot`` is written out with JAX's own formula, so the root keys,
   and with them the slot order, are bit-equal.
@@ -42,8 +50,8 @@ import torch
 
 from tpuslam_torch.kernels import cuda_lib, image
 
-LAUNCHES = {"lsd_front": 0, "ccl": 0}
-KERNEL_LAUNCHES = {"lsd_front": 0, "ccl": 0}
+LAUNCHES = {"lsd_front": 0, "ccl": 0, "moments": 0}
+KERNEL_LAUNCHES = {"lsd_front": 0, "ccl": 0, "moments": 0}
 
 # Output tile side of the fused front kernel (csrc/lsd_front.cu): each block
 # reads the edge-clamped (T + 2h) x (T + 2h) window around its T x T tile,
@@ -65,6 +73,12 @@ def front_halo(radius: int) -> int:
 # fastest of the tiles timed at 480x640 on an H100 (csrc/ccl.cu, PERF.md),
 # and the only instance the library builds.
 CCL_TILE = (32, 32, 8)
+
+# The most blocks the moments kernel (csrc/moments.cu, kTargetBlocks: one
+# wave on the H100's 132 SMs) sums partials in: the wrapper's scratch holds
+# MOMENTS_BLOCKS * V * S floats, and the C function refuses the shapes it
+# cannot take.
+MOMENTS_BLOCKS = 132
 
 
 class LSDParams(NamedTuple):
@@ -169,6 +183,46 @@ def ccl_propagate(labels: torch.Tensor, maxlab: torch.Tensor, compat_bits: torch
     if cuda_lib.on_card(labels):
         return _ccl_cuda(labels, maxlab, compat_bits, rounds)
     return _ccl_torch(labels, maxlab, compat_bits, rounds)
+
+
+def segment_moments_torch(values: torch.Tensor, slot: torch.Tensor, S: int) -> torch.Tensor:
+    """Plain version of :func:`segment_moments`: ``index_add_`` over the
+    items in item order (the CPU adds them in that order)."""
+    acc = torch.zeros((S, values.shape[0]), dtype=torch.float32, device=values.device)
+    return acc.index_add_(0, slot.long(), values.t().contiguous()).t()
+
+
+def _moments_cuda(values: torch.Tensor, slot: torch.Tensor, S: int):
+    """((V, S) sums, device launches made)."""
+    cuda_lib.require_plane(values, torch.float32, "segment_moments values")
+    if slot.device != values.device or slot.dtype != torch.int32 or slot.dim() != 1 or not slot.is_contiguous():
+        raise ValueError("segment_moments: slot must be a contiguous (N,) int32 tensor on the values' device")
+    V, N = values.shape
+    if slot.numel() != N:
+        raise ValueError(f"segment_moments: {slot.numel()} slots for {N} items")
+    partial = torch.empty((MOMENTS_BLOCKS, V, S), dtype=torch.float32, device=values.device)
+    out = torch.empty((V, S), dtype=torch.float32, device=values.device)
+    n = ctypes.c_int(0)
+    code = cuda_lib.library().tpuslam_moments(
+        values.data_ptr(), slot.data_ptr(), partial.data_ptr(), out.data_ptr(), N, V, S, ctypes.byref(n),
+        cuda_lib.stream_of(values),
+    )
+    cuda_lib.check(code, "segment_moments")
+    return out, n.value
+
+
+def segment_moments(values: torch.Tensor, slot: torch.Tensor, S: int) -> torch.Tensor:
+    """Sums of V value columns over N items by slot: ``values`` (V, N)
+    float32, ``slot`` (N,) int32 in [0, S) -> (V, S), out[v, s] the sum of
+    values[v, i] over the items i with slot[i] == s. On a CUDA tensor the
+    kernel of ``csrc/moments.cu`` adds in one fixed order (the same on every
+    run); on a CPU tensor the plain version adds in item order."""
+    if cuda_lib.on_card(values):
+        out, n = _moments_cuda(values, slot, S)
+        LAUNCHES["moments"] += 1
+        KERNEL_LAUNCHES["moments"] += n
+        return out
+    return segment_moments_torch(values, slot, S)
 
 
 def topk_stable(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -361,12 +415,11 @@ def detect_lines(img: torch.Tensor, max_lines: int = 256, params: LSDParams = LS
     slot_of_label = torch.full((N + 1,), K, dtype=torch.long, device=dev)
     slot_of_label[comp_ids.long()] = torch.arange(K, device=dev)
     member = slot_of_label[flat_labels.long()]  # (N,) in [0, K]
+    member32 = member.to(torch.int32)
     w = torch.where(flat_support, mag.reshape(-1), torch.zeros_like(xs))
 
     def red(*vals):  # each (N,) -> (K,)
-        src = torch.stack(vals, dim=1)
-        acc = torch.zeros((K + 1, len(vals)), dtype=torch.float32, device=dev)
-        return acc.index_add_(0, member, src)[:K].unbind(1)
+        return segment_moments(torch.stack(vals), member32, K + 1)[:, :K].unbind(0)
 
     wx, wy = w * xs, w * ys
     count, sw, swx, swy, swxx, swyy, swxy = red(
@@ -479,17 +532,25 @@ def merge_collinear(
     is_rep = (labels == ar) & validb
     w = det.response * det.valid
 
-    def seg(x):
-        return torch.zeros(K, dtype=x.dtype, device=dev).index_add_(0, labels, x)
-
-    sw = torch.clamp(seg(w), min=1e-6)
     epw = 0.5 * w[:, None]
     ep = det.endpoints
-    ex = seg(torch.sum(ep[..., 0] * epw, dim=1)) / sw
-    ey = seg(torch.sum(ep[..., 1] * epw, dim=1)) / sw
-    exx = seg(torch.sum(ep[..., 0] ** 2 * epw, dim=1)) / sw - ex * ex
-    eyy = seg(torch.sum(ep[..., 1] ** 2 * epw, dim=1)) / sw - ey * ey
-    exy = seg(torch.sum(ep[..., 0] * ep[..., 1] * epw, dim=1)) / sw - ex * ey
+    # per-group sums of the weights and the endpoint moments, in one call
+    cols = torch.stack([
+        w,
+        torch.sum(ep[..., 0] * epw, dim=1),
+        torch.sum(ep[..., 1] * epw, dim=1),
+        torch.sum(ep[..., 0] ** 2 * epw, dim=1),
+        torch.sum(ep[..., 1] ** 2 * epw, dim=1),
+        torch.sum(ep[..., 0] * ep[..., 1] * epw, dim=1),
+        w * det.width,
+    ])
+    new_resp, s_x, s_y, s_xx, s_yy, s_xy, s_wwidth = segment_moments(cols, labels.to(torch.int32), K).unbind(0)
+    sw = torch.clamp(new_resp, min=1e-6)
+    ex = s_x / sw
+    ey = s_y / sw
+    exx = s_xx / sw - ex * ex
+    eyy = s_yy / sw - ey * ey
+    exy = s_xy / sw - ex * ey
     ev = _principal_direction(exx, eyy, exy)
 
     gd = ev[labels]
@@ -505,13 +566,12 @@ def merge_collinear(
     g_hi = torch.where(torch.isfinite(g_hi), g_hi, torch.zeros_like(g_hi))
 
     c = torch.stack([ex, ey], dim=-1)
-    new_resp = seg(w)
     return DetectedLines(
         endpoints=torch.stack([c + g_lo[:, None] * ev, c + g_hi[:, None] * ev], dim=1),
         valid=is_rep.to(torch.float32),
         response=new_resp,
         angle=torch.atan2(ev[:, 1], ev[:, 0]),
-        width=seg(w * det.width) / sw,
+        width=s_wwidth / sw,
         midpoint=c + 0.5 * (g_lo + g_hi)[:, None] * ev,
         length=g_hi - g_lo,
     )

@@ -10,7 +10,8 @@ fit along the segment gives the two endpoint disparities.
 The JAX package computes this outside any Pallas kernel, so it is plain
 PyTorch here, on the caller's device: two flat window gathers, then static
 slices and cumulative-sum moving means over the fetched windows, W passes of
-(K, S, D) arithmetic. The point variant comes with hybrid points.
+(K, S, D) arithmetic. The corner variant (:func:`direct_point_disparity_body`)
+correlates one (rows x window) patch per corner the same way.
 """
 
 from __future__ import annotations
@@ -217,3 +218,80 @@ def direct_stereo_depths(img_l: torch.Tensor, img_r: torch.Tensor, feats, fx_bas
     disp, okf = direct_line_disparity_body(img_l, img_r, feats.endpoints, feats.valid, feats.angle, p)
     depth = okf[:, None] * float(np.float32(fx_baseline)) / torch.clamp(disp, min=1e-6)
     return feats._replace(depth=depth, has_depth=okf)
+
+
+class DirectPointStereoParams(NamedTuple):
+    """Same fields and defaults as the JAX package's."""
+
+    window: int = 12  # correlation window width (px along the row)
+    rows: int = 5  # vertical patch extent: a corner needs 2-D support
+    max_disp: float = 128.0
+    min_disp: float = 0.5
+    ratio: float = 0.8  # best/second-best uniqueness gate
+    min_contrast: float = 4.0  # patch stddev gate (0..255 scale)
+    max_cost: float = 25.0  # mean ZSAD gate (0..255 scale)
+    coord_scale: float = 1.0  # see DirectStereoParams.coord_scale
+
+
+def direct_point_disparity_body(img_l: torch.Tensor, img_r: torch.Tensor, uv: torch.Tensor, validf: torch.Tensor, p: DirectPointStereoParams):
+    """Per-corner disparity by direct epipolar patch correlation: one
+    (rows x window) zero-mean-SAD patch per corner slid over the disparity
+    range on the same rows of the right image, integer argmin and parabola
+    subpixel. img_l/img_r: (H, W) float32 in [0, 1], rectified; uv: (K, 2)
+    px. Returns (disp (K,), okf (K,) float32)."""
+    H, W_img = img_l.shape
+    K = uv.shape[0]
+    W, RW = p.window, p.rows
+    D = int(p.max_disp)
+    dev = img_l.device
+    if p.coord_scale != 1.0:
+        uv = uv * p.coord_scale
+    L = (img_l * 255.0).reshape(-1)
+    R = (img_r * 255.0).reshape(-1)
+
+    xi = torch.round(uv[:, 0]).to(torch.int64)
+    yi = torch.clamp(torch.round(uv[:, 1]).to(torch.int64)[:, None] + torch.arange(-(RW // 2), RW - RW // 2, device=dev), 0, H - 1)
+
+    colL = xi[:, None] + torch.arange(-(W // 2), W - W // 2, device=dev)  # (K, W)
+    l_inb = (colL >= 0) & (colL < W_img)
+    profL = L[yi[:, :, None] * W_img + torch.clamp(colL, 0, W_img - 1)[:, None, :]]  # (K, RW, W)
+
+    span = D - 1 + W
+    colR = (xi - (D - 1) - W // 2)[:, None] + torch.arange(span, device=dev)  # (K, span)
+    r_inb = (colR >= 0) & (colR < W_img)
+    winR = R[yi[:, :, None] * W_img + torch.clamp(colR, 0, W_img - 1)[:, None, :]]  # (K, RW, span)
+
+    # zero-mean SAD: per-patch means over the whole (RW x W) patch
+    mR = torch.mean(moving_mean(winR, W), dim=1, keepdim=True)  # (K, 1, D)
+    mL = torch.mean(profL, dim=(1, 2))[:, None, None]  # (K, 1, 1)
+    cost_j = torch.zeros((K, 1, D), dtype=torch.float32, device=dev)
+    for w in range(W):
+        cost_j = cost_j + torch.sum(torch.abs((winR[:, :, w : w + D] - mR) - (profL[:, :, w : w + 1] - mL)), dim=1, keepdim=True)
+    cost_j = cost_j[:, 0, :] / float(W * RW)
+    okR = moving_mean(r_inb.to(torch.float32), W)  # (K, D), 1.0 iff fully in-bounds
+    cost_j = cost_j + (1.0 - (okR > 0.999).to(torch.float32)) * 1e6
+    cost = torch.flip(cost_j, dims=(-1,))  # (K, D) indexed by disparity
+
+    best, cbest, uniq, sub = subpixel_argmin(cost, p.ratio)
+    disp = best.to(torch.float32) + sub
+    contrast = torch.std(profL, dim=(1, 2), correction=0)
+    okf = (
+        (validf > 0.5)
+        & uniq
+        & (cbest < p.max_cost)
+        & (contrast > p.min_contrast)
+        & torch.all(l_inb, dim=-1)
+        & (disp > p.min_disp)
+        & (disp < p.max_disp - 1.0)
+        & (uv[:, 1] >= 0.0)
+        & (uv[:, 1] <= H - 1.0)
+    ).to(torch.float32)
+    return disp / p.coord_scale, okf
+
+
+def direct_stereo_point_depths(img_l: torch.Tensor, img_r: torch.Tensor, pfeats, fx_baseline: float, p: DirectPointStereoParams = DirectPointStereoParams()):
+    """Fill ``depth``/``has_depth`` of left PointFeatures from the right
+    image (no right-camera corner detection)."""
+    disp, okf = direct_point_disparity_body(img_l, img_r, pfeats.uv, pfeats.valid, p)
+    depth = okf * float(np.float32(fx_baseline)) / torch.clamp(disp, min=1e-6)
+    return pfeats._replace(depth=depth, has_depth=okf)

@@ -1,10 +1,11 @@
 """Map data model: keyframes, 3D line landmarks, covisibility (host side).
 
-Counterpart of ``tpuslam.slammap.map``: a fixed-capacity struct-of-arrays
-line store in numpy (LIFO free list, so landmark ids follow the JAX store's),
-keyframes holding numpy copies of their features, and the covisibility graph
-as python dicts. The JAX map's native C++ graph mirror (a faster recount of
-the same dicts) and point landmarks are not ported.
+Counterpart of ``tpuslam.slammap.map``: fixed-capacity struct-of-arrays
+line and point stores in numpy (LIFO free lists, so landmark ids follow the
+JAX stores'), keyframes holding numpy copies of their line features and,
+with the hybrid front end, their corner features, and the covisibility
+graph as python dicts counting shared lines and points. The JAX map's native
+C++ graph mirror (a faster recount of the same dicts) is not ported.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ import numpy as np
 import torch
 
 from tpuslam_torch.frontend.frame import FrameFeatures
+from tpuslam_torch.kernels.fast import PointFeatures
+from tpuslam_torch.slammap.points import MapPointStore
 
 
 def features_to_numpy(f: FrameFeatures) -> FrameFeatures:
@@ -40,6 +43,24 @@ def features_to_device(f: FrameFeatures, device) -> FrameFeatures:
     return FrameFeatures(**out)
 
 
+def point_features_to_numpy(f: PointFeatures) -> PointFeatures:
+    """Host copy of a PointFeatures; descriptor words as uint32."""
+    arrs = [x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x) for x in f]
+    out = PointFeatures(*arrs)
+    return out._replace(desc_bits=out.desc_bits.astype(np.uint32))
+
+
+def point_features_to_device(f: PointFeatures, device) -> PointFeatures:
+    """PointFeatures of numpy arrays -> tensors on ``device``: uint32
+    descriptor words become int64 words, the rest float32."""
+    out = {}
+    for name, a in zip(PointFeatures._fields, f):
+        a = np.asarray(a)
+        a = a.astype(np.uint32).astype(np.int64) if name == "desc_bits" else a.astype(np.float32)
+        out[name] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return PointFeatures(**out)
+
+
 @dataclass
 class KeyFrame:
     """A persistent frame promoted into the map."""
@@ -53,6 +74,9 @@ class KeyFrame:
     is_bad: bool = False
     parent: Optional[int] = None  # spanning tree: best covisible keyframe
     children: set = field(default_factory=set)
+    # hybrid point landmarks: present only with the point front end
+    point_features: Optional[PointFeatures] = None  # numpy copies, capacity KP
+    point_ids: Optional[np.ndarray] = None  # (KP,) int32: corner slot -> MapPoint id (-1 = none)
 
     @property
     def T_wc(self) -> np.ndarray:
@@ -151,11 +175,12 @@ class MapLineStore:
 
 
 class SlamMap:
-    """Global map: keyframes + line landmarks + covisibility graph."""
+    """Global map: keyframes + line and point landmarks + covisibility graph."""
 
-    def __init__(self, line_capacity: int = 16384):
+    def __init__(self, line_capacity: int = 16384, point_capacity: int = 16384):
         self.keyframes: Dict[int, KeyFrame] = {}
         self.lines = MapLineStore(line_capacity)
+        self.points = MapPointStore(point_capacity)
         self._next_kid = 0
         self.covis: Dict[int, Dict[int, int]] = {}  # kf id -> {kf id: shared lines}
         # bumped on every global correction (loop closure, not ported yet)
@@ -164,7 +189,9 @@ class SlamMap:
         # database here so culled keyframes leave the scoring set)
         self.on_keyframe_erased = None
 
-    def new_keyframe(self, frame_idx: int, timestamp: float, T_cw: np.ndarray, features: FrameFeatures) -> KeyFrame:
+    def new_keyframe(
+        self, frame_idx: int, timestamp: float, T_cw: np.ndarray, features: FrameFeatures, point_features=None
+    ) -> KeyFrame:
         f = features_to_numpy(features)
         kf = KeyFrame(
             kid=self._next_kid,
@@ -174,6 +201,9 @@ class SlamMap:
             features=f,
             line_ids=np.full(f.valid.shape[0], -1, np.int32),
         )
+        if point_features is not None:
+            kf.point_features = point_features_to_numpy(point_features)
+            kf.point_ids = np.full(kf.point_features.valid.shape[0], -1, np.int32)
         self._next_kid += 1
         self.keyframes[kf.kid] = kf
         self.covis[kf.kid] = {}
@@ -188,6 +218,10 @@ class SlamMap:
         for lid in np.unique(kf.line_ids):
             if lid >= 0:
                 self.lines.erase_observation(int(lid), kf)
+        if kf.point_ids is not None:
+            for pid in np.unique(kf.point_ids):
+                if pid >= 0:
+                    self.points.erase_observation(int(pid), kf)
         for other in list(self.covis.get(kid, {})):
             self.covis.get(other, {}).pop(kid, None)
         self.covis.pop(kid, None)
@@ -205,15 +239,17 @@ class SlamMap:
             self.on_keyframe_erased(kid)
 
     def update_connections(self, kf: KeyFrame):
-        """Recount shared landmarks between kf and every keyframe observing
-        its landmarks; refresh both adjacency rows and the spanning tree."""
+        """Recount shared landmarks (lines, then points) between kf and every
+        keyframe observing them; refresh both adjacency rows and the
+        spanning tree."""
         counts: Dict[int, int] = {}
-        for lid in kf.line_ids:
-            if lid < 0:
-                continue
-            for kid in self.lines.obs.get(int(lid), {}):
-                if kid != kf.kid:
-                    counts[kid] = counts.get(kid, 0) + 1
+        for ids, store in ((kf.line_ids, self.lines), (kf.point_ids, self.points)):
+            for lm in () if ids is None else ids:
+                if lm < 0:
+                    continue
+                for kid in store.obs.get(int(lm), {}):
+                    if kid != kf.kid:
+                        counts[kid] = counts.get(kid, 0) + 1
         old = self.covis.get(kf.kid, {})
         for other in list(old):
             if other not in counts:
@@ -246,3 +282,14 @@ class SlamMap:
         for k in window:
             lids.update(int(l) for l in self.keyframes[k].line_ids if l >= 0)
         return window, sorted(lids)
+
+    def window_point_ids(self, window: List[int]) -> List[int]:
+        """Point landmarks observed by a keyframe window (the companion of
+        :meth:`local_window`'s line ids)."""
+        pids = set()
+        for k in window:
+            kf = self.keyframes.get(k)
+            if kf is None or kf.point_ids is None:
+                continue
+            pids.update(int(p) for p in kf.point_ids if p >= 0)
+        return sorted(pids)

@@ -8,7 +8,8 @@
 Same signature as ``tpuslam.system.System`` plus ``device``, the card
 unless ``device="cpu"`` is passed (without a card the default raises). This port runs
 stereo tracking with relocalization (synchronous, or in pipelined
-semi-direct chunks: the JAX package's bench configuration) and, with
+semi-direct chunks: the JAX package's bench configuration), lines only or
+with hybrid points (``TrackerConfig.points``), and, with
 ``mapping=True``, synchronous local mapping after each keyframe (culling,
 fusion, LM+Schur local BA on ``device``). ``loop_closing=True`` and
 ``sensor="mono"`` raise NotImplementedError.
@@ -59,20 +60,25 @@ class StageTimer:
         return out
 
 
-def bench_configs(chunk: int = 6):
+def bench_configs(chunk: int = 6, points: bool = False):
     """The configuration the JAX package benchmarks (``tpuslam/bench.py``):
     pipelined semi-direct chunks of ``chunk`` frames with direct stereo on
     host-halved frames, and local BA on the two-rung bucket ladder (8, 128,
-    512) / (16, 256, 1024). Fusion applies at the keyframe (the JAX bench's
-    deferred fusion is not ported). Returns (TrackerConfig, MapperConfig)."""
+    512) / (16, 256, 1024) (points on the default point buckets). With
+    ``points`` the hybrid variant (``TPUSLAM_BENCH_POINTS=1`` there):
+    ``PointFrontendParams()`` corners beside the lines. Fusion applies at the
+    keyframe (the JAX bench's deferred fusion is not ported). Returns
+    (TrackerConfig, MapperConfig)."""
     from tpuslam_torch.backend.local_ba import LocalBAConfig
     from tpuslam_torch.frontend.frame import FrontendParams
+    from tpuslam_torch.frontend.points import PointFrontendParams
     from tpuslam_torch.kernels.align_direct import DirectAlignParams
     from tpuslam_torch.kernels.stereo_direct import DirectStereoParams
 
     tcfg = TrackerConfig(
         pipelined=True, chunk=chunk, direct_stereo=DirectStereoParams(),
         frontend=FrontendParams(base_scale=0.5, prescaled=True), semidirect=DirectAlignParams(),
+        points=PointFrontendParams() if points else None,
     )
     mcfg = MapperConfig(ba=LocalBAConfig(pose_buckets=(8, 16), line_buckets=(128, 256), obs_buckets=(512, 1024)))
     return tcfg, mcfg
@@ -104,7 +110,8 @@ class System:
         self.sensor = sensor
         self.cam = settings
         self.map = SlamMap()
-        self.tracker = Tracker(settings, self.map, tracker_cfg or TrackerConfig(), device=device)
+        tcfg = tracker_cfg or TrackerConfig()
+        self.tracker = Tracker(settings, self.map, tcfg, device=device)
         self.mapper: Optional[LocalMapper] = None
         self.timer = StageTimer()
         if mapping:
@@ -114,7 +121,8 @@ class System:
             self.mapper.timer = self.timer  # KF-event wall split (mp.* stages)
             self.tracker.on_new_keyframe = self._on_new_keyframe
             self.mapper.on_map_changed = self.tracker.invalidate_local_map
-        self.kf_db = KeyFrameDatabase(device=device)
+        # with hybrid points a database row carries the corners' BRIEF words too
+        self.kf_db = KeyFrameDatabase(point_slots=tcfg.points.max_points if tcfg.points is not None else 0, device=device)
         self.tracker.kf_db = self.kf_db  # relocalization
         self.map.on_keyframe_erased = self.kf_db.remove  # culled KFs leave the DB
         self.trajectory: List[FrameResult] = []
@@ -181,6 +189,11 @@ class System:
             n_obs=self.map.lines.n_obs[ids].copy(),
         )
 
+    def map_points(self) -> Dict[str, np.ndarray]:
+        """Live 3D point landmarks (hybrid mode; empty arrays otherwise)."""
+        ids = self.map.points.live_ids()
+        return dict(ids=ids, xyz=self.map.points.xyz[ids].copy(), n_obs=self.map.points.n_obs[ids].copy())
+
     def keyframe_graph(self):
         """Keyframe poses + covisibility edges (kid_a, kid_b, weight)."""
         kfs = {k: kf.T_cw.copy() for k, kf in self.map.keyframes.items()}
@@ -196,6 +209,12 @@ class System:
 
     def save_trajectory_kitti(self, path: str):
         save_trajectory_kitti(path, [r.T_cw for r in self.trajectory])
+
+    def save_map(self, path: str):
+        raise NotImplementedError("map serialization (lines and points) is not ported yet (ROADMAP.md, item 6)")
+
+    def load_map(self, path: str):
+        raise NotImplementedError("map serialization (lines and points) is not ported yet (ROADMAP.md, item 6)")
 
     def timing_summary(self):
         return self.timer.summary()
