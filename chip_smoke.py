@@ -23,12 +23,17 @@ first failure and catches nothing):
    chain behind the blur kernel plus the eager compat loop (162 launches),
    CCL to one launch per round. The blur also at BRIEF's sigma 2 (radius
    6) on the image times 255 at 480x640 and 240x320 (FAST's shape on the
-   bench path), within 255e-5. The fixed-order moment sums (moments: each
-   of the three sums one detect_lines call makes, taken from a call at
-   480x640, 240x320 and 192x256: the components' 7 columns into 257 slots,
-   their normal moment, the merge's 7 columns over 256 segments) against
-   their plain version in item order within 1e-5 of each column's absolute
-   sum, and bit-equal over two calls; its yardstick is index_add_ under
+   bench path), within 255e-5. The detector's three fixed-order sum
+   kernels, on the inputs of a detect_lines call at 480x640, 240x320 and
+   192x256 (the member share printed): component_moments (the 7 moments
+   of the 256 components from the label, magnitude and support planes),
+   component_extents (t_min, t_max and the normal moment) and
+   segment_moments (the merge's 7 columns over 256 segments, one block)
+   against their plain versions within 1e-5 relative (t_min and t_max
+   bit-equal), bit-equal over two calls, timed in turns with the forms
+   they replaced (the eager chain around the two-launch kernel; for the
+   merge that kernel alone), that kernel also alone on the stacked
+   columns; their yardstick is index_add_ on the stacked columns under
    torch.use_deterministic_algorithms(True).
    Device time per call: CUDA events around 100 back-to-back calls queued
    behind a spin kernel (so no host gap enters), the baseline forms in turns
@@ -37,7 +42,7 @@ first failure and catches nothing):
    over a plane padded once; each kernel's bound from its shape and this
    run's data (bytes at 3.35 TB/s, operations at 67 T/s). Device launches
    per call of each form, counted by torch.profiler over one call: 1 for
-   lsd_front and gradients, 2 for moments (and the wrapper's own count);
+   lsd_front, gradients and each sum kernel (and the sums' wrapper count);
 4. the tracking slice: System(cam, sensor="stereo", mapping=False,
    loop_closing=False, device="cuda") over 40 rendered VGA stereo frames.
    Every frame after initialisation must track OK, at least 2 keyframes,
@@ -64,7 +69,8 @@ first failure and catches nothing):
    entry per frame, every frame OK, ATE no worse than the JAX package's for
    this configuration + 0.01 m, keyframes only from anchors (or frames the
    synchronous path tracked), each kernel's calls equal to its count per
-   left-image extraction (blur 1, gradients 2, lsd_front 2, CCL 2) times
+   left-image extraction (blur 1, gradients 2, lsd_front 2, CCL 2 and
+   each of the three sum kernels 2) times
    the anchors and synchronous extractions; tracking frames/s over the
    steady frames (after the first chunk) including the final flush,
    local-BA ms per keyframe with each solve's rung; then, on a fresh
@@ -133,31 +139,45 @@ RELOC_FRAME = 20
 # kernel calls per stereo frame on the slice (two cameras, two levels each):
 # the pyramid's blur per camera; per camera and level the LBD gradients, the
 # detector's front (its prefilter blur inside), the propagation and three
-# moment sums (the components' 7 columns and their normal moment, the
+# sums (the components' moments, their extents and normal moment, the
 # merge's 7 columns)
-PER_FRAME = {"blur": 2, "gradients": 4, "lsd_front": 4, "ccl": 4, "moments": 12}
+PER_FRAME = {
+    "blur": 2, "gradients": 4, "lsd_front": 4, "ccl": 4, "component_moments": 4, "component_extents": 4, "segment_moments": 4,
+}
 KERNELS = {
     "blur": ("tpuslam_torch/csrc/image.cu", "tpuslam/kernels/pallas_image.py:148"),
     "gradients": ("tpuslam_torch/csrc/image.cu", "tpuslam/kernels/pallas_image.py:86"),
     "lsd_front": ("tpuslam_torch/csrc/lsd_front.cu", "tpuslam/kernels/pallas_image.py:86"),
     "ccl": ("tpuslam_torch/csrc/ccl.cu", "tpuslam/kernels/pallas_ccl.py:121"),
-    # no Pallas kernel: XLA fuses these sums into its reductions (detect_lines' `red`)
-    "moments": ("tpuslam_torch/csrc/moments.cu", "tpuslam/kernels/lsd.py:219"),
+    # no Pallas kernel: XLA fuses these sums into its reductions (detect_lines'
+    # `red`, its t_min / t_max / sn2, merge_collinear's segment_sum)
+    "component_moments": ("tpuslam_torch/csrc/moments.cu", "tpuslam/kernels/lsd.py:219"),
+    "component_extents": ("tpuslam_torch/csrc/moments.cu", "tpuslam/kernels/lsd.py:247"),
+    "segment_moments": ("tpuslam_torch/csrc/moments.cu", "tpuslam/kernels/lsd.py:344"),
 }
-# blur_brief: the 1e-5 of [0, 1] images on BRIEF's 0..255 input; moments: relative
-TOL = {"blur": 1e-5, "blur_brief": 255e-5, "gradients": 1e-3, "lsd_front": 1e-3, "ccl": 0, "moments": 1e-5}
+# blur_brief: the 1e-5 of [0, 1] images on BRIEF's 0..255 input; the sums:
+# relative (t_min and t_max exact)
+TOL = {
+    "blur": 1e-5, "blur_brief": 255e-5, "gradients": 1e-3, "lsd_front": 1e-3, "ccl": 0,
+    "component_moments": 1e-5, "component_extents": 1e-5, "segment_moments": 1e-5,
+}
 # the bench path: chunks of 6; kernel calls of one left-image extraction at
 # half resolution (an anchor, or a frame on the synchronous path): the
 # pyramid's blur; per level the LBD gradients, the front and the propagation
 BENCH_C = 6
-PER_EXTRACTION = {"blur": 1, "gradients": 2, "lsd_front": 2, "ccl": 2, "moments": 6}
+PER_EXTRACTION = {
+    "blur": 1, "gradients": 2, "lsd_front": 2, "ccl": 2, "component_moments": 2, "component_extents": 2, "segment_moments": 2,
+}
 # the hybrid bench path adds BRIEF's smoothing blur (sigma 2, radius 6) per extraction
 PER_EXTRACTION_HYBRID = {**PER_EXTRACTION, "blur": 2}
 PROFILE_WARM, PROFILE_FRAMES = 10, 3  # frames before the profiled ones, profiled frames
 
 
 def fail(msg: str) -> None:
+    """Stop with exit code 1, the reason on standard output and on standard
+    error (whose tail a caller that keeps only that still shows)."""
     print(f"FAIL: {msg}", flush=True)
+    print(f"chip_smoke.py FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -286,11 +306,20 @@ def bound_us(name: str, H: int, W: int, ntaps: int, rounds: int, compat_bits: in
     return max(tb, to) * 1e6, ("bytes" if tb >= to else "operations")
 
 
-def moments_bound_us(N: int, V: int, S: int):
-    """(least time in us, "bytes" or "operations") of one moments call: V
-    float32 columns and an int32 slot per item read, (V, S) sums written;
-    an add per value."""
-    nbytes, ops = 4 * N * (V + 1) + 4 * V * S, N * V
+def sums_bound_us(name: str, N: int, K: int, V: int):
+    """(least time in us, "bytes" or "operations") of one call of a sum
+    kernel. component_moments: the label, magnitude and support planes (9 B
+    per pixel) and K int64 roots read, (7, K) written; component_extents the
+    same plus cx, cy, ev (16 B per component) read and (3, K) written;
+    segment_moments: V float32 columns and an int32 slot per item read, (V,
+    K) written. Operations: a compare per pixel and a few per item, far
+    below the bytes."""
+    nbytes = {
+        "component_moments": 9 * N + 8 * K + 28 * K,
+        "component_extents": 9 * N + 8 * K + 16 * K + 12 * K,
+        "segment_moments": 4 * N * (V + 1) + 4 * V * K,
+    }[name]
+    ops = N * V if name == "segment_moments" else N
     tb, to = nbytes / PEAK_BYTES_PER_S, ops / PEAK_OPS_PER_S
     return max(tb, to) * 1e6, ("bytes" if tb >= to else "operations")
 
@@ -302,49 +331,67 @@ def in_turns(old, new):
     return (n1 + n2) / 2, (o1 + o2) / 2
 
 
-# torch.cuda._sleep's kernel, which `profiled` launches first in each trace
+# torch.cuda._sleep's kernel, which `profiled` launches PROFILE_MARKERS times
+# first in each trace
 PROFILE_MARKER = "spin_kernel"
+PROFILE_MARKERS = 4
+# the runtime calls that launch one kernel each
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchCooperativeKernel")
 
 
 def device_events(prof):
-    """(device busy us, kernel launches, memcpy/memset events) of a
-    torch.profiler run, from its device-side events only (host ops repeat
-    their kernels' time), without `profiled`'s marker kernel."""
+    """(device busy us, kernel launches, memcpy/memset events, launch calls)
+    of a torch.profiler run, without `profiled`'s marker kernels: the first
+    three from its device-side records (host ops repeat their kernels'
+    time), the last from the host's kernel launch calls, which the device
+    records should match one for one."""
     from torch.autograd import DeviceType
 
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and PROFILE_MARKER not in e.key]
+    avg = prof.key_averages()
+    dev = [e for e in avg if e.device_type == DeviceType.CUDA and PROFILE_MARKER not in e.key]
     n_copies = sum(e.count for e in dev if e.key.startswith(("Memcpy", "Memset")))
-    return sum(e.self_device_time_total for e in dev), sum(e.count for e in dev) - n_copies, n_copies
+    n_calls = sum(e.count for e in avg if e.device_type == DeviceType.CPU and e.key.startswith(LAUNCH_CALLS))
+    return sum(e.self_device_time_total for e in dev), sum(e.count for e in dev) - n_copies, n_copies, n_calls - PROFILE_MARKERS
 
 
-def profiled(run, tries: int = 3):
-    """(profile, device_events) of run() under torch.profiler (CPU and CUDA
-    activity). Each trace starts with a marker kernel, left out of the
-    counts: in a process that has run many kernels and timings (the kernel
-    phase), the tracer drops the first device event of most traces, whatever
-    its kernel and however long the trace has run (PERF.md section 7). A
-    trace that holds no device event but the marker is taken again, up to
-    `tries` times."""
+# traces taken; traces taken again; kernel launches whose device record the returned traces lack
+TRACES = {"taken": 0, "again": 0, "records_lost": 0}
+
+
+def profiled(run, tries: int = 6, whole: bool = True):
+    """(profile, (device busy us, kernel launches, memcpy/memset events)) of
+    run() under torch.profiler (CPU and CUDA activity). On the card a trace
+    can lose a device record, most often its first whatever its kernel
+    (PERF.md section 7), so each trace starts with PROFILE_MARKERS marker
+    kernels, left out of the counts. A trace is taken again, up to `tries`
+    times (a `run` that tracks frames tracks the next ones), when it holds
+    no device work, or, with `whole`, fewer kernel records than kernel
+    launch calls; it fails when none is left. TRACES counts what was lost."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for t in range(tries):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(1000)
+            for _ in range(PROFILE_MARKERS):
+                torch.cuda._sleep(1000)
             run()
             torch.cuda.synchronize()
-        events = device_events(prof)
-        if events[0] > 0:
-            return prof, events
-        print(f"torch.profiler: no device events in trace {t + 1} of {tries}", flush=True)
-    fail("torch.profiler saw no device work")
+        *events, n_calls = device_events(prof)
+        TRACES["taken"] += 1
+        if events[0] > 0 and (events[1] >= n_calls or not whole):
+            TRACES["records_lost"] += max(0, n_calls - events[1])
+            return prof, tuple(events)
+        TRACES["again"] += t + 1 < tries
+        print(f"torch.profiler: trace {t + 1} of {tries} holds {events[1]} device records of {n_calls} kernel launches", flush=True)
+    fail("torch.profiler lost device records in every trace")
 
 
-def profiled_launches(fn) -> int:
-    """Device kernel launches of one call of fn, counted by torch.profiler."""
+def profiled_launches(fn, whole: bool = True) -> int:
+    """Device kernel launches of one call of fn, counted by torch.profiler
+    (with `whole` from a trace that lost no device record)."""
     fn()
-    return profiled(fn)[1][1]
+    return profiled(fn, whole=whole)[1][1]
 
 
 def kernel_phase(frames, card):
@@ -424,7 +471,7 @@ def kernel_phase(frames, card):
             )
             if not ok:
                 fail(f"{name} kernel disagrees with its plain version or its baseline form at {(H, W)}")
-            lpc, old_lpc = profiled_launches(kern), profiled_launches(baseline[0])
+            lpc, old_lpc = profiled_launches(kern), profiled_launches(baseline[0], whole=False)
             print(f"kernel {name:9s} {(H, W)}: device launches per call (torch.profiler) {lpc}, baseline form {old_lpc}", flush=True)
             if name in ("gradients", "lsd_front") and lpc != want_lpc[name]:
                 fail(f"{name}: {lpc} device launches per call, expected {want_lpc[name]}")
@@ -458,111 +505,170 @@ def kernel_phase(frames, card):
                 prev["bound_us_by_shape"][by_shape] = b_us
     # BRIEF's blur is the blur kernel's second instance on the main path
     res["blur"]["brief"] = dict(sigma=bsig, radius=bntaps // 2, **res.pop("blur_brief"))
-    res["moments"] = moments_phase((left, half, half1), card)
+    res.update(sums_phase((left, half, half1), card))
     return res
 
 
-# the three moment sums of one detect_lines call, in call order
-MOMENT_SUMS = ("components", "normal", "merge")
-
-
-def detector_moment_inputs(img):
-    """{sum: (values, slot, S)} of the moment sums one detect_lines call
-    makes on ``img``: the components' 7 columns, their normal moment (1
-    column), and merge_collinear's 7 columns over the segments."""
+def detector_sum_inputs(img):
+    """{entry: args} of the three sums one detect_lines call makes on
+    ``img``: component_moments (labels, mag, support, roots),
+    component_extents (the same and cx, cy, ev), segment_moments (the
+    merge's 7 columns over the segments, their group labels, S)."""
     from tpuslam_torch.kernels import lsd
 
-    seen, real = [], lsd.segment_moments
+    seen, real = {}, {name: getattr(lsd, name) for name in lsd.SUMS}
 
-    def grab(values, slot, S):
-        seen.append((values, slot, S))
-        return real(values, slot, S)
+    def grab(name):
+        def call(*args):
+            if name in seen:
+                fail(f"{name}: detect_lines called it twice")
+            seen[name] = args
+            return real[name](*args)
 
-    lsd.segment_moments = grab
+        return call
+
+    for name in lsd.SUMS:
+        setattr(lsd, name, grab(name))
     try:
         lsd.detect_lines(img, 256)
     finally:
-        lsd.segment_moments = real
-    if len(seen) != len(MOMENT_SUMS):
-        fail(f"moments: detect_lines made {len(seen)} moment sums, expected {len(MOMENT_SUMS)}")
-    return dict(zip(MOMENT_SUMS, seen))
+        for name in lsd.SUMS:
+            setattr(lsd, name, real[name])
+    if set(seen) != set(lsd.SUMS):
+        fail(f"sums: detect_lines called {sorted(seen)}, expected {sorted(lsd.SUMS)}")
+    return seen
 
 
-def moments_phase(images, card) -> dict:
-    """The moments kernel on each of the detector's own sums at each image's
-    shape: against its plain version (index_add_ in item order, on the CPU),
-    bit-equal over two calls, device us, launches per call (the wrapper's
-    count and torch.profiler's), and the deterministic index_add_ yardstick.
-    Returns the kernels-line fields (the components' sum at the first shape
-    fills the top-level ones)."""
+def _sum_errors(name, got, ref):
+    """(max abs error, max relative error of the sums, t_min / t_max
+    bit-equal (None for the other kernels), merge bit-equal)."""
+    import torch
+
+    g, r = got.cpu().double(), ref.double()
+    sums = slice(2, 3) if name == "component_extents" else slice(None)
+    err = float((g[sums] - r[sums]).abs().max())
+    rel = float(((g[sums] - r[sums]).abs() / r[sums].abs().clamp(min=1e-30)).max())
+    bits = lambda t: t.contiguous().view(torch.int32)  # noqa: E731
+    exact = torch.equal(bits(got[:2].cpu()), bits(ref[:2])) if name == "component_extents" else None
+    return err, rel, exact, torch.equal(bits(got.cpu()), bits(ref))
+
+
+def sums_phase(images, card) -> dict:
+    """The three sum kernels on the detector's own inputs at each image's
+    shape: the member share; each kernel against its plain version (sums
+    within 1e-5 relative, t_min / t_max bit-equal), bit-equal over two
+    calls, one launch per call (the wrapper's count and torch.profiler's),
+    device us in turns with the form it replaced (what detect_lines ran on
+    the card before: the eager chain around the two-launch kernel; the
+    merge's: that kernel alone), that kernel alone on the stacked columns,
+    and the deterministic index_add_ yardstick on those columns. Returns
+    {name: kernels-line fields}, the first shape filling the top level."""
     import torch
 
     from tpuslam_torch.kernels import lsd
 
-    want = launches_per_call()["moments"]
-    res = None
+    plain = {"component_moments": lsd.component_moments_torch, "component_extents": lsd.component_extents_torch,
+             "segment_moments": lsd.segment_moments_torch}
+    replaced = {"component_moments": lsd._component_moments_replaced_cuda,
+                "component_extents": lsd._component_extents_replaced_cuda, "segment_moments": lsd._moments_two_launch_cuda}
+    chains = {"component_moments": lsd._component_moments_chain, "component_extents": lsd._component_extents_chain}
+    res = {}
+    per_extraction = {}  # shape -> (new us, replaced us) of its three sums
     for img in images:
         H, W = img.shape
-        for which, (vals, slot, S) in detector_moment_inputs(img).items():
-            V, N = vals.shape
-            tag = f"kernel moments   {(H, W)} {which}"
-            a, b = lsd.segment_moments(vals, slot, S), lsd.segment_moments(vals, slot, S)
-            ref = lsd.segment_moments_torch(vals.cpu(), slot.cpu(), S)
-            scale = lsd.segment_moments_torch(vals.abs().cpu(), slot.cpu(), S)
-            err = float((a.cpu().double() - ref.double()).abs().max())
-            rel = float(((a.cpu().double() - ref.double()).abs() / (scale.double() + 1e-6)).max())
-            same = torch.equal(a, b)
-            ok = same and rel <= TOL["moments"]
+        inputs = detector_sum_inputs(img)
+        labels, _, support, roots = inputs["component_moments"]
+        members = int(torch.isin(labels, roots).sum())
+        n_support = int(support.sum())
+        print(
+            f"sums {(H, W)}: members of the {roots.numel()} components {members} of {labels.numel()} pixels "
+            f"({members / labels.numel():.2%}); supported pixels {n_support} ({n_support / labels.numel():.2%})",
+            flush=True,
+        )
+        removed = 0
+        for name, args in inputs.items():
+            tag = f"kernel {name:17s} {(H, W)}"
+            kern = lambda: getattr(lsd, name)(*args)  # noqa: E731
+            old = lambda: replaced[name](*args)  # noqa: E731
+            a, b = kern(), kern()
+            ref = plain[name](*(x.cpu() if isinstance(x, torch.Tensor) else x for x in args))
+            err, rel, exact, same_plain = _sum_errors(name, a, ref)
+            same = torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+            ok = same and rel <= TOL[name] and exact is not False
+            ext_txt = f", t_min / t_max bit-equal: {exact}" if exact is not None else ""
             print(
-                f"{tag}: {N} items, {V} columns, {S} slots; max_abs_err={err:.3g}, relative {rel:.3g} (tol "
-                f"{TOL['moments']}), two calls bit-equal: {same} {'ok' if ok else 'FAIL'}",
+                f"{tag}: max_abs_err={err:.3g}, relative {rel:.3g} (tol {TOL[name]}){ext_txt}, bit-equal to the plain "
+                f"version: {same_plain}, two calls bit-equal: {same} {'ok' if ok else 'FAIL'}",
                 flush=True,
             )
             if not ok:
-                fail(f"moments kernel disagrees with its plain version or between two calls at {(H, W)} ({which})")
-
-            def kern():
-                return lsd.segment_moments(vals, slot, S)
-
-            before = lsd.KERNEL_LAUNCHES["moments"]
+                fail(f"{name} kernel disagrees with its plain version or between two calls at {(H, W)}")
+            before = lsd.KERNEL_LAUNCHES[name]
             kern()
-            lpc = lsd.KERNEL_LAUNCHES["moments"] - before
-            profiler_lpc = profiled_launches(kern)
-            print(f"{tag}: launches per call {lpc} (wrapper's count), {profiler_lpc} (torch.profiler)", flush=True)
-            if lpc != want or profiler_lpc != want:
-                fail(f"moments: {lpc} (wrapper) and {profiler_lpc} (torch.profiler) device launches per call, expected {want}")
+            lpc = lsd.KERNEL_LAUNCHES[name] - before
+            profiler_lpc, old_lpc = profiled_launches(kern), profiled_launches(old, whole=False)
+            print(f"{tag}: launches per call {lpc} (wrapper's count), {profiler_lpc} (torch.profiler); the replaced form "
+                  f"{old_lpc} (torch.profiler)", flush=True)
+            if lpc != 1 or profiler_lpc != 1:
+                fail(f"{name}: {lpc} (wrapper) and {profiler_lpc} (torch.profiler) device launches per call, expected 1")
+            removed += old_lpc - profiler_lpc
+            # the stacked columns and slots the replaced form summed
+            if name in chains:
+                stacked = []
+                chains[name](*args, sums=lambda v, sl, S: stacked.append((v, sl, S)) or lsd._moments_two_launch_cuda(v, sl, S))
+                vals, slot, S = stacked[0]
+            else:
+                vals, slot, S = args
+            V, N = vals.shape
             valsT, slot64 = vals.t().contiguous(), slot.long()
 
-            def library():  # one PyTorch call in its deterministic mode
+            def library():  # one PyTorch call in its deterministic mode, on the stacked columns
                 torch.use_deterministic_algorithms(True)
                 try:
                     return torch.zeros((S, V), dtype=torch.float32, device=vals.device).index_add_(0, slot64, valsT)
                 finally:
                     torch.use_deterministic_algorithms(False)
 
-            lib_same = torch.equal(library(), library())
+            dev_us, old_us = in_turns((old, REPS), (kern, REPS))
+            old_kernel_us = device_us(lambda: lsd._moments_two_launch_cuda(vals, slot, S))
             lib_us = device_us(library)
-            dev_us = device_us(kern)
-            plain_ms = host_paced_ms(lambda: lsd.segment_moments_torch(vals, slot, S), REPS)
-            b_us, b_by = moments_bound_us(N, V, S)
+            plain_ms = host_paced_ms(lambda: plain[name](*args), 10)
+            K = roots.numel() if name != "segment_moments" else S
+            b_us, b_by = sums_bound_us(name, N if name == "segment_moments" else labels.numel(), K, V)
             print(
-                f"{tag}: device {dev_us:.3f} us/call, bound {b_us:.3f} us ({b_by}, {b_us / dev_us:.1%} of it); "
-                f"deterministic index_add_ {lib_us:.3f} us (two calls bit-equal: {lib_same}); plain (index_add_ with "
-                f"atomics) {plain_ms:.4f} ms (host-paced) on {card}",
+                f"{tag}: device {dev_us:.3f} us/call, replaced form {old_us:.3f} us (its two-launch kernel alone on the "
+                f"{V} stacked columns {old_kernel_us:.3f} us), bound {b_us:.3f} us ({b_by}, {b_us / dev_us:.1%} of it); "
+                f"deterministic index_add_ {lib_us:.3f} us; plain {plain_ms:.4f} ms (host-paced) on {card}",
                 flush=True,
             )
-            key = f"{H}x{W} {which}"
-            if res is None:
-                res = dict(
+            new_sum, old_sum = per_extraction.get((H, W), (0.0, 0.0))
+            per_extraction[(H, W)] = (new_sum + dev_us, old_sum + old_us)
+            key = f"{H}x{W}"
+            r = res.get(name)
+            if r is None:
+                r = res[name] = dict(
                     shape=key, max_abs_err=err, max_rel_err=rel, device_us=dev_us, ms=dev_us / 1e3, plain_ms=plain_ms,
-                    bound_us=b_us, bound_ms=b_us / 1e3, bound_by=b_by, library_ms=lib_us / 1e3,
-                    profiled_launches_per_call=profiler_lpc, device_us_by_sum={}, bound_us_by_sum={}, library_us_by_sum={},
+                    bound_us=b_us, bound_ms=b_us / 1e3, bound_by=b_by, library_ms=lib_us / 1e3, baseline_device_us=old_us,
+                    profiled_launches_per_call=profiler_lpc, baseline_launches_per_call=old_lpc,
+                    device_us_by_shape={}, bound_us_by_shape={}, library_us_by_shape={}, baseline_us_by_shape={},
+                    replaced_kernel_us_by_shape={}, member_share_by_shape={},
                 )
-            res["max_abs_err"] = max(res["max_abs_err"], err)
-            res["max_rel_err"] = max(res["max_rel_err"], rel)
-            res["device_us_by_sum"][key] = dev_us
-            res["bound_us_by_sum"][key] = b_us
-            res["library_us_by_sum"][key] = lib_us
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            r["max_rel_err"] = max(r["max_rel_err"], rel)
+            r["device_us_by_shape"][key] = dev_us
+            r["bound_us_by_shape"][key] = b_us
+            r["library_us_by_shape"][key] = lib_us
+            r["baseline_us_by_shape"][key] = old_us
+            r["replaced_kernel_us_by_shape"][key] = old_kernel_us
+            r["member_share_by_shape"][key] = members / labels.numel()
+        print(f"sums {(H, W)}: device launches per detector level cut by {removed} (replaced forms' profiled launches less "
+              f"the kernels')", flush=True)
+    levels = [(240, 320), (192, 256)]  # one extraction of the bench path
+    if all(lv in per_extraction for lv in levels):
+        new_us = sum(per_extraction[lv][0] for lv in levels)
+        old_us = sum(per_extraction[lv][1] for lv in levels)
+        print(f"sums: one bench extraction's six calls (240x320 and 192x256) {new_us:.3f} us of device time, the replaced "
+              f"forms {old_us:.3f} us, in turns on {card}", flush=True)
     return res
 
 
@@ -590,7 +696,7 @@ def profile_phase(cam, frames, card) -> None:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t)
 
-    prof, (busy_us, n_kernels, n_copies) = profiled(run)
+    prof, (busy_us, n_kernels, n_copies) = profiled(run, whole=False)
     sys_.shutdown()
     wall, first = walls[-1], PROFILE_WARM + n * (len(walls) - 1)
     states = [r.state.name for r in sys_.trajectory[first:]]
@@ -622,11 +728,12 @@ def read_launches():
 
 
 def launches_per_call() -> dict:
-    """Device launches each kernel call must make: one for blur, gradients
-    and lsd_front, ceil(R / k) for CCL."""
+    """Device launches each kernel call must make: one for blur, gradients,
+    lsd_front and the three sums, ceil(R / k) for CCL."""
     from tpuslam_torch.kernels import lsd
 
-    return {"blur": 1, "gradients": 1, "lsd_front": 1, "ccl": -(-lsd.LSDParams().ccl_rounds // lsd.CCL_TILE[2]), "moments": 2}
+    ccl = -(-lsd.LSDParams().ccl_rounds // lsd.CCL_TILE[2])
+    return {"blur": 1, "gradients": 1, "lsd_front": 1, "ccl": ccl, **dict.fromkeys(lsd.SUMS, 1)}
 
 
 def check_launches(tag: str, launches, n_frames: int) -> None:
@@ -970,7 +1077,7 @@ def bench_profile_phase(cam, frames, card, points: bool = False) -> None:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t)
 
-    _, (busy_us, n_kernels, n_copies) = profiled(run_chunk)
+    _, (busy_us, n_kernels, n_copies) = profiled(run_chunk, tries=3, whole=False)  # 19 + 3 x 6 frames of 40
     resolved = sys_.trajectory[n0:]
     print(
         f"{tag} profile: frames {f - C}-{f - 1} (dispatch of their chunk, resolve of frames "
@@ -1053,7 +1160,7 @@ def bench_profile_phase(cam, frames, card, points: bool = False) -> None:
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t)
 
-        _, (busy_us, n_kernels, n_copies) = profiled(timed)
+        _, (busy_us, n_kernels, n_copies) = profiled(timed, whole=False)
         print(
             f"{tag} profile: {name}: device busy {busy_us / 1e3:.3f} ms, {n_kernels} kernel launches, {n_copies} memcpy/memset, "
             f"{walls[-1] * 1e3:.2f} ms under the profiler on {card}",
@@ -1136,6 +1243,11 @@ def main() -> int:
         )
         for name in PER_FRAME
     ]
+    print(
+        f"torch.profiler: {TRACES['taken']} traces, {TRACES['again']} taken again; the traces kept lack the device records "
+        f"of {TRACES['records_lost']} kernel launches",
+        flush=True,
+    )
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(

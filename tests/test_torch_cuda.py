@@ -207,6 +207,12 @@ def test_launch_counts(dev):
     lsd.ccl_propagate(i, i, i, 0)  # a copy, no launch
     lsd.segment_moments(x[:7].contiguous(), torch.zeros(96, dtype=torch.int32, device=dev), 5)
     lsd.segment_moments_torch(x[:7].cpu(), torch.zeros(96, dtype=torch.int32), 5)
+    lsd._moments_two_launch_cuda(x[:7].contiguous(), torch.zeros(96, dtype=torch.int32, device=dev), 5)  # the replaced form
+    planes = (i, x, x > 0.5, torch.arange(4, dtype=torch.int64, device=dev))
+    lsd.component_moments(*planes)
+    lsd._component_moments_replaced_cuda(*planes)
+    z4 = torch.zeros(4, device=dev)
+    lsd.component_extents(*planes, z4, z4, torch.zeros((4, 2), device=dev))
     assert image.LAUNCHES["blur"] == before[0]["blur"] + 1
     assert image.LAUNCHES["gradients"] == before[0]["gradients"] + 2
     assert lsd.LAUNCHES["lsd_front"] == before[1]["lsd_front"] + 1
@@ -216,8 +222,9 @@ def test_launch_counts(dev):
     assert image.KERNEL_LAUNCHES["gradients"] == before[2]["gradients"] + 2
     assert lsd.KERNEL_LAUNCHES["lsd_front"] == before[3]["lsd_front"] + 1
     assert lsd.KERNEL_LAUNCHES["ccl"] == before[3]["ccl"] + -(-64 // K)
-    assert lsd.LAUNCHES["moments"] == before[1]["moments"] + 1
-    assert lsd.KERNEL_LAUNCHES["moments"] == before[3]["moments"] + 2  # partial sums, then the combine
+    for name in lsd.SUMS:  # one call, one launch each
+        assert lsd.LAUNCHES[name] == before[1][name] + 1
+        assert lsd.KERNEL_LAUNCHES[name] == before[3][name] + 1
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -275,10 +282,11 @@ def test_system_runs_on_the_card_by_default(dev):
         s.track_stereo(il, ir, 0.05 * f)
     # per stereo frame: the pyramid's blur per camera; per camera and level
     # the LBD gradients, the detector's front, its propagation and three
-    # moment sums (the components' two, the merge's one)
+    # sums (the components' moments and extents, the merge's sums)
     after = {**image.LAUNCHES, **lsd.LAUNCHES}
     assert {k: after[k] - before[k] for k in after} == {
-        "blur": 2 * 2, "gradients": 4 * 2, "lsd_front": 4 * 2, "ccl": 4 * 2, "moments": 12 * 2
+        "blur": 2 * 2, "gradients": 4 * 2, "lsd_front": 4 * 2, "ccl": 4 * 2,
+        "component_moments": 4 * 2, "component_extents": 4 * 2, "segment_moments": 4 * 2,
     }
     assert all(r.state.name == "OK" for r in s.trajectory)
 
@@ -402,7 +410,7 @@ def test_relocalization_pieces_on_card_match_cpu(dev):
 # kernel calls of one left-image feature extraction at half resolution (the
 # bench path's anchors and its synchronous frames): the pyramid's blur; per
 # level the LBD gradients, the detector's front and its propagation
-PER_EXTRACTION = {"blur": 1, "gradients": 2, "lsd_front": 2, "ccl": 2, "moments": 6}
+PER_EXTRACTION = {"blur": 1, "gradients": 2, "lsd_front": 2, "ccl": 2, "component_moments": 2, "component_extents": 2, "segment_moments": 2}
 
 
 def test_bench_path_on_card(dev):
@@ -478,9 +486,9 @@ def _moment_inputs(N, V, S, dev, seed=0):
 
 @pytest.mark.parametrize("N, V, S", MOMENT_SHAPES)
 def test_moments_kernel_matches_plain_and_repeats(dev, N, V, S):
-    """The fixed-order sums against the plain version (index_add_ in item
-    order on the CPU) within 1e-5 relative of the column's absolute sum,
-    and bit for bit equal over two calls."""
+    """segment_moments' one-block kernel against the plain version
+    (index_add_ in item order on the CPU) within 1e-5 relative of the
+    column's absolute sum, and bit for bit equal over two calls."""
     vals, slot = _moment_inputs(N, V, S, dev)
     a = lsd.segment_moments(vals, slot, S)
     b = lsd.segment_moments(vals, slot, S)
@@ -492,11 +500,12 @@ def test_moments_kernel_matches_plain_and_repeats(dev, N, V, S):
 
 @pytest.mark.parametrize("N, V, S", MOMENT_SHAPES)
 def test_moments_kernel_writes_through_both_launches(dev, N, V, S):
-    """Scratch and output filled with NaN before a call of the C function:
-    the result equals the wrapper's, so the block launch wrote every partial
-    the combine reads and the combine wrote every sum."""
+    """The replaced two-launch form: scratch and output filled with NaN
+    before a call of the C function, the result equals its wrapper's, so
+    the block launch wrote every partial the combine reads and the combine
+    wrote every sum."""
     vals, slot = _moment_inputs(N, V, S, dev, seed=1)
-    ref = lsd.segment_moments(vals, slot, S)
+    ref = lsd._moments_two_launch_cuda(vals, slot, S)
     partial = torch.full((lsd.MOMENTS_BLOCKS, V, S), float("nan"), device=dev)
     out = torch.full((V, S), float("nan"), device=dev)
     n = ctypes.c_int(0)
@@ -513,11 +522,197 @@ def test_moments_wrapper_refuses_what_the_kernel_does_not_take(dev):
         lsd.segment_moments(vals, slot.long(), 257)  # int64 slots
     with pytest.raises(ValueError):
         lsd.segment_moments(vals, slot[:999], 257)
-    # the C function refuses more than 8 columns, and slots whose warp block
-    # (V, S + 33) floats does not fit 48 KB of shared memory
+    # the one-block kernel refuses more than 8 columns; the replaced form
+    # also slots whose warp block (V, S + 33) floats does not fit 48 KB of
+    # shared memory
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        lsd.segment_moments(torch.zeros((9, 1000), device=dev), slot, 257)
     for V, S in ((9, 257), (7, 2000)):
         with pytest.raises(RuntimeError, match="CUDA error"):
-            lsd.segment_moments(torch.zeros((V, 1000), device=dev), slot, S)
+            lsd._moments_two_launch_cuda(torch.zeros((V, 1000), device=dev), slot, S)
+
+
+# ---- the detector's component statistics -------------------------------------
+
+SUM_SHAPES = [(480, 640), (240, 320), (192, 256)]  # the slice's first level, the bench path's two
+
+
+def _level_image(shape, dev):
+    """A rendered VGA left frame at 480x640, halved to 240x320, and that
+    image's pyramid level 1 (192x256), as chip_smoke's kernel phase."""
+    _, frames = stereo_scene(1, VGA)
+    img = torch.from_numpy(image01(frames[0][0])).to(dev)
+    if shape == (480, 640):
+        return img
+    half = image.resize_linear(img, (240, 320)).contiguous()
+    return half if shape == (240, 320) else image.build_pyramid(half, 2, 0.8)[1].contiguous()
+
+
+def _detector_sum_inputs(shape, dev):
+    """{entry: args} of the three sums one detect_lines call makes."""
+    seen = {}
+    real = {name: getattr(lsd, name) for name in lsd.SUMS}
+
+    def grab(name):
+        def call(*args):
+            seen[name] = args
+            return real[name](*args)
+
+        return call
+
+    for name in lsd.SUMS:
+        setattr(lsd, name, grab(name))
+    try:
+        lsd.detect_lines(_level_image(shape, dev), 256)
+    finally:
+        for name in lsd.SUMS:
+            setattr(lsd, name, real[name])
+    assert set(seen) == set(lsd.SUMS)
+    return seen
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("shape", SUM_SHAPES)
+def test_component_kernels_match_plain_and_repeat(dev, shape):
+    """The three sum kernels on the detector's own inputs against their
+    plain versions: the moments and sn2 within 1e-5 relative (sums of terms
+    >= 0), t_min and t_max bit for bit (signed zeros included), the merge's
+    one-block sums bit for bit (both add in item order); two calls
+    bit-equal; one launch per call by the wrappers' counts."""
+    inputs = _detector_sum_inputs(shape, dev)
+    plain = {"component_moments": lsd.component_moments_torch, "component_extents": lsd.component_extents_torch,
+             "segment_moments": lsd.segment_moments_torch}
+    for name, args in inputs.items():
+        before = lsd.KERNEL_LAUNCHES[name]
+        a = getattr(lsd, name)(*args)
+        b = getattr(lsd, name)(*args)
+        assert lsd.KERNEL_LAUNCHES[name] == before + 2
+        assert torch.equal(_bits(a), _bits(b)), name
+        ref = plain[name](*(x.cpu() if isinstance(x, torch.Tensor) else x for x in args))
+        got = a.cpu()
+        if name == "segment_moments":
+            assert torch.equal(_bits(got), _bits(ref))
+        elif name == "component_moments":
+            assert float(((got - ref).abs() / ref.clamp(min=1e-30)).max()) <= 1e-5
+            assert float(ref[0].sum()) > 100
+        else:
+            assert torch.equal(_bits(got[:2]), _bits(ref[:2]))
+            assert float(((got[2] - ref[2]).abs() / ref[2].clamp(min=1e-30)).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("shape", SUM_SHAPES)
+def test_component_kernels_follow_the_modelled_order(dev, shape):
+    """The component kernels bit for bit equal to tests/torch_sum_model.py,
+    the numpy model of their order (the partition from N, a tree over each
+    step's members, then steps, warps and blocks in order; extremes by
+    (order bits, item index) keys) on the detector's own inputs."""
+    from torch_sum_model import member_slot, model_extremes, model_sums
+
+    inputs = _detector_sum_inputs(shape, dev)
+    labels, mag, support, roots = (x.cpu().numpy() for x in inputs["component_moments"])
+    cx, cy, ev = (x.cpu().numpy() for x in inputs["component_extents"][4:])
+    H, W = labels.shape
+    N, K = labels.size, roots.size
+    slot = member_slot(labels, roots)
+    xs = (np.arange(N) % W).astype(np.float32)
+    ys = (np.arange(N) // W).astype(np.float32)
+    sup = support.reshape(-1)
+    w = np.where(sup, mag.reshape(-1), np.float32(0))
+    wx, wy = w * xs, w * ys
+    cols = np.stack([sup.astype(np.float32), w, wx, wy, wx * xs, wy * ys, wx * ys])
+    got = lsd.component_moments(*inputs["component_moments"]).cpu().numpy()
+    assert np.array_equal(got.view(np.int32), model_sums(slot, cols, K).view(np.int32))
+    k = np.maximum(slot, 0)
+    relx, rely = xs - cx[k], ys - cy[k]
+    t = relx * ev[k, 0] + rely * ev[k, 1]
+    tn = -relx * ev[k, 1] + rely * ev[k, 0]
+    ext = lsd.component_extents(*inputs["component_extents"]).cpu().numpy()
+    t_min, t_max = model_extremes(slot, t, K)
+    assert np.array_equal(ext[0].view(np.int32), t_min.view(np.int32))
+    assert np.array_equal(ext[1].view(np.int32), t_max.view(np.int32))
+    assert np.array_equal(ext[2].view(np.int32), model_sums(slot, (w * tn * tn)[None], K)[0].view(np.int32))
+
+
+def _component_call(name, args, partial, keys, out):
+    """One call of a component kernel's C function on the given scratch;
+    returns (code, launches)."""
+    labels = args[0]
+    H, W = labels.shape
+    K = args[3].numel()
+    blocks, ipw = lsd.sum_partition(labels.numel())
+    ptrs = [x.data_ptr() for x in args]
+    counter = lsd._ticket_counters(labels.device).data_ptr()
+    n = ctypes.c_int(0)
+    lib = cuda_lib.library()
+    if name == "component_moments":
+        code = lib.tpuslam_component_moments(*ptrs, partial.data_ptr(), counter, out.data_ptr(), H, W, K,
+                                            blocks, ipw, ctypes.byref(n), cuda_lib.stream_of(labels))
+    else:
+        code = lib.tpuslam_component_extents(*ptrs, partial.data_ptr(), keys.data_ptr(), counter,
+                                            out.data_ptr(), H, W, K, blocks, ipw, ctypes.byref(n), cuda_lib.stream_of(labels))
+    return code, n.value
+
+
+@pytest.mark.parametrize("shape", SUM_SHAPES)
+def test_component_kernels_write_through_poisoned_scratch(dev, shape):
+    """Partial rows and output filled with NaN (the keys with all bits set)
+    before each of three calls in a row of the C functions: each result
+    equals the wrapper's, so every block wrote what the last block reads and
+    the last block wrote every output; every ticket counter is back at 0 for
+    the next call."""
+    inputs = _detector_sum_inputs(shape, dev)
+    for name, C, R in (("component_moments", 7, 7), ("component_extents", 1, 3)):
+        args = inputs[name]
+        ref = getattr(lsd, name)(*args)
+        K = args[3].numel()
+        blocks, _ = lsd.sum_partition(args[0].numel())
+        rows = blocks + -(-blocks // lsd.SUM_GROUP)  # the blocks' rows, then the groups'
+        for _ in range(3):
+            partial = torch.full((rows, C, K), float("nan"), device=dev)
+            keys = torch.full((rows, 2, K), -1, dtype=torch.int64, device=dev)
+            out = torch.full((R, K), float("nan"), device=dev)
+            code, n = _component_call(name, args, partial, keys, out)
+            assert code == 0 and n == 1
+            assert torch.equal(_bits(out), _bits(ref)), name
+            assert int(lsd._ticket_counters(dev).abs().sum()) == 0
+
+
+def test_component_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    inputs = _detector_sum_inputs((240, 320), dev)
+    labels, mag, support, roots = inputs["component_moments"]
+    cx, cy, ev = inputs["component_extents"][4:]
+    with pytest.raises(ValueError):
+        lsd.component_moments(labels, mag, support, roots.to(torch.int32))  # int32 roots
+    with pytest.raises(TypeError):
+        lsd.component_moments(labels, mag.double(), support, roots)
+    with pytest.raises(TypeError):
+        lsd.component_moments(labels, mag, support.to(torch.uint8), roots)
+    with pytest.raises(ValueError):
+        lsd.component_moments(labels[:, :160].contiguous(), mag, support, roots)  # planes differ in shape
+    with pytest.raises(ValueError):
+        lsd.component_extents(labels, mag, support, roots, cx, cy, ev.t().contiguous())  # ev (2, K)
+    with pytest.raises(ValueError):
+        lsd.component_extents(labels, mag, support, roots, cx[:-1].contiguous(), cy, ev)
+    # the C functions refuse more than 1024 roots, and a partition that does
+    # not cover the plane in whole steps
+    big = torch.arange(1100, dtype=torch.int64, device=dev)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        lsd.component_moments(labels, mag, support, big)
+    K = roots.numel()
+    blocks, ipw = lsd.sum_partition(labels.numel())
+    partial = torch.empty((blocks + 1 + blocks // lsd.SUM_GROUP, 7, K), device=dev)
+    out = torch.empty((7, K), device=dev)
+    counter = lsd._ticket_counters(dev).data_ptr()
+    for b, w in ((blocks - 1, ipw), (blocks, ipw - 32), (blocks + 1, ipw), (blocks, ipw + 16)):
+        n = ctypes.c_int(0)
+        code = cuda_lib.library().tpuslam_component_moments(
+            labels.data_ptr(), mag.data_ptr(), support.data_ptr(), roots.data_ptr(), partial.data_ptr(), counter,
+            out.data_ptr(), 240, 320, K, b, w, ctypes.byref(n), cuda_lib.stream_of(labels),
+        )
+        assert code != 0 and n.value == 0, (b, w)
 
 
 @pytest.mark.parametrize("shape", [(240, 320), (480, 640)])

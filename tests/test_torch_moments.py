@@ -1,7 +1,8 @@
 """The fixed-order moment sums: tpuslam_torch.kernels.lsd.segment_moments
 (its plain version on the CPU) against the JAX package's sums (the one-hot
 reduction of detect_lines and merge_collinear's segment_sum), and the
-detector's sums reaching it, and nothing else, on every path."""
+detector's sums reaching the three sum entries (component_moments,
+component_extents, segment_moments), and nothing else, on every path."""
 
 import pathlib
 import re
@@ -52,17 +53,23 @@ def test_segment_moments_match_jax_segment_sum():
 
 def test_detector_sums_only_through_segment_moments(monkeypatch):
     """detect_lines (with merge_collinear) reaches its float sums through
-    segment_moments only: the component moments (7 columns, then the normal
-    second moment) and the merge (7 columns) per call; index_add_ runs only
-    inside the plain version, which a CUDA tensor never reaches."""
+    the three sum entries only, once each per call: component_moments (the
+    seven moments of the K components), component_extents (their extents
+    and normal moment) and segment_moments (the merge's 7 columns);
+    index_add_ runs only inside segment_moments_torch, the plain sums, which
+    a CUDA tensor never reaches."""
     _, frames = stereo_scene(1, QVGA)
     img = torch.from_numpy(image01(frames[0][0]))
     calls, inside = [], []
-    real_sums, real_twin, real_add = lsd.segment_moments, lsd.segment_moments_torch, torch.Tensor.index_add_
+    real = {name: getattr(lsd, name) for name in lsd.SUMS}
+    real_twin, real_add = lsd.segment_moments_torch, torch.Tensor.index_add_
 
-    def sums(values, slot, S):
-        calls.append((tuple(values.shape), S))
-        return real_sums(values, slot, S)
+    def recorder(name):
+        def call(first, *rest):
+            calls.append((name, tuple(first.shape), rest[-1] if name == "segment_moments" else rest[2].numel()))
+            return real[name](first, *rest)
+
+        return call
 
     def twin(values, slot, S):
         inside.append(1)
@@ -75,12 +82,14 @@ def test_detector_sums_only_through_segment_moments(monkeypatch):
         assert inside, "index_add_ outside segment_moments_torch"
         return real_add(self, *a, **k)
 
-    monkeypatch.setattr(lsd, "segment_moments", sums)
+    for name in lsd.SUMS:
+        monkeypatch.setattr(lsd, name, recorder(name))
     monkeypatch.setattr(lsd, "segment_moments_torch", twin)
     monkeypatch.setattr(torch.Tensor, "index_add_", index_add_)
     det = lsd.detect_lines(img, 256)
-    N, K = img.numel(), 256
-    assert calls == [((7, N), K + 1), ((1, N), K + 1), ((7, K), K)]
+    H, W = img.shape
+    K = 256
+    assert calls == [("component_moments", (H, W), K), ("component_extents", (H, W), K), ("segment_moments", (7, K), K)]
     assert float(det.valid.sum()) > 20
 
 
@@ -106,7 +115,9 @@ def _code_lines(path: pathlib.Path):
 
 def test_index_add_only_in_the_plain_moments():
     """No code of the port calls index_add_ except segment_moments_torch,
-    the CPU-only plain version of the moments kernel."""
+    the CPU-only plain sums behind segment_moments, component_moments_torch
+    and component_extents_torch (the plain versions of the three sum
+    kernels)."""
     hits = []
     for path in sorted(PORT.rglob("*.py")):
         for n, code in _code_lines(path):

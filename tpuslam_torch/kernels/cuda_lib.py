@@ -119,6 +119,12 @@ def library() -> ctypes.CDLL:
     lib.tpuslam_ccl_per_round.restype = I
     lib.tpuslam_moments.argtypes = [P, P, P, P, I, I, I, IP, P]
     lib.tpuslam_moments.restype = I
+    lib.tpuslam_component_moments.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, IP, P]
+    lib.tpuslam_component_moments.restype = I
+    lib.tpuslam_component_extents.argtypes = [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, IP, P]
+    lib.tpuslam_component_extents.restype = I
+    lib.tpuslam_segment_sums.argtypes = [P, P, P, I, I, I, IP, P]
+    lib.tpuslam_segment_sums.restype = I
     lib.tpuslam_error_string.argtypes = [I]
     lib.tpuslam_error_string.restype = ctypes.c_char_p
     return lib

@@ -13,15 +13,22 @@ running its plain PyTorch version on a CPU tensor:
   shared-memory tiles (:data:`CCL_TILE`), so a call of R rounds is
   ceil(R / k) launches.
 
-- :func:`segment_moments`, the per-component moment sums of
-  :func:`detect_lines` and :func:`merge_collinear` (``csrc/moments.cu``:
-  block partial sums, then a fixed-order combine, two launches per call, no
-  float atomics, so every run on the card adds in one order); plain version
-  :func:`segment_moments_torch`. The JAX package has no Pallas kernel here:
-  XLA fuses these sums into its reductions.
+- :func:`component_moments` and :func:`component_extents`, the detector's
+  per-component statistics (``csrc/moments.cu``): the seven weighted
+  moments of the K chosen components, then their extents along the
+  principal direction and their normal moment, each one launch over the
+  label, magnitude and support planes that sums the members only, in a
+  fixed order and without float atomics, so every run on the card adds in
+  one order; plain versions :func:`component_moments_torch` and
+  :func:`component_extents_torch`.
+- :func:`segment_moments`, merge_collinear's sums over the segments: one
+  launch of one block that sums each slot in item order; plain version
+  :func:`segment_moments_torch`. The JAX package has no Pallas kernel for
+  these three: XLA fuses them into its reductions.
 
 ``LAUNCHES`` counts the kernel calls made on the card, ``KERNEL_LAUNCHES``
-the device launches of those calls, under "lsd_front", "ccl" and "moments".
+the device launches of those calls, under "lsd_front", "ccl",
+"component_moments", "component_extents" and "segment_moments".
 
 Three places differ in form from the JAX code, not in result:
 
@@ -30,12 +37,13 @@ Three places differ in form from the JAX code, not in result:
   the support mask, so they collect no members). ``torch.topk`` promises no
   order among ties and can pick a non-root pixel that is still another
   pixel's label; :func:`topk_stable` is a stable descending sort instead.
-- The per-component moments: XLA fuses the (K, N) one-hot compare into its
-  reductions, eager PyTorch would materialise it (315 MB per temporary at
-  VGA). Each label is instead mapped to its slot (other labels to a dump
-  slot K) and summed by :func:`segment_moments` (extents by
-  ``scatter_reduce``'s min and max, which do not depend on order). Float sums
-  run in another order, so moments agree to float rounding, not bitwise.
+- The per-component statistics: XLA fuses the (K, N) one-hot compare into
+  its reductions, eager PyTorch would materialise it (315 MB per temporary
+  at VGA). The plain versions instead map each label to its slot (other
+  labels to a dump slot K) and sum with ``index_add_`` (extents by
+  ``scatter_reduce``'s min and max); the kernels look the label up among the
+  K roots. Float sums run in another order, so moments agree to float
+  rounding, not bitwise.
 - ``jnp.hypot`` is written out with JAX's own formula, so the root keys,
   and with them the slot order, are bit-equal.
 """
@@ -50,8 +58,9 @@ import torch
 
 from tpuslam_torch.kernels import cuda_lib, image
 
-LAUNCHES = {"lsd_front": 0, "ccl": 0, "moments": 0}
-KERNEL_LAUNCHES = {"lsd_front": 0, "ccl": 0, "moments": 0}
+SUMS = ("component_moments", "component_extents", "segment_moments")
+LAUNCHES = dict.fromkeys(("lsd_front", "ccl", *SUMS), 0)
+KERNEL_LAUNCHES = dict.fromkeys(("lsd_front", "ccl", *SUMS), 0)
 
 # Output tile side of the fused front kernel (csrc/lsd_front.cu): each block
 # reads the edge-clamped (T + 2h) x (T + 2h) window around its T x T tile,
@@ -74,11 +83,27 @@ def front_halo(radius: int) -> int:
 # and the only instance the library builds.
 CCL_TILE = (32, 32, 8)
 
-# The most blocks the moments kernel (csrc/moments.cu, kTargetBlocks: one
-# wave on the H100's 132 SMs) sums partials in: the wrapper's scratch holds
-# MOMENTS_BLOCKS * V * S floats, and the C function refuses the shapes it
-# cannot take.
+# The component kernels' launch shape (csrc/moments.cu): blocks of SUM_WARPS
+# warps, at most SUM_MAX_BLOCKS of them, each warp a contiguous run of items
+# (sum_partition); the last block of each group of SUM_GROUP blocks sums the
+# group's rows, the last group the groups'. The wrapper passes the partition
+# to the C function, which refuses one that does not cover the plane;
+# tests/torch_sum_model.py models the same order in numpy. The replaced
+# two-launch form sums partials in at most MOMENTS_BLOCKS blocks.
+SUM_WARPS = 16
+SUM_MAX_BLOCKS = 128
+SUM_GROUP = 8
 MOMENTS_BLOCKS = 132
+
+
+def sum_partition(N: int):
+    """(blocks, items per warp) of the component kernels for N items: about
+    64 items per warp or more, at most SUM_MAX_BLOCKS blocks, whole 32-item
+    steps, and no block without items. Depends on N alone."""
+    blocks = min(SUM_MAX_BLOCKS, max(1, -(-N // (SUM_WARPS * 64))))
+    ipw = -(-N // (blocks * SUM_WARPS))
+    ipw = -(-ipw // 32) * 32
+    return -(-N // (ipw * SUM_WARPS)), ipw
 
 
 class LSDParams(NamedTuple):
@@ -192,20 +217,40 @@ def segment_moments_torch(values: torch.Tensor, slot: torch.Tensor, S: int) -> t
     return acc.index_add_(0, slot.long(), values.t().contiguous()).t()
 
 
-def _moments_cuda(values: torch.Tensor, slot: torch.Tensor, S: int):
-    """((V, S) sums, device launches made)."""
-    cuda_lib.require_plane(values, torch.float32, "segment_moments values")
+def _check_sum_inputs(values, slot, what):
+    cuda_lib.require_plane(values, torch.float32, f"{what} values")
     if slot.device != values.device or slot.dtype != torch.int32 or slot.dim() != 1 or not slot.is_contiguous():
-        raise ValueError("segment_moments: slot must be a contiguous (N,) int32 tensor on the values' device")
+        raise ValueError(f"{what}: slot must be a contiguous (N,) int32 tensor on the values' device")
+    if slot.numel() != values.shape[1]:
+        raise ValueError(f"{what}: {slot.numel()} slots for {values.shape[1]} items")
+
+
+def _moments_two_launch_cuda(values: torch.Tensor, slot: torch.Tensor, S: int) -> torch.Tensor:
+    """The replaced form of the sums (``csrc/moments.cu`` ``tpuslam_moments``:
+    block partial sums, then a combine launch), for timing beside the
+    kernels on the card. The detector never calls it, and it counts no
+    launches."""
+    _check_sum_inputs(values, slot, "segment_moments (two launches)")
     V, N = values.shape
-    if slot.numel() != N:
-        raise ValueError(f"segment_moments: {slot.numel()} slots for {N} items")
     partial = torch.empty((MOMENTS_BLOCKS, V, S), dtype=torch.float32, device=values.device)
     out = torch.empty((V, S), dtype=torch.float32, device=values.device)
     n = ctypes.c_int(0)
     code = cuda_lib.library().tpuslam_moments(
         values.data_ptr(), slot.data_ptr(), partial.data_ptr(), out.data_ptr(), N, V, S, ctypes.byref(n),
         cuda_lib.stream_of(values),
+    )
+    cuda_lib.check(code, "segment_moments (two launches)")
+    return out
+
+
+def _segment_sums_cuda(values: torch.Tensor, slot: torch.Tensor, S: int):
+    """((V, S) sums, device launches made)."""
+    _check_sum_inputs(values, slot, "segment_moments")
+    V, N = values.shape
+    out = torch.empty((V, S), dtype=torch.float32, device=values.device)
+    n = ctypes.c_int(0)
+    code = cuda_lib.library().tpuslam_segment_sums(
+        values.data_ptr(), slot.data_ptr(), out.data_ptr(), N, V, S, ctypes.byref(n), cuda_lib.stream_of(values)
     )
     cuda_lib.check(code, "segment_moments")
     return out, n.value
@@ -214,15 +259,195 @@ def _moments_cuda(values: torch.Tensor, slot: torch.Tensor, S: int):
 def segment_moments(values: torch.Tensor, slot: torch.Tensor, S: int) -> torch.Tensor:
     """Sums of V value columns over N items by slot: ``values`` (V, N)
     float32, ``slot`` (N,) int32 in [0, S) -> (V, S), out[v, s] the sum of
-    values[v, i] over the items i with slot[i] == s. On a CUDA tensor the
-    kernel of ``csrc/moments.cu`` adds in one fixed order (the same on every
-    run); on a CPU tensor the plain version adds in item order."""
+    values[v, i] over the items i with slot[i] == s. On a CUDA tensor one
+    block of ``csrc/moments.cu`` sums each slot in item order, as the plain
+    version does on a CPU tensor (merge_collinear's size: 256 items)."""
     if cuda_lib.on_card(values):
-        out, n = _moments_cuda(values, slot, S)
-        LAUNCHES["moments"] += 1
-        KERNEL_LAUNCHES["moments"] += n
+        out, n = _segment_sums_cuda(values, slot, S)
+        LAUNCHES["segment_moments"] += 1
+        KERNEL_LAUNCHES["segment_moments"] += n
         return out
     return segment_moments_torch(values, slot, S)
+
+
+def _member_slots(labels: torch.Tensor, roots: torch.Tensor) -> torch.Tensor:
+    """(N,) int64: each pixel's component slot in [0, K), K for the rest."""
+    N, K = labels.numel(), roots.numel()
+    slot_of_label = torch.full((N + 1,), K, dtype=torch.long, device=labels.device)
+    slot_of_label[roots.long()] = torch.arange(K, device=labels.device)
+    return slot_of_label[labels.reshape(-1).long()]
+
+
+def _pixel_xy(H: int, W: int, dev):
+    pix = torch.arange(H * W, dtype=torch.int32, device=dev)
+    return (pix % W).to(torch.float32), (pix // W).to(torch.float32)
+
+
+def _weights(mag, support, like):
+    return torch.where(support.reshape(-1), mag.reshape(-1), torch.zeros_like(like))
+
+
+def _component_moments_chain(labels, mag, support, roots, sums):
+    H, W = labels.shape
+    K = roots.numel()
+    member = _member_slots(labels, roots)
+    xs, ys = _pixel_xy(H, W, labels.device)
+    w = _weights(mag, support, xs)
+    wx, wy = w * xs, w * ys
+    cols = torch.stack([support.reshape(-1).to(torch.float32), w, wx, wy, wx * xs, wy * ys, wx * ys])
+    return sums(cols, member.to(torch.int32), K + 1)[:, :K]
+
+
+def _component_extents_chain(labels, mag, support, roots, cx, cy, ev, sums):
+    H, W = labels.shape
+    K = roots.numel()
+    dev = labels.device
+    member = _member_slots(labels, roots)
+    xs, ys = _pixel_xy(H, W, dev)
+    w = _weights(mag, support, xs)
+    pad = torch.zeros(1, dtype=torch.float32, device=dev)
+    cxm = torch.cat([cx, pad])[member]
+    cym = torch.cat([cy, pad])[member]
+    evm = torch.cat([ev, torch.zeros((1, 2), dtype=torch.float32, device=dev)])[member]
+    relx = xs - cxm
+    rely = ys - cym
+    t = relx * evm[:, 0] + rely * evm[:, 1]
+    tn = -relx * evm[:, 1] + rely * evm[:, 0]
+    inf = torch.full((K + 1,), math.inf, dtype=torch.float32, device=dev)
+    t_min = inf.scatter_reduce(0, member, t, "amin", include_self=False)[:K]
+    t_max = (-inf).scatter_reduce(0, member, t, "amax", include_self=False)[:K]
+    sn2 = sums((w * tn * tn)[None], member.to(torch.int32), K + 1)[0, :K]
+    return torch.stack([t_min, t_max, sn2])
+
+
+def component_moments_torch(labels, mag, support, roots) -> torch.Tensor:
+    """Plain version of :func:`component_moments`: the seven columns of
+    every pixel stacked, each label mapped to its slot (others to a dump
+    slot K), summed by ``index_add_`` in item order."""
+    return _component_moments_chain(labels, mag, support, roots, segment_moments_torch)
+
+
+def component_extents_torch(labels, mag, support, roots, cx, cy, ev) -> torch.Tensor:
+    """Plain version of :func:`component_extents`: per pixel its
+    component's centroid and direction gathered, t and tn, then
+    ``scatter_reduce``'s amin and amax (the first of equal values in item
+    order is kept) and ``index_add_`` for sn2."""
+    return _component_extents_chain(labels, mag, support, roots, cx, cy, ev, segment_moments_torch)
+
+
+def _component_moments_replaced_cuda(labels, mag, support, roots) -> torch.Tensor:
+    """What :func:`detect_lines` ran on the card before the component
+    kernels: the plain version's eager chain around the two-launch sums.
+    For timing beside the kernel; it counts no launches."""
+    return _component_moments_chain(labels, mag, support, roots, _moments_two_launch_cuda)
+
+
+def _component_extents_replaced_cuda(labels, mag, support, roots, cx, cy, ev) -> torch.Tensor:
+    """The same for :func:`component_extents`."""
+    return _component_extents_chain(labels, mag, support, roots, cx, cy, ev, _moments_two_launch_cuda)
+
+
+_COUNTERS: dict = {}
+
+
+def _ticket_counters(dev: torch.device) -> torch.Tensor:
+    """The device's counters of finished blocks (the groups', then each
+    group's), which the component kernels set back to 0 as they finish."""
+    key = (dev.type, dev.index if dev.index is not None else torch.cuda.current_device())
+    if key not in _COUNTERS:
+        _COUNTERS[key] = torch.zeros(1 + SUM_MAX_BLOCKS // SUM_GROUP, dtype=torch.int32, device=dev)
+    return _COUNTERS[key]
+
+
+def _check_component_inputs(labels, mag, support, roots, what):
+    cuda_lib.require_plane(labels, torch.int32, f"{what} labels")
+    cuda_lib.require_plane(mag, torch.float32, f"{what} mag")
+    cuda_lib.require_plane(support, torch.bool, f"{what} support")
+    if not (labels.shape == mag.shape == support.shape):
+        raise ValueError(f"{what}: planes differ in shape")
+    if not (labels.device == mag.device == support.device == roots.device):
+        raise ValueError(f"{what}: inputs on different devices")
+    if roots.dtype != torch.int64 or roots.dim() != 1 or not roots.is_contiguous() or roots.numel() < 1:
+        raise ValueError(f"{what}: roots must be a contiguous non-empty (K,) int64 tensor")
+
+
+def _component_scratch(labels, K, C):
+    """(blocks, ipw, rows): the partition and the blocks' and then the
+    groups' (C, K) rows."""
+    blocks, ipw = sum_partition(labels.numel())
+    rows = blocks + -(-blocks // SUM_GROUP)
+    return blocks, ipw, torch.empty((rows, C, K), dtype=torch.float32, device=labels.device)
+
+
+def _component_moments_cuda(labels, mag, support, roots):
+    """((7, K) sums, device launches made)."""
+    _check_component_inputs(labels, mag, support, roots, "component_moments")
+    H, W = labels.shape
+    K = roots.numel()
+    blocks, ipw, partial = _component_scratch(labels, K, 7)
+    out = torch.empty((7, K), dtype=torch.float32, device=labels.device)
+    n = ctypes.c_int(0)
+    code = cuda_lib.library().tpuslam_component_moments(
+        labels.data_ptr(), mag.data_ptr(), support.data_ptr(), roots.data_ptr(), partial.data_ptr(),
+        _ticket_counters(labels.device).data_ptr(), out.data_ptr(), H, W, K, blocks, ipw, ctypes.byref(n),
+        cuda_lib.stream_of(labels),
+    )
+    cuda_lib.check(code, "component_moments")
+    return out, n.value
+
+
+def _component_extents_cuda(labels, mag, support, roots, cx, cy, ev):
+    """((3, K) t_min, t_max, sn2, device launches made)."""
+    _check_component_inputs(labels, mag, support, roots, "component_extents")
+    H, W = labels.shape
+    K = roots.numel()
+    for t, shape, name in ((cx, (K,), "cx"), (cy, (K,), "cy"), (ev, (K, 2), "ev")):
+        if t.device != labels.device or t.dtype != torch.float32 or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"component_extents: {name} must be a contiguous {shape} float32 tensor on the planes' device")
+    blocks, ipw, partial = _component_scratch(labels, K, 1)
+    keys = torch.empty((partial.shape[0], 2, K), dtype=torch.int64, device=labels.device)
+    out = torch.empty((3, K), dtype=torch.float32, device=labels.device)
+    n = ctypes.c_int(0)
+    code = cuda_lib.library().tpuslam_component_extents(
+        labels.data_ptr(), mag.data_ptr(), support.data_ptr(), roots.data_ptr(), cx.data_ptr(), cy.data_ptr(),
+        ev.data_ptr(), partial.data_ptr(), keys.data_ptr(), _ticket_counters(labels.device).data_ptr(), out.data_ptr(),
+        H, W, K, blocks, ipw, ctypes.byref(n), cuda_lib.stream_of(labels),
+    )
+    cuda_lib.check(code, "component_extents")
+    return out, n.value
+
+
+def component_moments(labels: torch.Tensor, mag: torch.Tensor, support: torch.Tensor, roots: torch.Tensor) -> torch.Tensor:
+    """The seven weighted moments of K components: ``labels`` (H, W) int32
+    after the pointer jumps, ``mag`` (H, W) float32, ``support`` (H, W) bool,
+    ``roots`` (K,) int64, distinct, in [0, H W) -> (7, K): per component k the
+    sums over the pixels labelled roots[k] of 1 (if supported), w, w x, w y,
+    w x x, w y y, w x y, with w = mag where supported and 0 elsewhere. One
+    kernel launch on CUDA tensors (a fixed order, the same on every run),
+    the plain version on CPU tensors."""
+    if cuda_lib.on_card(labels):
+        out, n = _component_moments_cuda(labels, mag, support, roots)
+        LAUNCHES["component_moments"] += 1
+        KERNEL_LAUNCHES["component_moments"] += n
+        return out
+    return component_moments_torch(labels, mag, support, roots)
+
+
+def component_extents(labels, mag, support, roots, cx, cy, ev) -> torch.Tensor:
+    """Extents and normal moment of the K components of
+    :func:`component_moments` about their centroids (cx, cy) (K,) along
+    their unit directions ev (K, 2) -> (3, K): t_min and t_max of t = (x -
+    cx) ev.x + (y - cy) ev.y over each component's pixels (+inf and -inf
+    where it has none), and the sum of w tn tn, tn = -(x - cx) ev.y + (y -
+    cy) ev.x. One kernel launch on CUDA tensors, the plain version on CPU
+    tensors; both keep the first of equal extremes in pixel order, so a
+    -0.0 and a +0.0 settle alike."""
+    if cuda_lib.on_card(labels):
+        out, n = _component_extents_cuda(labels, mag, support, roots, cx, cy, ev)
+        LAUNCHES["component_extents"] += 1
+        KERNEL_LAUNCHES["component_extents"] += n
+        return out
+    return component_extents_torch(labels, mag, support, roots, cx, cy, ev)
 
 
 def topk_stable(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -403,28 +628,14 @@ def detect_lines(img: torch.Tensor, max_lines: int = 256, params: LSDParams = LS
     # top-K roots by spanned diagonal
     pix = torch.arange(N, dtype=torch.int32, device=dev)
     ys_i, xs_i = pix // W, pix % W
-    xs = xs_i.to(torch.float32)
-    ys = ys_i.to(torch.float32)
     far = torch.clamp(maxlab.reshape(-1), min=0)
     span = _hypot((far % W - xs_i).to(torch.float32), (far // W - ys_i).to(torch.float32))
     is_root = (flat_labels == pix) & flat_support
     key = torch.where(is_root, span + 1.0, torch.zeros_like(span))
     comp_ids = topk_stable(key, K)  # (K,) root pixel indices
 
-    # per-component moments: label -> slot, dump slot K for everything else
-    slot_of_label = torch.full((N + 1,), K, dtype=torch.long, device=dev)
-    slot_of_label[comp_ids.long()] = torch.arange(K, device=dev)
-    member = slot_of_label[flat_labels.long()]  # (N,) in [0, K]
-    member32 = member.to(torch.int32)
-    w = torch.where(flat_support, mag.reshape(-1), torch.zeros_like(xs))
-
-    def red(*vals):  # each (N,) -> (K,)
-        return segment_moments(torch.stack(vals), member32, K + 1)[:, :K].unbind(0)
-
-    wx, wy = w * xs, w * ys
-    count, sw, swx, swy, swxx, swyy, swxy = red(
-        flat_support.to(torch.float32), w, wx, wy, wx * xs, wy * ys, wx * ys
-    )
+    # per-component moments of the pixels labelled with each chosen root
+    count, sw, swx, swy, swxx, swyy, swxy = component_moments(labels, mag, support, comp_ids).unbind(0)
     csw = torch.clamp(sw, min=1e-6)
     cx = swx / csw
     cy = swy / csw
@@ -435,18 +646,7 @@ def detect_lines(img: torch.Tensor, max_lines: int = 256, params: LSDParams = LS
     ev = _principal_direction(mxx, myy, mxy)
 
     # extents along the principal direction, normal second moment
-    pad = torch.zeros(1, dtype=torch.float32, device=dev)
-    cxm = torch.cat([cx, pad])[member]
-    cym = torch.cat([cy, pad])[member]
-    evm = torch.cat([ev, torch.zeros((1, 2), dtype=torch.float32, device=dev)])[member]
-    relx = xs - cxm
-    rely = ys - cym
-    t = relx * evm[:, 0] + rely * evm[:, 1]
-    tn = -relx * evm[:, 1] + rely * evm[:, 0]
-    inf = torch.full((K + 1,), math.inf, dtype=torch.float32, device=dev)
-    t_min = inf.scatter_reduce(0, member, t, "amin", include_self=False)[:K]
-    t_max = (-inf).scatter_reduce(0, member, t, "amax", include_self=False)[:K]
-    (sn2,) = red(w * tn * tn)
+    t_min, t_max, sn2 = component_extents(labels, mag, support, comp_ids, cx, cy, ev).unbind(0)
     width = 2.0 * torch.sqrt(3.0 * torch.clamp(sn2 / csw, min=1e-9))
 
     empty = count < 0.5
