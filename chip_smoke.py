@@ -135,6 +135,18 @@ JAX_BENCH_ATE_M = 0.0336553673054669
 # 13, 19, 25, 31)
 JAX_HYBRID_BENCH_ATE_M = 0.03508363848096205
 ATE_MARGIN_M = 0.01
+# the loop sequence (`make_loop_frames`: benchmarks/ladder.py's stereo_loop
+# scene with a 48-frame dwell) through tpuslam.system.System(cam,
+# sensor="stereo", mapping=True, loop_closing=True, tracker_cfg=LOOP_TRACKER
+# there), XLA:CPU, cv2 hidden, TPUSLAM_KF_DEFER_MS=0, TPUSLAM_NATIVE_MAP=0,
+# TPUSLAM_WARM_LOOP=0, TPUSLAM_BA_SUBPROCESS=0: `python
+# tests/test_torch_loop_closing.py` prints them (148 frames OK, 51 keyframes,
+# loops closed at keyframes 45, 47 and 49; the first took the keyframe-map ATE
+# from 0.9037 to 0.7933 m). With a 16-frame dwell (the ladder's) the JAX
+# package closes no loop on these frames.
+JAX_LOOP_OK_FRAMES = 148
+JAX_LOOP_KF_ATE_M = 0.680995491968856  # rigid ATE of the keyframe map at the end
+LOOP_KF_ATE_FACTOR = 1.05  # the final keyframe-map ATE bound: JAX x 1.05 + ATE_MARGIN_M
 RELOC_FRAME = 20
 # kernel calls per stereo frame on the slice (two cameras, two levels each):
 # the pyramid's blur per camera; per camera and level the LBD gradients, the
@@ -214,6 +226,38 @@ def make_frames(n_frames: int = N_FRAMES, draw_points: bool = False):
     ]
     return cam, scene, frames
 
+
+
+LOOP_FRAMES, LOOP_DWELL = 100, 48  # the circle's frames, then its first LOOP_DWELL frames again
+
+
+def make_loop_frames(n_frames: int = LOOP_FRAMES, dwell: int = LOOP_DWELL):
+    """The loop sequence of benchmarks/ladder.py's stereo_loop (the repo's
+    analog of BASELINE config #4, KITTI 00 with loop closure): QVGA at fx
+    200 and baseline 0.1 m, ``make_loop_scene(rng(7), 260 segments,
+    n_frames, radius 5, room 14)``, its first ``dwell`` poses appended as the
+    revisit, and (left, right) uint8 frames rendered with noise 1 and
+    ``draw_points`` (the scene has no points), all from seed 7."""
+    import numpy as np
+
+    from tpuslam_torch import Intrinsics
+    from tpuslam_torch.io.synthetic import make_loop_scene, render_wireframe_image
+
+    cam = Intrinsics(fx=200.0, fy=200.0, cx=160.0, cy=120.0, width=320, height=240, baseline=0.1)
+    rng = np.random.default_rng(7)
+    scene = make_loop_scene(rng, n_segments=260, n_frames=n_frames, radius=5.0, room=14.0, cam=cam)
+    scene = scene._replace(poses=np.concatenate([scene.poses, scene.poses[:dwell]]))
+    Tb = np.eye(4, dtype=np.float32)
+    Tb[0, 3] = -cam.baseline
+    scene_r = scene._replace(poses=np.stack([Tb @ T for T in scene.poses]))
+    frames = [
+        (
+            render_wireframe_image(scene, f, noise=1.0, rng=rng, draw_points=True),
+            render_wireframe_image(scene_r, f, noise=1.0, rng=rng, draw_points=True),
+        )
+        for f in range(n_frames + dwell)
+    ]
+    return cam, scene, frames
 
 def ate_of(trajectory, scene) -> float:
     import numpy as np
@@ -1188,6 +1232,171 @@ def repeat_phase(cam, frames, traj) -> None:
         fail("bench: a second run of the bench path differs from the first")
 
 
+
+def loop_system(cam):
+    """benchmarks/ladder.py's stereo_loop configuration: the synchronous
+    hybrid tracker with direct stereo, local mapping and loop closing."""
+    from tpuslam_torch.frontend.points import PointFrontendParams
+    from tpuslam_torch.frontend.tracking import TrackerConfig
+    from tpuslam_torch.kernels.stereo_direct import DirectStereoParams
+    from tpuslam_torch.system import System
+
+    cfg = TrackerConfig(
+        min_init_lines=8, min_track_matches=6, min_track_inliers=6, max_frames_between_kf=4,
+        points=PointFrontendParams(), direct_stereo=DirectStereoParams(max_disp=64.0),
+    )
+    return System(cam, sensor="stereo", mapping=True, loop_closing=True, tracker_cfg=cfg, device="cuda")
+
+
+def kf_map_ate(slam_map, scene) -> float:
+    """Rigid ATE RMSE (m) of the keyframes' camera centres."""
+    import numpy as np
+
+    from tpuslam_torch.eval.ate import absolute_trajectory_error
+
+    kfs = [slam_map.keyframes[k] for k in sorted(slam_map.keyframes)]
+    est = np.stack([np.linalg.inv(k.T_cw)[:3, 3] for k in kfs])
+    gt = np.stack([np.linalg.inv(scene.poses[k.frame_idx])[:3, 3] for k in kfs])
+    return float(absolute_trajectory_error(est, gt, with_scale=False).rmse)
+
+
+def loop_phase(card):
+    """The loop sequence through System(cam) with loop closing, the launch
+    counts set to 0 just before and read just after; each closure's
+    keyframe-map ATE before and after it and its stage times; then every
+    essential-graph and global-BA problem a closure solved, solved again on
+    the card (bit-equal), and one global-BA solve under torch.profiler.
+    Returns the launches."""
+    import numpy as np
+    import torch
+
+    from tpuslam_torch.backend.global_ba import GlobalBAConfig
+    from tpuslam_torch.backend.lm import run_lm
+    from tpuslam_torch.backend.pose_graph import optimize_pose_graph, optimize_pose_graph_sim3
+
+    cam, scene, frames = make_loop_frames()
+    sys_ = loop_system(cam)
+    sys_.timer.warmup = 0  # keep every keyframe event's stage times
+    lc = sys_.loop_closer
+    closures = []
+    inner = lc._close
+
+    def close(kf, cand, ev=None):
+        pre = kf_map_ate(sys_.map, scene)
+        ok = inner(kf, cand, ev)
+        if ok:
+            closures.append((kf.kid, kf.frame_idx, cand, pre, kf_map_ate(sys_.map, scene)))
+        return ok
+
+    lc._close = close
+    reset_launches()
+    frame_s = []
+    for f, (il, ir) in enumerate(frames):
+        t = time.perf_counter()
+        sys_.track_stereo(il, ir, f * 0.05)
+        torch.cuda.synchronize()
+        frame_s.append(time.perf_counter() - t)
+    launches = read_launches()
+    sys_.shutdown()
+
+    traj = sys_.trajectory
+    ok = [r for r in traj if r.state.name == "OK"]
+    frame_ate = ate_of(ok, scene._replace(poses=scene.poses[[r.frame_idx for r in ok]]))
+    final = kf_map_ate(sys_.map, scene)
+    bound = JAX_LOOP_KF_ATE_M * LOOP_KF_ATE_FACTOR + ATE_MARGIN_M
+    print(
+        f"loop: {len(frames)} frames, OK {len(ok)} (JAX package {JAX_LOOP_OK_FRAMES}), keyframes {len(sys_.map.keyframes)}, "
+        f"loops closed {lc.closed_loops}, gba_skipped {lc.gba_skipped}; frame ATE {frame_ate:.5f} m, final keyframe-map ATE "
+        f"{final:.5f} m, bound {bound:.5f} m (JAX package {JAX_LOOP_KF_ATE_M} m x {LOOP_KF_ATE_FACTOR} + {ATE_MARGIN_M} m)",
+        flush=True,
+    )
+    for kid, frame, cand, pre, post in closures:
+        print(f"loop: closure of keyframe {kid} (frame {frame}) to keyframe {cand}: keyframe-map ATE {pre:.5f} -> {post:.5f} m", flush=True)
+    kf_s = [dt for r, dt in zip(traj[1:], frame_s[1:]) if r.made_keyframe]
+    other_s = [dt for r, dt in zip(traj[1:], frame_s[1:]) if not r.made_keyframe]
+    print(
+        f"loop: frames 1-{len(frames) - 1}: median {statistics.median(frame_s[1:]) * 1e3:.2f} ms/frame; keyframe frames "
+        f"{len(kf_s)} median {statistics.median(kf_s) * 1e3:.2f} ms, other frames median {statistics.median(other_s) * 1e3:.2f} ms "
+        f"on {card}",
+        flush=True,
+    )
+    lc_s = sys_.timer.times.get("loop_closing", [])
+    if len(lc_s) != len(lc.timings):
+        fail(f"loop: {len(lc_s)} loop-closing times for {len(lc.timings)} keyframe events")
+    quiet = [dt for ev, dt in zip(lc.timings, lc_s) if not ev["closed"]]
+    print(
+        f"loop: keyframe events {len(lc.timings)}; without a closure {len(quiet)}: loop closing median "
+        f"{statistics.median(quiet) * 1e3:.2f} ms (detection median "
+        f"{statistics.median([ev['detect_ms'] for ev in lc.timings if not ev['closed']]):.2f} ms), failed closure attempts "
+        f"{sum(1 for ev in lc.timings if 'compute_se3_ms' in ev and not ev['closed'])}; local mapping median "
+        f"{statistics.median(sys_.timer.times['local_mapping']) * 1e3:.2f} ms on {card}",
+        flush=True,
+    )
+    for rung, ms in sys_.mapper.solve_ms_by_rung.items():
+        print(f"loop: local BA solve rung (P, L, OL) = {rung}: {len(ms)} solves, median {statistics.median(ms):.2f} ms on {card}", flush=True)
+    done = [(ev, dt) for ev, dt in zip(lc.timings, lc_s) if ev["closed"]]
+    for (ev, dt), rec in zip(done, lc.closures):
+        gba = rec.get("gba", {})
+        solves = ", ".join(f"{ms:.2f}" for _, _, ms in gba.get("solves", []))
+        print(
+            f"loop: closure at keyframe {ev['kid']}: {dt * 1e3:.2f} ms = detect {ev['detect_ms']:.2f} + compute_se3 (RANSAC and "
+            f"the refinement) {ev['compute_se3_ms']:.2f} + essential graph {ev['essential_graph_ms']:.2f} (P, E, padded to "
+            f"{ev['graph_size']}) + correction {ev['correction_ms']:.2f} + global BA {ev.get('global_ba_ms', float('nan')):.2f} ms "
+            f"(rung (P, L, OL) {gba.get('rung')}, points (M, OP) {gba.get('point_rung')}, solves {solves} ms) on {card}",
+            flush=True,
+        )
+    if not closures:
+        fail("loop: no loop was closed")
+    # the last closure, as benchmarks/ladder.py's stereo_loop records it
+    kid, _, _, pre, post = closures[-1]
+    if not post < pre:
+        fail(f"loop: the closure at keyframe {kid} took the keyframe-map ATE from {pre} to {post} m, not below")
+    if not final <= bound:
+        fail(f"loop: final keyframe-map ATE {final} m above {bound} m")
+    if len(ok) < JAX_LOOP_OK_FRAMES - 2:
+        fail(f"loop: {len(ok)} OK frames, fewer than the JAX package's {JAX_LOOP_OK_FRAMES} - 2")
+
+    gcfg = lc.cfg.gba_cfg or GlobalBAConfig()
+    same = []
+    for rec in lc.closures:
+        prob, out = rec["pg"]
+        again = (optimize_pose_graph_sim3 if lc.mono else optimize_pose_graph)(prob, lc.cfg.pg)[0]
+        same.append(("essential graph", rec["kid"], torch.equal(again, out)))
+        for i, (p, st, _) in enumerate(rec.get("gba", {}).get("solves", [])):
+            st2 = run_lm(p, cam, gcfg.lm)
+            same.append((f"global BA solve {i + 1}", rec["kid"], all(torch.equal(a, b) for a, b in zip(st, st2))))
+    print(f"loop: the closures' problems solved again on the card: {same}", flush=True)
+    if not all(x for _, _, x in same):
+        fail("loop: a closure's problem solved again on the card gives another result")
+    prob, _ = lc.closures[-1]["pg"]
+    graph = optimize_pose_graph_sim3 if lc.mono else optimize_pose_graph
+    _, (busy_us, n_kernels, n_copies) = profiled(lambda: graph(prob, lc.cfg.pg), whole=False)
+    print(
+        f"loop: one essential-graph solve ({tuple(prob.poses.shape[:1]) + tuple(prob.e_i.shape)} poses and edges padded, "
+        f"{lc.cfg.pg.max_iters} iterations) under torch.profiler: device busy {busy_us / 1e3:.3f} ms, {n_kernels} kernel "
+        f"launches, {n_copies} memcpy/memset on {card}",
+        flush=True,
+    )
+    solves = lc.closures[-1].get("gba", {}).get("solves", [])
+    if solves:
+        p = solves[0][0]
+        _, (busy_us, n_kernels, n_copies) = profiled(lambda: run_lm(p, cam, gcfg.lm), whole=False)
+        print(
+            f"loop: one global BA solve (rung {lc.closures[-1]['gba']['rung']}, {gcfg.lm.max_iters} LM iterations) under "
+            f"torch.profiler: device busy {busy_us / 1e3:.3f} ms, {n_kernels} kernel launches, {n_copies} memcpy/memset on {card}",
+            flush=True,
+        )
+    calls, device = launches
+    want_lpc = launches_per_call()
+    n_frames = len(frames)
+    for name in PER_FRAME:
+        print(f"loop: {name} calls {calls[name]} ({calls[name] / n_frames:.2f} per frame), device launches {device[name]}", flush=True)
+        if calls[name] == 0:
+            fail(f"loop: {name} was not launched on the loop path")
+        if device[name] != calls[name] * want_lpc[name]:
+            fail(f"loop: {name}: {device[name]} device launches for {calls[name]} calls, expected {want_lpc[name]} per call")
+    return launches
+
 def main() -> int:
     import torch
 
@@ -1225,8 +1434,9 @@ def main() -> int:
     _, dot_scene_, dot_frames = make_frames(draw_points=True)
     hybrid_launches, _ = bench_phase(cam, dot_scene_, dot_frames, card, points=True)
     bench_profile_phase(cam, dot_frames, card, points=True)
+    loop_launches = loop_phase(card)
 
-    calls, device = hybrid_launches  # this slice's path: the hybrid bench
+    calls, device = loop_launches  # this slice's path: loop closing
     kernels = [
         dict(
             name=name,
@@ -1234,10 +1444,10 @@ def main() -> int:
             source=KERNELS[name][0],
             replaces=KERNELS[name][1],
             launches=calls[name],
-            launches_per_call=device[name] // calls[name],  # exact: the bench phases held it
+            launches_per_call=device[name] // calls[name],  # exact: the loop phase held it
             launches_by_path={
                 "slice": slice_launches[0][name], "mapping": map_launches[0][name], "bench": bench_launches[0][name],
-                "bench_hybrid": calls[name],
+                "bench_hybrid": hybrid_launches[0][name], "loop": calls[name],
             },
             **kres[name],
         )

@@ -818,3 +818,76 @@ def test_hybrid_bench_path_on_card(dev):
     want["blur"] = 2 * n
     assert {k: after[k] - before[k] for k in after} == want
     assert (s.map_points()["n_obs"] >= 2).sum() >= 50
+
+
+# ---- loop closing ------------------------------------------------------------
+
+
+def _pose_graphs(kind, dev):
+    """The drifted circle of tests/test_torch_pose_graph.py (SE(3), or Sim(3)
+    with scale drift), padded as the loop closer pads it, on ``dev``."""
+    from torch_loop_fixture import pose_graph_fields
+    from tpuslam_torch.backend import pose_graph as tpg
+    from tpuslam_torch.convert import pose_graph_problem_from, sim3_graph_problem_from
+
+    fields, _ = pose_graph_fields(kind)
+    cls, conv = (tpg.PoseGraphProblem, pose_graph_problem_from) if kind == "se3" else (tpg.Sim3GraphProblem, sim3_graph_problem_from)
+    return conv(dict(zip(cls._fields, fields)), dev)
+
+
+@pytest.mark.parametrize("kind", ["se3", "sim3"])
+def test_pose_graph_on_card_repeats_and_matches_cpu(dev, kind):
+    """Both pose graphs on the card: two solves bit for bit the same (the
+    block sums are fixed-order matmuls), and within 1e-4 of the CPU solve."""
+    from tpuslam_torch.backend import pose_graph as tpg
+
+    solve = tpg.optimize_pose_graph if kind == "se3" else tpg.optimize_pose_graph_sim3
+    cfg = tpg.PoseGraphConfig(max_iters=20)
+    a, ca = solve(_pose_graphs(kind, dev), cfg)
+    b, cb = solve(_pose_graphs(kind, dev), cfg)
+    assert torch.equal(a, b) and torch.equal(ca, cb)
+    c, _ = solve(_pose_graphs(kind, "cpu"), cfg)
+    torch.testing.assert_close(a.cpu(), c, rtol=0, atol=1e-4)
+
+
+def test_global_ba_on_card_repeats_and_matches_cpu(dev):
+    """Global BA on the multi-view drifted-loop map (tests/torch_loop_fixture.py):
+    two card runs write back bit-equal maps, within 1e-3 of the CPU's."""
+    from torch_loop_fixture import CAM, drifted_loop
+    from tpuslam_torch.backend.global_ba import global_bundle_adjustment
+    from tpuslam_torch.convert import map_state
+
+    states = []
+    for device in (dev, dev, "cpu"):
+        _, smap, _, _ = drifted_loop(n_kf=24, fuse=True)
+        stats = global_bundle_adjustment(smap, CAM, device=device)
+        assert stats.applied and stats.n_lines >= 30
+        states.append(map_state(smap))
+    a, b, c = states
+    for x, y, z in zip(a["keyframes"], b["keyframes"], c["keyframes"]):
+        np.testing.assert_array_equal(x["T_cw"], y["T_cw"])
+        np.testing.assert_allclose(x["T_cw"], z["T_cw"], atol=1e-3)
+    np.testing.assert_array_equal(a["lines"]["plucker"], b["lines"]["plucker"])
+
+
+def test_close_on_card_matches_cpu(dev):
+    """LoopCloser._close on the drifted loop (tests/torch_loop_fixture.py) on
+    the card and on the CPU: the same closure, keyframe poses within 1e-3,
+    landmark endpoints within 2e-3 m."""
+    from torch_loop_fixture import CAM, drifted_loop
+    from tpuslam_torch.backend.loop_closing import LoopCloser, LoopConfig
+    from tpuslam_torch.convert import map_state
+
+    out = []
+    for device in (dev, "cpu"):
+        _, smap, kids, _ = drifted_loop()
+        lc = LoopCloser(smap, CAM, LoopConfig(min_kid_gap=3, min_inliers=6, ransac_inlier_m=0.5, run_global_ba=False), device=device)
+        assert lc._close(smap.keyframes[kids[-1]], 0)
+        out.append((map_state(smap), lc.closed_loops))
+    (a, la), (c, lc_) = out
+    assert la == lc_ == [(kids[-1], 0)]
+    for x, z in zip(a["keyframes"], c["keyframes"]):
+        assert x["loop_edges"] == z["loop_edges"]
+        np.testing.assert_allclose(x["T_cw"], z["T_cw"], atol=1e-3)
+    alive = c["lines"]["alive"]
+    np.testing.assert_allclose(a["lines"]["endpoints"][alive], c["lines"]["endpoints"][alive], atol=2e-3)

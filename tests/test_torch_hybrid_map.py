@@ -172,7 +172,6 @@ def _unported():
         "single-frame hybrid pipeline": lambda: Tracker(
             DOTS, SlamMap(), dataclasses.replace(bench_configs(points=True)[0], chunk=1, semidirect=None), device="cpu"
         ),
-        "loop closing (point correction)": lambda: System(DOTS, sensor="stereo", tracker_cfg=hybrid, device="cpu"),
         "map serialization": lambda: System(DOTS, loop_closing=False, tracker_cfg=hybrid, device="cpu").save_map("map.npz"),
     }
 

@@ -88,10 +88,8 @@ def test_map_and_trajectory_outputs(runs, tmp_path):
 def test_unported_configurations_raise():
     s = System(QVGA, sensor="stereo", loop_closing=False, device="cpu")  # mapping=True is ported
     assert s.mapper is not None and s.tracker.kf_db is s.kf_db
-    with pytest.raises(NotImplementedError, match="loop_closing"):
-        System(QVGA, sensor="stereo", device="cpu")
-    with pytest.raises(NotImplementedError, match="loop_closing"):
-        System(QVGA, sensor="stereo", mapping=False, device="cpu")
+    s = System(QVGA, sensor="stereo", device="cpu")  # loop_closing=True is ported: the defaults build
+    assert s.loop_closer is not None and s.loop_closer.db is s.kf_db and not s.loop_closer.mono
     with pytest.raises(NotImplementedError, match="mono"):
         System(QVGA, sensor="mono", mapping=False, loop_closing=False, device="cpu")
     with pytest.raises(NotImplementedError, match="base_scale"):  # the in-program resize; prescaled=True is ported

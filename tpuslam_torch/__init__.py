@@ -8,10 +8,12 @@ kernels of ``tpuslam`` (blur, gradients, connected-component propagation)
 are CUDA C++ kernels under ``csrc/``, built at first use on a CUDA tensor;
 on a CPU tensor every kernel wrapper runs its plain PyTorch version.
 
-Implemented so far: stereo line SLAM without loop closing,
-``System(cam, sensor="stereo", mapping=True, loop_closing=False)``:
-synchronous descriptor-stereo tracking with relocalization, and local
-mapping with an LM+Schur local bundle adjustment at every keyframe.
+Implemented so far: stereo line SLAM, lines only or with hybrid points,
+``System(cam)`` with its defaults (``sensor="stereo", mapping=True,
+loop_closing=True``): synchronous or pipelined tracking with
+relocalization, local mapping with an LM+Schur local bundle adjustment at
+every keyframe, and loop closing (SE(3) essential graph, landmark
+correction, global bundle adjustment). Mono is not ported yet.
 """
 
 __version__ = "0.1.0"

@@ -13,8 +13,11 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from tpuslam_torch.backend.global_ba import GlobalBAConfig
 from tpuslam_torch.backend.lm import BAProblem
+from tpuslam_torch.backend.loop_closing import LoopConfig
 from tpuslam_torch.backend.mapping import MapperConfig
+from tpuslam_torch.backend.pose_graph import PoseGraphProblem, Sim3GraphProblem
 from tpuslam_torch.frontend.frame import FrameFeatures
 from tpuslam_torch.frontend.points import PointFrontendParams
 from tpuslam_torch.frontend.tracking import TrackerConfig
@@ -112,6 +115,49 @@ def mapper_config_from(value) -> MapperConfig:
     return MapperConfig(**out)
 
 
+def global_ba_config_from(value) -> GlobalBAConfig:
+    """GlobalBAConfig from the JAX package's (its LMConfig included)."""
+    return params_from(GlobalBAConfig, value)
+
+
+def loop_config_from(value) -> LoopConfig:
+    """LoopConfig from a LoopConfig-like dataclass (the JAX package's): its
+    MatchParams, PoseGraphConfig and, when set, GlobalBAConfig become this
+    package's types."""
+    ours = LoopConfig()
+    out = {}
+    for name, v in _ported_fields(value, {f.name for f in dataclasses.fields(LoopConfig)}, "LoopConfig").items():
+        default = getattr(ours, name)
+        if name == "gba_cfg":
+            v = None if v is None else global_ba_config_from(v)
+        elif hasattr(default, "_fields"):
+            v = params_from(type(default), v)
+        out[name] = v
+    return LoopConfig(**out)
+
+
+def _graph_problem_from(cls, value, device):
+    d = _as_mapping(value)
+    out = {}
+    for name in cls._fields:
+        a = np.asarray(d[name])
+        a = a.astype(np.int32 if name in ("e_i", "e_j") else np.float32)
+        out[name] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return cls(**out)
+
+
+def pose_graph_problem_from(value, device="cpu") -> PoseGraphProblem:
+    """PoseGraphProblem (tensors on ``device``) from one with its field
+    names; the edge ends stay int32, the rest float32."""
+    return _graph_problem_from(PoseGraphProblem, value, device)
+
+
+def sim3_graph_problem_from(value, device="cpu") -> Sim3GraphProblem:
+    """Sim3GraphProblem (tensors on ``device``) from one with its field
+    names; the edge ends stay int32, the rest float32."""
+    return _graph_problem_from(Sim3GraphProblem, value, device)
+
+
 # TrackerConfig fields whose default is None and whose value is a NamedTuple
 _TRACKER_PARAMS = {
     "direct_stereo": DirectStereoParams,
@@ -186,12 +232,12 @@ def chunk_inputs_from(frames, T_last, T_prevlast, local, device="cpu"):
 
 def _store_state(st, *arrays) -> dict:
     """A landmark store's arrays, observation dicts and free list."""
-    out = {name: np.asarray(getattr(st, name)) for name in arrays}
+    out = {name: np.array(getattr(st, name)) for name in arrays}
     out.update(
-        alive=np.asarray(st.alive),
+        alive=np.array(st.alive),
         desc_bits=np.asarray(st.desc_bits).astype(np.uint32),
-        n_obs=np.asarray(st.n_obs),
-        first_kf=np.asarray(st.first_kf),
+        n_obs=np.array(st.n_obs),
+        first_kf=np.array(st.first_kf),
         obs={int(l): {int(k): int(s) for k, s in o.items()} for l, o in st.obs.items()},
         next=int(st._next),
         free=[int(x) for x in st._free],
@@ -208,10 +254,11 @@ def _restore_store(st, state: Mapping, *arrays) -> None:
 
 
 def map_state(m) -> dict:
-    """Numpy/dict snapshot of a SlamMap of either package: the line and
+    """Numpy/dict snapshot (copies: later edits of the map leave it as it
+    was) of a SlamMap of either package: the line and
     point stores (free lists in order), the keyframes (poses, line and
-    corner features, observations, spanning tree) and the covisibility
-    graph."""
+    corner features, observations, spanning tree, loop edges) and the
+    covisibility graph."""
     lines = _store_state(m.lines, "plucker", "endpoints")
     points = _store_state(m.points, "xyz")
     keyframes = []
@@ -222,16 +269,17 @@ def map_state(m) -> dict:
                 kid=int(kf.kid),
                 frame_idx=int(kf.frame_idx),
                 timestamp=float(kf.timestamp),
-                T_cw=np.asarray(kf.T_cw, np.float32),
+                T_cw=np.array(kf.T_cw, np.float32),
                 features={k: np.asarray(v) for k, v in _as_mapping(kf.features).items()},
-                line_ids=np.asarray(kf.line_ids, np.int32),
+                line_ids=np.array(kf.line_ids, np.int32),
                 point_features=None
                 if kf.point_features is None
                 else {k: np.asarray(v) for k, v in _as_mapping(kf.point_features).items()},
-                point_ids=None if kf.point_ids is None else np.asarray(kf.point_ids, np.int32),
+                point_ids=None if kf.point_ids is None else np.array(kf.point_ids, np.int32),
                 is_bad=bool(kf.is_bad),
                 parent=kf.parent,
                 children=sorted(int(c) for c in kf.children),
+                loop_edges=sorted(int(c) for c in kf.loop_edges),
             )
         )
     covis = {int(a): {int(b): int(w) for b, w in row.items()} for a, row in m.covis.items()}
@@ -261,6 +309,7 @@ def slam_map_from(state: Mapping) -> SlamMap:
             is_bad=k["is_bad"],
             parent=k["parent"],
             children=set(k["children"]),
+            loop_edges=set(k["loop_edges"]),
             point_features=pf,
             point_ids=None if k["point_ids"] is None else np.asarray(k["point_ids"], np.int32).copy(),
         )

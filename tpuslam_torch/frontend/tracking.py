@@ -890,6 +890,15 @@ class Tracker:
         self._local_dirty = True
         self._plocal_dirty = True
 
+    def adopt_pose(self, T_cw: np.ndarray):
+        """Restart the motion model from an externally corrected pose (a loop
+        closure rewrites the keyframe poses; predicting from the
+        pre-correction chain would throw the next projection search)."""
+        self.T_cw = np.asarray(T_cw, np.float32).copy()
+        self.last_T_cw = self.T_cw.copy()
+        self.velocity = np.eye(4, dtype=np.float32)
+        self._dev_chain = None  # the device pose chain re-seeds from the host
+
     def _local_map_arrays(self):
         if not self._local_dirty and self._local_dev is not None:
             return self._local_dev

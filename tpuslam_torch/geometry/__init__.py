@@ -15,8 +15,10 @@ from tpuslam_torch.geometry.se3 import (  # noqa: F401
     se3_apply,
     se3_exp,
     se3_inverse,
+    se3_log,
     se3_orthonormalize,
     se3_retract,
     so3_exp,
     so3_hat,
+    so3_log,
 )

@@ -64,6 +64,52 @@ def _left_jacobian(phi: torch.Tensor) -> torch.Tensor:
     return _eye3(W) + b[..., None, None] * W + c[..., None, None] * W2
 
 
+def so3_vee(W: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) skew -> (..., 3)."""
+    return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], dim=-1)
+
+
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) rotation -> (..., 3) axis-angle.
+
+    theta / sin(theta) * w, with w = vee(R - R^T) / 2 = sin(theta) * axis; the
+    factor is an even function of theta, smooth in sin^2, so the gradient is
+    finite at the identity. Within 0.999 of cos = -1 the axis comes from the
+    column of R + I with the largest diagonal entry."""
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    cos_theta = torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0)
+    w = so3_vee(R - R.transpose(-1, -2)) * 0.5
+    s2 = torch.sum(w * w, dim=-1)
+
+    small = s2 < 1e-10
+    sin_safe = torch.sqrt(torch.where(small, torch.ones_like(s2), s2))
+    theta_g = torch.atan2(sin_safe, cos_theta)
+    scale = torch.where(small, 1.0 + s2 / 6.0, theta_g / sin_safe)
+    phi_generic = scale[..., None] * w
+    theta = torch.where(small, torch.sqrt(torch.clamp(s2, min=0.0)), theta_g)
+
+    near_pi = cos_theta < -0.999
+    Rp = R + _eye3(R)
+    diag = torch.stack([Rp[..., 0, 0], Rp[..., 1, 1], Rp[..., 2, 2]], dim=-1)
+    k = torch.argmax(diag, dim=-1)
+    col = torch.take_along_dim(Rp, k[..., None, None].expand(k.shape + (3, 1)), dim=-1)[..., 0]
+    axis = col / torch.clamp(torch.linalg.norm(col, dim=-1, keepdim=True), min=_EPS)
+    phi_pi = theta[..., None] * axis
+    return torch.where(near_pi[..., None], phi_pi, phi_generic)
+
+
+def _left_jacobian_inv(phi: torch.Tensor) -> torch.Tensor:
+    """Inverse left Jacobian V^-1 = I - W/2 + k(theta) W^2, with
+    k = (1 - theta cot(theta / 2) / 2) / theta^2 even in theta (AD-safe at 0)."""
+    t2 = torch.sum(phi * phi, dim=-1)
+    small = t2 < 1e-8
+    safe_t2 = torch.where(small, torch.ones_like(t2), t2)
+    t = torch.sqrt(safe_t2)
+    cot_term = torch.where(small, 1.0 / 12.0 + t2 / 720.0, (1.0 - 0.5 * t / torch.tan(0.5 * t)) / safe_t2)
+    W = so3_hat(phi)
+    return _eye3(W) - 0.5 * W + cot_term[..., None, None] * (W @ W)
+
+
 def _homogeneous(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """(..., 3, 3), (..., 3) -> (..., 4, 4) [[R, t], [0, 1]]."""
     top = torch.cat([R, t[..., None]], dim=-1)
@@ -78,6 +124,13 @@ def se3_exp(xi: torch.Tensor) -> torch.Tensor:
     R = so3_exp(phi)
     t = (_left_jacobian(phi) @ rho[..., None])[..., 0]
     return _homogeneous(R, t)
+
+
+def se3_log(T: torch.Tensor) -> torch.Tensor:
+    """(..., 4, 4) -> (..., 6) [rho, phi]."""
+    phi = so3_log(T[..., :3, :3])
+    rho = (_left_jacobian_inv(phi) @ T[..., :3, 3:4])[..., 0]
+    return torch.cat([rho, phi], dim=-1)
 
 
 def se3_orthonormalize(T: torch.Tensor) -> torch.Tensor:

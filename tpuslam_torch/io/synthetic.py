@@ -1,7 +1,7 @@
 """Procedural synthetic wireframe scenes and their rendered frames (numpy).
 
-``make_wireframe_scene`` is a copy of the JAX package's
-(``tpuslam.io.synthetic``), so the same seed gives the same scene, and
+``make_wireframe_scene`` and ``make_loop_scene`` are copies of the JAX
+package's (``tpuslam.io.synthetic``), so the same seed gives the same scene, and
 ``observe_frame`` its segment and point projection.
 ``render_wireframe_image`` draws with numpy alone: the JAX package draws
 its lines with ``cv2.line``, which the machines that run the port may not
@@ -96,6 +96,51 @@ def make_wireframe_scene(
         cam=cam,
     )
 
+
+
+def make_loop_scene(
+    rng: np.random.Generator,
+    n_segments: int = 240,
+    n_frames: int = 80,
+    radius: float = 6.0,
+    room: float = 16.0,
+    cam: Intrinsics | None = None,
+) -> SyntheticScene:
+    """The camera circles inside a wireframe room and comes back to its
+    start, looking along its path: the loop-closure scene (the JAX package's
+    generator, draw for draw). Segments are scattered on a cylinder of walls
+    of radius ``room``; the scene has no points."""
+    if cam is None:
+        cam = Intrinsics(fx=458.0, fy=457.0, cx=320.0, cy=240.0, width=640, height=480)
+    ang = rng.uniform(0, 2 * np.pi, n_segments)
+    h = rng.uniform(-2.5, 2.5, n_segments)
+    centers = np.stack([room * np.cos(ang), h, room * np.sin(ang)], axis=-1)
+    dirs = rng.normal(size=(n_segments, 3))
+    axis_mask = rng.random(n_segments) < 0.6
+    axes = np.eye(3)[rng.integers(0, 3, n_segments)]
+    dirs = np.where(axis_mask[:, None], axes, dirs)
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True) + 1e-12
+    half = rng.uniform(0.5, 2.0, (n_segments, 1))
+    segments = np.stack([centers - dirs * half, centers + dirs * half], axis=1)
+
+    poses = []
+    for f in range(n_frames):
+        a = 2 * np.pi * f / n_frames
+        c = np.array([radius * np.cos(a), 0.0, radius * np.sin(a)])
+        z = np.array([-np.sin(a), 0.0, np.cos(a)])  # along the direction of motion
+        x = np.cross(np.array([0.0, 1.0, 0.0]), z)
+        x /= np.linalg.norm(x)
+        y = np.cross(z, x)
+        T_wc = np.eye(4, dtype=np.float32)
+        T_wc[:3, :3] = np.stack([x, y, z], axis=1)
+        T_wc[:3, 3] = c
+        poses.append(np.linalg.inv(T_wc).astype(np.float32))
+    return SyntheticScene(
+        segments=segments.astype(np.float32),
+        points=np.zeros((0, 3), np.float32),
+        poses=np.stack(poses),
+        cam=cam,
+    )
 
 class FrameObservations(NamedTuple):
     seg_uv: np.ndarray  # (S, 2, 2) projected segment endpoints (px)

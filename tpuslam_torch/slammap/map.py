@@ -74,6 +74,7 @@ class KeyFrame:
     is_bad: bool = False
     parent: Optional[int] = None  # spanning tree: best covisible keyframe
     children: set = field(default_factory=set)
+    loop_edges: set = field(default_factory=set)  # kids of the keyframes a loop closure joined
     # hybrid point landmarks: present only with the point front end
     point_features: Optional[PointFeatures] = None  # numpy copies, capacity KP
     point_ids: Optional[np.ndarray] = None  # (KP,) int32: corner slot -> MapPoint id (-1 = none)

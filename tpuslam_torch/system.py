@@ -1,6 +1,6 @@
 """System facade: the public API (torch).
 
-    sys = System(cam, sensor="stereo", mapping=True, loop_closing=False, device="cuda")
+    sys = System(cam, sensor="stereo", mapping=True, loop_closing=True, device="cuda")
     T_cw = sys.track_stereo(imL, imR, t)     # per-frame pose (numpy 4x4)
     sys.map_lines(); sys.keyframe_graph()
     sys.save_trajectory_tum(path); sys.shutdown()
@@ -11,8 +11,10 @@ stereo tracking with relocalization (synchronous, or in pipelined
 semi-direct chunks: the JAX package's bench configuration), lines only or
 with hybrid points (``TrackerConfig.points``), and, with
 ``mapping=True``, synchronous local mapping after each keyframe (culling,
-fusion, LM+Schur local BA on ``device``). ``loop_closing=True`` and
-``sensor="mono"`` raise NotImplementedError.
+fusion, LM+Schur local BA on ``device``) followed, with
+``loop_closing=True`` (the default), by the loop closer (detection, the
+SE(3) essential graph, landmark correction and global BA on ``device``).
+``sensor="mono"`` raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from tpuslam_torch.backend.loop_closing import KeyFrameDatabase
+from tpuslam_torch.backend.loop_closing import KeyFrameDatabase, LoopCloser
 from tpuslam_torch.backend.mapping import LocalMapper, MapperConfig
 from tpuslam_torch.device import resolve_device
 from tpuslam_torch.frontend.tracking import FrameResult, Tracker, TrackerConfig, TrackingState
@@ -85,7 +87,8 @@ def bench_configs(chunk: int = 6, points: bool = False):
 
 
 class System:
-    """Top-level SLAM system: stereo line tracking and local mapping on ``device``."""
+    """Top-level SLAM system: stereo line tracking, local mapping and loop
+    closing on ``device``."""
 
     def __init__(
         self,
@@ -101,11 +104,9 @@ class System:
         if not isinstance(settings, Intrinsics):
             raise TypeError("settings: pass tpuslam_torch.Intrinsics (settings files are not ported yet)")
         if sensor == "mono":
-            raise NotImplementedError("sensor='mono' is not ported yet (later work after loop closing)")
+            raise NotImplementedError("sensor='mono' is not ported yet (ROADMAP.md, the next module)")
         if sensor != "stereo":
             raise ValueError(f"unknown sensor mode {sensor!r}")
-        if loop_closing:
-            raise NotImplementedError("loop_closing=True is not ported yet")
         device = resolve_device(device)
         self.sensor = sensor
         self.cam = settings
@@ -125,6 +126,10 @@ class System:
         self.kf_db = KeyFrameDatabase(point_slots=tcfg.points.max_points if tcfg.points is not None else 0, device=device)
         self.tracker.kf_db = self.kf_db  # relocalization
         self.map.on_keyframe_erased = self.kf_db.remove  # culled KFs leave the DB
+        self.loop_closer: Optional[LoopCloser] = None
+        if loop_closing:
+            # on the System's own database, which relocalization queries too
+            self.loop_closer = LoopCloser(self.map, settings, db=self.kf_db, mono=(sensor == "mono"), device=device)
         self.trajectory: List[FrameResult] = []
         self._log_f = open(log_path, "w") if log_path else None
 
@@ -132,7 +137,16 @@ class System:
         t0 = time.perf_counter()
         self.mapper.process(kf)
         self.timer.add("local_mapping", time.perf_counter() - t0)
-        self.kf_db.add(kf)  # no loop closer: the database serves relocalization
+        if self.loop_closer is None:
+            self.kf_db.add(kf)  # no loop closer: the database serves relocalization
+            return
+        t0 = time.perf_counter()
+        corrected = self.loop_closer.process(kf)  # adds kf to the database
+        self.timer.add("loop_closing", time.perf_counter() - t0)
+        if corrected:
+            self.tracker.invalidate_local_map()
+            # track on from the corrected pose, not the pre-correction chain
+            self.tracker.adopt_pose(kf.T_cw)
 
     def _log(self, r: FrameResult, dt: float):
         if self._log_f is None:
