@@ -88,11 +88,37 @@ first failure and catches nothing):
    kernel calls per extraction (blur 2: the pyramid's and BRIEF's), live
    and multi-observation point counts, frames/s; host syncs of its chunk
    program (must be 0) and the device busy ms and launches of its anchor
-   and one follower.
+   and one follower;
+   then the loop phase: System(cam) with its defaults (stereo, mapping,
+   loop closing) over benchmarks/ladder.py's stereo_loop scene with a
+   48-frame dwell (148 QVGA frames): a closure, the keyframe-map ATE
+   lower after the last closure, the final one within the JAX package's
+   x 1.05 + 0.01 m, the closures' problems solved again bit-equal;
+10. mono: System(cam, sensor="mono") with its defaults (mapping, loop
+   closing on the Sim(3) branch) and benchmarks/ladder.py's mono tracker
+   settings over its mono_sequence scene at VGA (fx 458, 60 segments, 120
+   points drawn as dots, 30 frames), hybrid and lines only: initialized no
+   later than the JAX package's first OK frame + 2, every later frame OK,
+   3+ keyframes, the kernel calls per frame (one full-resolution left
+   extraction: blur 1, 2 in hybrid, gradients 2, lsd_front 2, CCL 2, each
+   sum kernel 2), in hybrid 10+ points seen from two keyframes and the
+   Sim(3) ATE within the JAX package's x 1.05 + 0.01 m, lines only the
+   median Sim(3) ATE over 11 RANSAC draws within the JAX package's median
+   over its 11 x 1.05 + 0.01 m (lines-only mono is chaotic in the draws);
+   the hybrid run again (the same keyframes, bit-equal poses); ms per frame (keyframe
+   frames apart), mp.triangulate ms per keyframe event, the initializer's
+   ms and the host syncs of one attempt, the device busy ms and launches of
+   one steady frame;
+11. the mono loop: the same System with hybrid points over the ladder's
+   mono_loop (140 QVGA frames, dwell 20): OK frames within 2 of the JAX
+   package's, a closure through the Sim(3) branch, the final keyframe-map
+   Sim(3) ATE within the JAX package's x 1.05 + 0.01 m; each closure's
+   scale and stage times.
 
 Output: a {"kernels": [...]} JSON line (calls per path and launches per
-call from the bench run; times, bounds, errors and profiled launches per
-call at 480x640 from phase 3, device us at every shape timed),
+call from the mono phase's hybrid run, the main path; times, bounds,
+errors and profiled launches per call at 480x640 from phase 3, device us
+at every shape timed),
 the card line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -147,6 +173,41 @@ ATE_MARGIN_M = 0.01
 JAX_LOOP_OK_FRAMES = 148
 JAX_LOOP_KF_ATE_M = 0.680995491968856  # rigid ATE of the keyframe map at the end
 LOOP_KF_ATE_FACTOR = 1.05  # the final keyframe-map ATE bound: JAX x 1.05 + ATE_MARGIN_M
+# the mono sequence (`make_mono_frames`: benchmarks/ladder.py's mono_sequence
+# scene at VGA, 30 frames) through tpuslam.system.System(cam, sensor="mono",
+# tracker_cfg=MONO_TRACKER there, mapping and loop closing on), XLA:CPU, cv2
+# hidden, TPUSLAM_KF_DEFER_MS=0, TPUSLAM_NATIVE_MAP=0, TPUSLAM_WARM_LOOP=0,
+# TPUSLAM_BA_SUBPROCESS=0: `python tests/test_torch_mono.py mono` prints them
+# (hybrid: first OK frame 4, 26 OK frames, keyframes at frames 4, 8, ..., 28;
+# lines only: first OK frame 5, 25 OK frames, keyframes at 5, 9, ..., 29).
+# ATE: Sim(3)-aligned RMSE over the OK frames.
+JAX_MONO_HYBRID_FIRST_OK = 4
+JAX_MONO_HYBRID_ATE_M = 0.02929071390771116
+JAX_MONO_LINES_FIRST_OK = 5
+JAX_MONO_LINES_ATE_M = 0.22372437381713334
+# Lines only, the Sim(3) ATE is chaotic in the RANSAC draws (in the JAX
+# package too: the scale of a lines-only mono map drifts), so that run is held
+# by the median over MONO_DRAWS runs: the JAX package's with PRNGKey(frame_idx
+# + 1000 k), k = 0..10 (k = 0 is the run above; `python
+# tests/test_torch_mono.py draws 1 11` prints the others), the port's with
+# its generator seeded frame_idx + 1000 k on the card (k = 0: the default)
+JAX_MONO_LINES_DRAW_ATES_M = (
+    0.22372437381713334, 0.090788042155714, 0.42738820079879375, 0.16759669018952306, 0.1412654692079062,
+    0.1531556027260977, 0.2867959017854134, 0.2774904866119114, 0.27804777105496004, 0.3138127518700231,
+    0.1760691221047711,
+)
+MONO_DRAWS = len(JAX_MONO_LINES_DRAW_ATES_M)
+MONO_ATE_FACTOR = 1.05  # mono ATE bounds: JAX x 1.05 + ATE_MARGIN_M
+# the mono loop (`make_mono_loop_frames`: benchmarks/ladder.py's mono_loop,
+# with the ladder's 20-frame dwell, 140 QVGA frames) through the same System
+# with hybrid points, the same settings: `python tests/test_torch_mono.py
+# loop` prints them (138 frames OK, 37 keyframes, loops closed at keyframes
+# 30, 32, 34 and 36 through the Sim(3) branch; the final keyframe map's
+# Sim(3) ATE is that after the last closure)
+JAX_MONO_LOOP_OK_FRAMES = 138
+JAX_MONO_LOOP_KF_ATE_M = 1.554863693170919
+# benchmarks/ladder.py's mono tracker settings
+MONO_TRACKER = dict(min_init_lines=8, min_track_matches=6, min_track_inliers=6, max_frames_between_kf=4)
 RELOC_FRAME = 20
 # kernel calls per stereo frame on the slice (two cameras, two levels each):
 # the pyramid's blur per camera; per camera and level the LBD gradients, the
@@ -258,6 +319,48 @@ def make_loop_frames(n_frames: int = LOOP_FRAMES, dwell: int = LOOP_DWELL):
         for f in range(n_frames + dwell)
     ]
     return cam, scene, frames
+
+
+MONO_FRAMES = 30
+
+
+def make_mono_frames(n_frames: int = MONO_FRAMES):
+    """The monocular sequence of benchmarks/ladder.py's mono_sequence (BASELINE
+    config #2's analog) at VGA: fx 458 / fy 457, no baseline,
+    ``make_mono_scene(rng(11), 60 segments, 120 points, step 0.06)`` and its
+    uint8 frames rendered with noise 1 and the points drawn as dots, all from
+    seed 11."""
+    import numpy as np
+
+    from tpuslam_torch import Intrinsics
+    from tpuslam_torch.io.synthetic import make_mono_scene, render_wireframe_image
+
+    cam = Intrinsics(fx=458.0, fy=457.0, cx=320.0, cy=240.0, width=640, height=480)
+    rng = np.random.default_rng(11)
+    scene = make_mono_scene(rng, n_frames, cam=cam)
+    frames = [render_wireframe_image(scene, f, noise=1.0, rng=rng, draw_points=True) for f in range(n_frames)]
+    return cam, scene, frames
+
+
+MONO_LOOP_FRAMES, MONO_LOOP_DWELL = 120, 20  # the circle's frames, then its first MONO_LOOP_DWELL frames again
+
+
+def make_mono_loop_frames(n_frames: int = MONO_LOOP_FRAMES, dwell: int = MONO_LOOP_DWELL):
+    """The monocular loop of benchmarks/ladder.py's mono_loop: QVGA at fx
+    200, ``make_mono_loop_scene(rng(7), n_frames, dwell)`` and its uint8
+    frames rendered with noise 1 and ``draw_points`` (the scene has no
+    points), all from seed 7."""
+    import numpy as np
+
+    from tpuslam_torch import Intrinsics
+    from tpuslam_torch.io.synthetic import make_mono_loop_scene, render_wireframe_image
+
+    cam = Intrinsics(fx=200.0, fy=200.0, cx=160.0, cy=120.0, width=320, height=240, baseline=0.1)
+    rng = np.random.default_rng(7)
+    scene = make_mono_loop_scene(rng, n_frames, dwell, cam=cam)
+    frames = [render_wireframe_image(scene, f, noise=1.0, rng=rng, draw_points=True) for f in range(n_frames + dwell)]
+    return cam, scene, frames
+
 
 def ate_of(trajectory, scene) -> float:
     import numpy as np
@@ -1248,8 +1351,9 @@ def loop_system(cam):
     return System(cam, sensor="stereo", mapping=True, loop_closing=True, tracker_cfg=cfg, device="cuda")
 
 
-def kf_map_ate(slam_map, scene) -> float:
-    """Rigid ATE RMSE (m) of the keyframes' camera centres."""
+def kf_map_ate(slam_map, scene, with_scale: bool = False) -> float:
+    """ATE RMSE (m) of the keyframes' camera centres, rigid or, with
+    ``with_scale``, Sim(3)-aligned (mono: the scale is free)."""
     import numpy as np
 
     from tpuslam_torch.eval.ate import absolute_trajectory_error
@@ -1257,7 +1361,7 @@ def kf_map_ate(slam_map, scene) -> float:
     kfs = [slam_map.keyframes[k] for k in sorted(slam_map.keyframes)]
     est = np.stack([np.linalg.inv(k.T_cw)[:3, 3] for k in kfs])
     gt = np.stack([np.linalg.inv(scene.poses[k.frame_idx])[:3, 3] for k in kfs])
-    return float(absolute_trajectory_error(est, gt, with_scale=False).rmse)
+    return float(absolute_trajectory_error(est, gt, with_scale=with_scale).rmse)
 
 
 def loop_phase(card):
@@ -1397,6 +1501,312 @@ def loop_phase(card):
             fail(f"loop: {name}: {device[name]} device launches for {calls[name]} calls, expected {want_lpc[name]} per call")
     return launches
 
+
+def mono_system(cam, points: bool):
+    """System(cam, sensor="mono") with its defaults (mapping and loop closing
+    on) and benchmarks/ladder.py's mono tracker settings, hybrid or lines
+    only."""
+    from tpuslam_torch.frontend.points import PointFrontendParams
+    from tpuslam_torch.frontend.tracking import TrackerConfig
+    from tpuslam_torch.system import System
+
+    cfg = TrackerConfig(**MONO_TRACKER, points=PointFrontendParams() if points else None)
+    return System(cam, sensor="mono", tracker_cfg=cfg, device="cuda")
+
+
+def sim3_ate(trajectory, scene) -> float:
+    """Sim(3)-aligned ATE RMSE (m) of the OK frames' camera centres (mono:
+    the scale is free)."""
+    import numpy as np
+
+    from tpuslam_torch.eval.ate import absolute_trajectory_error
+
+    ok = [r for r in trajectory if r.state.name == "OK"]
+    est = np.stack([np.linalg.inv(r.T_cw)[:3, 3] for r in ok])
+    gt = np.stack([np.linalg.inv(scene.poses[r.frame_idx])[:3, 3] for r in ok])
+    return float(absolute_trajectory_error(est, gt, with_scale=True).rmse)
+
+
+def check_mono_launches(tag: str, launches, per_extraction: dict, n_extractions: int) -> None:
+    calls, device = launches
+    want_lpc = launches_per_call()
+    for name, per in per_extraction.items():
+        want = per * n_extractions
+        print(f"{tag}: {name} calls {calls[name]} (expected {want}), device launches {device[name]}", flush=True)
+        if calls[name] != want:
+            fail(f"{tag}: {name}: {calls[name]} calls, expected {per} per frame")
+        if device[name] != calls[name] * want_lpc[name]:
+            fail(f"{tag}: {name}: {device[name]} device launches for {calls[name]} calls, expected {want_lpc[name]} per call")
+
+
+def seeded_draws(k: int):
+    """The initializer's RANSAC draws from a generator on the card seeded
+    with frame_idx + 1000 k (k = 0: the draws it makes by default)."""
+    import torch
+
+    def draw(frame_idx, n_rows, n_hypotheses):
+        g = torch.Generator(device="cuda")
+        g.manual_seed(frame_idx + 1000 * k)
+        rows = torch.ones(n_rows, device="cuda")
+        return torch.multinomial(rows, n_hypotheses * 8, replacement=True, generator=g).reshape(n_hypotheses, 8)
+
+    return draw
+
+
+def mono_run(cam, frames, points: bool, sampler=None):
+    """One mono System over the frames, the launch counts set to 0 just
+    before and read just after; each frame and each of the initializer's
+    attempts timed. Returns (system, launches)."""
+    import torch
+
+    from tpuslam_torch.frontend.initializer import MonoInitializer
+
+    sys_ = mono_system(cam, points)
+    sys_.timer.warmup = 0  # keep every keyframe event's stage times
+    init = sys_.tracker.mono_init = MonoInitializer(cam, sampler=sampler)
+    attempts = []
+    inner = init.try_initialize
+
+    def timed(*a, **k):
+        t = time.perf_counter()
+        out = inner(*a, **k)
+        torch.cuda.synchronize()
+        attempts.append((time.perf_counter() - t, out is not None))
+        return out
+
+    init.try_initialize = timed
+    reset_launches()
+    frame_s = []
+    for f, img in enumerate(frames):
+        t = time.perf_counter()
+        sys_.track_monocular(img, f * 0.05)
+        torch.cuda.synchronize()
+        frame_s.append(time.perf_counter() - t)
+    launches = read_launches()
+    sys_.shutdown()
+    sys_.frame_s, sys_.init_attempts = frame_s, attempts
+    return sys_, launches
+
+
+def mono_phase(card):
+    """Phase 10: the mono sequence at VGA through System(cam, sensor="mono"),
+    hybrid and lines only, and the hybrid run again (bit-equal). Returns the
+    launches of the hybrid run and of the lines-only run."""
+    import numpy as np
+    import torch
+
+    from tpuslam_torch.frontend.frame import extract_features
+    from tpuslam_torch.frontend.initializer import MonoInitializer
+    from tpuslam_torch.frontend.points import PointFrontendParams, extract_points
+
+    cam, scene, frames = make_mono_frames()
+    out = {}
+    for points, jax_first, jax_ate in (
+        (True, JAX_MONO_HYBRID_FIRST_OK, JAX_MONO_HYBRID_ATE_M),
+        (False, JAX_MONO_LINES_FIRST_OK, JAX_MONO_LINES_ATE_M),
+    ):
+        tag = "mono hybrid" if points else "mono lines"
+        sys_, launches = mono_run(cam, frames, points)
+        traj = sys_.trajectory
+        states = [r.state.name for r in traj]
+        kfs = [r.frame_idx for r in traj if r.made_keyframe]
+        first = states.index("OK") if "OK" in states else len(states)
+        ate = sim3_ate(traj, scene) if first < len(states) else float("inf")
+        bound = jax_ate * MONO_ATE_FACTOR + ATE_MARGIN_M
+        pst = sys_.map.points
+        live = pst.live_ids()
+        n_multi = int((pst.n_obs[live] >= 2).sum())
+        print(f"{tag}: states {states}", flush=True)
+        print(
+            f"{tag}: first OK frame {first} (JAX package {jax_first}), keyframes {kfs}, live lines "
+            f"{len(sys_.map.lines.live_ids())}, live points {len(live)}, seen from 2+ keyframes {n_multi}; Sim(3) ATE {ate:.5f} m "
+            f"(JAX package {jax_ate} m)",
+            flush=True,
+        )
+        if first > jax_first + 2:
+            fail(f"{tag}: initialized at frame {first}, later than the JAX package's {jax_first} + 2")
+        if any(st != "OK" for st in states[first:]):
+            fail(f"{tag}: a frame after initialization did not track OK")
+        if len(sys_.map.keyframes) < 3:
+            fail(f"{tag}: only {len(sys_.map.keyframes)} keyframes")
+        if not points:
+            # the median over MONO_DRAWS draws (k = 0 is this run)
+            ates = [ate]
+            for k in range(1, MONO_DRAWS):
+                other, _ = mono_run(cam, frames, False, sampler=seeded_draws(k))
+                st = [r.state.name for r in other.trajectory]
+                ates.append(sim3_ate(other.trajectory, scene) if "OK" in st else float("inf"))
+            ate, jax_ate = statistics.median(ates), statistics.median(JAX_MONO_LINES_DRAW_ATES_M)
+            bound = jax_ate * MONO_ATE_FACTOR + ATE_MARGIN_M
+            print(
+                f"{tag}: Sim(3) ATE over {MONO_DRAWS} RANSAC draws {', '.join(f'{a:.5f}' for a in ates)} m: median {ate:.5f} m, "
+                f"bound {bound:.5f} m (the JAX package's median {jax_ate} m x {MONO_ATE_FACTOR} + {ATE_MARGIN_M} m)",
+                flush=True,
+            )
+        else:
+            print(f"{tag}: Sim(3) ATE bound {bound:.5f} m (JAX package {jax_ate} m x {MONO_ATE_FACTOR} + {ATE_MARGIN_M} m)", flush=True)
+        if not ate <= bound:
+            fail(f"{tag}: Sim(3) ATE {ate} m above {bound} m")
+        if points and n_multi < 10:
+            fail(f"{tag}: {n_multi} point landmarks seen from two keyframes, fewer than 10")
+        check_mono_launches(tag, launches, PER_EXTRACTION_HYBRID if points else PER_EXTRACTION, len(frames))
+        frame_s = sys_.frame_s
+        kf_s = [dt for r, dt in zip(traj, frame_s) if r.made_keyframe and r.frame_idx > first]
+        other_s = [dt for r, dt in zip(traj, frame_s) if not r.made_keyframe and r.frame_idx > first]
+        tri = sys_.timer.times.get("mp.triangulate", [])
+        init_s = [dt for dt, ok in sys_.init_attempts if ok]
+        print(
+            f"{tag}: frames after initialization: median {statistics.median(frame_s[first + 1:]) * 1e3:.2f} ms/frame; keyframe "
+            f"frames {len(kf_s)} median {statistics.median(kf_s) * 1e3:.2f} ms, other frames median "
+            f"{statistics.median(other_s) * 1e3:.2f} ms; mp.triangulate median {statistics.median(tri) * 1e3:.2f} ms per keyframe "
+            f"event ({len(tri)} events); the initializer's successful attempt {init_s[0] * 1e3:.2f} ms, its "
+            f"{len(sys_.init_attempts) - 1} earlier attempts {sum(dt for dt, _ in sys_.init_attempts[:-1]) * 1e3:.2f} ms in all; "
+            f"local mapping median {statistics.median(sys_.timer.times['local_mapping']) * 1e3:.2f} ms, loop closing median "
+            f"{statistics.median(sys_.timer.times['loop_closing']) * 1e3:.2f} ms on {card}",
+            flush=True,
+        )
+        out[points] = (sys_, launches)
+
+    # the hybrid run again: the card repeats it (the RANSAC draws from a seeded generator)
+    hyb = out[True][0]
+    again, _ = mono_run(cam, frames, True)
+    kfs = [[r.frame_idx for r in t if r.made_keyframe] for t in (hyb.trajectory, again.trajectory)]
+    same = len(hyb.trajectory) == len(again.trajectory) and all(
+        np.array_equal(a.T_cw, b.T_cw) for a, b in zip(hyb.trajectory, again.trajectory)
+    )
+    print(f"mono hybrid repeat: keyframes {kfs[0]} then {kfs[1]}; poses bit-equal: {same}", flush=True)
+    if kfs[0] != kfs[1] or not same:
+        fail("mono: a second hybrid run differs from the first")
+
+    # the host syncs of one initialization attempt (the one that succeeded in the hybrid run)
+    first = [r.state.name for r in hyb.trajectory].index("OK")
+    init = MonoInitializer(cam)
+    pp = PointFrontendParams()
+
+    def features(f):
+        img = torch.from_numpy(frames[f]).cuda().to(torch.float32) / 255.0
+        return extract_features(img), extract_points(img, pp)
+
+    f0, p0 = features(0)
+    fk, pk = features(first)
+    init.try_initialize(f0, 0.0, 0, aux=p0)
+    torch.cuda.synchronize()
+    result = []
+
+    def attempt():
+        t = time.perf_counter()
+        result.append(init.try_initialize(fk, first * 0.05, first, aux=pk))
+        torch.cuda.synchronize()
+        result.append(time.perf_counter() - t)
+
+    sites = count_syncs(attempt)
+    print(
+        f"mono: one initialization attempt (frame 0 with frame {first}, initialized: {result[0] is not None}, the solvers "
+        f"warm): {result[1] * 1e3:.2f} ms, {len(sites)} host syncs at {sorted(set(sites))} on {card}",
+        flush=True,
+    )
+
+    # one steady frame of a fresh hybrid System under torch.profiler
+    sys_ = mono_system(cam, True)
+    for f in range(first + 3):
+        sys_.track_monocular(frames[f], f * 0.05)
+    todo = iter(range(first + 3, len(frames)))
+    walls = []
+
+    def run():
+        f = next(todo)
+        t = time.perf_counter()
+        sys_.track_monocular(frames[f], f * 0.05)
+        torch.cuda.synchronize()
+        walls.append((f, time.perf_counter() - t))
+
+    _, (busy_us, n_kernels, n_copies) = profiled(run, whole=False)
+    f, wall = walls[-1]
+    r = sys_.trajectory[f]
+    print(
+        f"mono hybrid profile: frame {f} ({r.state.name}, keyframe {r.made_keyframe}): device busy {busy_us / 1e3:.3f} ms, "
+        f"{n_kernels} kernel launches, {n_copies} memcpy/memset, {wall * 1e3:.2f} ms under the profiler (device idle "
+        f"{1 - busy_us / 1e6 / wall:.1%}) on {card}",
+        flush=True,
+    )
+    sys_.shutdown()
+    return out[True][1], out[False][1]
+
+
+def mono_loop_phase(card):
+    """Phase 11: the mono loop through System(cam, sensor="mono") with hybrid
+    points and loop closing on its Sim(3) branch, the launch counts set to 0
+    just before and read just after. Returns the launches."""
+    import torch
+
+    cam, scene, frames = make_mono_loop_frames()
+    sys_ = mono_system(cam, True)
+    sys_.timer.warmup = 0
+    lc = sys_.loop_closer
+    if not lc.mono:
+        fail("mono loop: the loop closer is not on its Sim(3) branch")
+    closures = []
+    inner = lc._close
+
+    def close(kf, cand, ev=None):
+        pre = kf_map_ate(sys_.map, scene, with_scale=True)
+        ok = inner(kf, cand, ev)
+        if ok:
+            closures.append((kf.kid, kf.frame_idx, cand, pre, kf_map_ate(sys_.map, scene, with_scale=True)))
+        return ok
+
+    lc._close = close
+    reset_launches()
+    frame_s = []
+    for f, img in enumerate(frames):
+        t = time.perf_counter()
+        sys_.track_monocular(img, f * 0.05)
+        torch.cuda.synchronize()
+        frame_s.append(time.perf_counter() - t)
+    launches = read_launches()
+    sys_.shutdown()
+
+    traj = sys_.trajectory
+    ok = [r for r in traj if r.state.name == "OK"]
+    final = kf_map_ate(sys_.map, scene, with_scale=True)
+    bound = JAX_MONO_LOOP_KF_ATE_M * MONO_ATE_FACTOR + ATE_MARGIN_M
+    print(
+        f"mono loop: {len(frames)} frames, OK {len(ok)} (JAX package {JAX_MONO_LOOP_OK_FRAMES}), keyframes "
+        f"{len(sys_.map.keyframes)}, loops closed {lc.closed_loops}, gba_skipped {lc.gba_skipped}; frame Sim(3) ATE "
+        f"{sim3_ate(traj, scene):.5f} m, final keyframe-map Sim(3) ATE {final:.5f} m, bound {bound:.5f} m (JAX package "
+        f"{JAX_MONO_LOOP_KF_ATE_M} m x {MONO_ATE_FACTOR} + {ATE_MARGIN_M} m)",
+        flush=True,
+    )
+    print(f"mono loop: frames 1-{len(frames) - 1}: median {statistics.median(frame_s[1:]) * 1e3:.2f} ms/frame on {card}", flush=True)
+    done = [ev for ev in lc.timings if ev["closed"]]
+    for (kid, frame, cand, pre, post), ev in zip(closures, done):
+        print(
+            f"mono loop: closure of keyframe {kid} (frame {frame}) to keyframe {cand}: scale s {ev['scale']:.4f}, keyframe-map "
+            f"Sim(3) ATE {pre:.5f} -> {post:.5f} m; detect {ev['detect_ms']:.2f} + compute_sim3 {ev['compute_se3_ms']:.2f} + "
+            f"essential graph {ev['essential_graph_ms']:.2f} + correction {ev['correction_ms']:.2f} + global BA "
+            f"{ev.get('global_ba_ms', float('nan')):.2f} ms on {card}",
+            flush=True,
+        )
+    for ev in lc.timings:
+        if "scale" in ev and not ev["closed"]:
+            print(f"mono loop: closure attempt at keyframe {ev['kid']} not taken (scale s {ev['scale']:.4f})", flush=True)
+    if len(ok) < JAX_MONO_LOOP_OK_FRAMES - 2:
+        fail(f"mono loop: {len(ok)} OK frames, fewer than the JAX package's {JAX_MONO_LOOP_OK_FRAMES} - 2")
+    if not closures:
+        fail("mono loop: no loop was closed through the Sim(3) branch")
+    if not final <= bound:
+        fail(f"mono loop: final keyframe-map Sim(3) ATE {final} m above {bound} m")
+    calls, device = launches
+    want_lpc = launches_per_call()
+    for name in PER_FRAME:
+        print(f"mono loop: {name} calls {calls[name]} ({calls[name] / len(frames):.2f} per frame), device launches {device[name]}", flush=True)
+        if calls[name] == 0:
+            fail(f"mono loop: {name} was not launched")
+        if device[name] != calls[name] * want_lpc[name]:
+            fail(f"mono loop: {name}: {device[name]} device launches for {calls[name]} calls, expected {want_lpc[name]} per call")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1435,8 +1845,10 @@ def main() -> int:
     hybrid_launches, _ = bench_phase(cam, dot_scene_, dot_frames, card, points=True)
     bench_profile_phase(cam, dot_frames, card, points=True)
     loop_launches = loop_phase(card)
+    mono_launches, mono_lines_launches = mono_phase(card)
+    mono_loop_launches = mono_loop_phase(card)
 
-    calls, device = loop_launches  # this slice's path: loop closing
+    calls, device = mono_launches  # this slice's path: mono (hybrid, the mode BASELINE.md recommends)
     kernels = [
         dict(
             name=name,
@@ -1444,10 +1856,11 @@ def main() -> int:
             source=KERNELS[name][0],
             replaces=KERNELS[name][1],
             launches=calls[name],
-            launches_per_call=device[name] // calls[name],  # exact: the loop phase held it
+            launches_per_call=device[name] // calls[name],  # exact: the mono phase held it
             launches_by_path={
                 "slice": slice_launches[0][name], "mapping": map_launches[0][name], "bench": bench_launches[0][name],
-                "bench_hybrid": hybrid_launches[0][name], "loop": calls[name],
+                "bench_hybrid": hybrid_launches[0][name], "loop": loop_launches[0][name], "mono": calls[name],
+                "mono_lines": mono_lines_launches[0][name], "mono_loop": mono_loop_launches[0][name],
             },
             **kres[name],
         )

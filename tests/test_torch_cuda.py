@@ -891,3 +891,58 @@ def test_close_on_card_matches_cpu(dev):
         np.testing.assert_allclose(x["T_cw"], z["T_cw"], atol=1e-3)
     alive = c["lines"]["alive"]
     np.testing.assert_allclose(a["lines"]["endpoints"][alive], c["lines"]["endpoints"][alive], atol=2e-3)
+
+
+def test_ransac_on_card_matches_cpu(dev):
+    """The mono initializer's batched 8-point RANSAC (256 hypotheses) on the
+    card and on the CPU with the same samples: E within 1e-5 up to sign (both
+    solve in float64), the same best score and inliers."""
+    from tpuslam_torch.frontend.initializer import MonoInitParams, ransac_essential
+
+    rng = np.random.default_rng(0)
+    n = 240
+    X = np.c_[rng.uniform(-0.7, 0.7, n), rng.uniform(-0.7, 0.7, n), np.ones(n)] * rng.uniform(2, 8, (n, 1))
+    t = np.array([-0.4, 0.05, 0.1])
+    uv0 = (X[:, :2] / X[:, 2:] + rng.normal(size=(n, 2)) * 6e-4).astype(np.float32)
+    X1 = X + t
+    uv1 = (X1[:, :2] / X1[:, 2:] + rng.normal(size=(n, 2)) * 6e-4).astype(np.float32)
+    uv1[: n // 5] += rng.normal(size=(n // 5, 2)).astype(np.float32) * 0.05  # outliers
+    params = MonoInitParams(inlier_px=2.0 / 458)
+    samples = torch.from_numpy(rng.integers(0, n, (params.n_hypotheses, 8)))
+    out = []
+    for device in (dev, "cpu"):
+        a, b = torch.from_numpy(uv0).to(device), torch.from_numpy(uv1).to(device)
+        E, inl, score = ransac_essential(a, b, torch.ones(n, device=device), params, samples=samples)
+        out.append((E.cpu().numpy(), inl.cpu().numpy(), float(score)))
+    (Ec, ic, sc), (Eh, ih, sh) = out
+    assert min(np.abs(Ec - Eh).max(), np.abs(Ec + Eh).max()) <= 1e-5
+    assert sc == sh >= 0.75 * n
+    np.testing.assert_array_equal(ic, ih)
+
+
+def test_mono_system_repeats_on_card(dev):
+    """System(cam, sensor="mono") with hybrid points over tests/test_hybrid.py's
+    16 QVGA mono frames, twice on the card: it initializes, and the two runs
+    make the same keyframes and bit-equal poses (the RANSAC draws from a
+    generator seeded with the frame index)."""
+    from tpuslam_torch.frontend.points import PointFrontendParams
+    from tpuslam_torch.frontend.tracking import TrackerConfig
+    from tpuslam_torch.io.synthetic import make_mono_scene, render_wireframe_image
+    from tpuslam_torch.system import System
+
+    cam = QVGA._replace(fx=200.0, fy=200.0, baseline=0.0)
+    rng = np.random.default_rng(0)
+    scene = make_mono_scene(rng, 16, cam=cam, n_segments=24, n_points=130, step=0.08)
+    frames = [render_wireframe_image(scene, f, noise=1.0, rng=rng, draw_points=True) for f in range(16)]
+    cfg = TrackerConfig(min_init_lines=8, min_track_matches=6, min_track_inliers=6, max_frames_between_kf=3, points=PointFrontendParams())
+    runs = []
+    for _ in range(2):
+        s = System(cam, sensor="mono", tracker_cfg=cfg, device=dev)
+        for f, img in enumerate(frames):
+            s.track_monocular(img, f * 0.05)
+        s.shutdown()
+        runs.append(s)
+    assert sum(r.state.name == "OK" for r in runs[0].trajectory) >= 10
+    kfs = [[r.frame_idx for r in s.trajectory if r.made_keyframe] for s in runs]
+    assert kfs[0] == kfs[1], kfs
+    assert all(np.array_equal(a.T_cw, b.T_cw) for a, b in zip(runs[0].trajectory, runs[1].trajectory))

@@ -165,14 +165,14 @@ def _unported():
 
     hybrid = TrackerConfig(points=PointFrontendParams())
     return {
-        "mono hybrid System": lambda: System(DOTS, sensor="mono", loop_closing=False, tracker_cfg=hybrid, device="cpu"),
-        "mono hybrid tracking": lambda: Tracker(DOTS, SlamMap(), hybrid, device="cpu").track_monocular(np.zeros((240, 320), np.uint8), 0.0),
-        "mono mapper": lambda: LocalMapper(SlamMap(), DOTS, mono=True, device="cpu"),
         "single-frame fused hybrid program": lambda: pipeline.fused_stereo_frame_hybrid(),
         "single-frame hybrid pipeline": lambda: Tracker(
             DOTS, SlamMap(), dataclasses.replace(bench_configs(points=True)[0], chunk=1, semidirect=None), device="cpu"
         ),
         "map serialization": lambda: System(DOTS, loop_closing=False, tracker_cfg=hybrid, device="cpu").save_map("map.npz"),
+        "pipelined mono tracking": lambda: Tracker(DOTS, SlamMap(), bench_configs(points=True)[0], device="cpu").track_monocular(
+            np.zeros((240, 320), np.uint8), 0.0
+        ),
     }
 
 

@@ -393,8 +393,8 @@ def test_system_defaults_build_a_loop_closer():
     assert s.mapper is not None and s.loop_closer is not None
     assert s.loop_closer.db is s.kf_db and s.tracker.kf_db is s.kf_db and s.loop_closer.device.type == "cpu"
     assert s.loop_closer.cfg == tlc.LoopConfig() and not s.loop_closer.mono
-    with pytest.raises(NotImplementedError, match="mono"):
-        System(QVGA, sensor="mono", device="cpu")
+    m = System(QVGA, sensor="mono", device="cpu")  # mono closes loops through the Sim(3) branch
+    assert m.loop_closer is not None and m.loop_closer.mono and m.loop_closer.db is m.kf_db
     # the closer's own database, when none is shared, is still its own object
     db = tlc.KeyFrameDatabase(device="cpu")
     assert tlc.LoopCloser(s.map, QVGA, db=db, device="cpu").db is db

@@ -111,9 +111,10 @@ def test_bucket_ladder_matches_jax():
 
 def test_ba_configs_carry_ported_fields_only():
     """Every field of the JAX LocalBAConfig carries over, the point buckets
-    of hybrid points included, directly and inside a MapperConfig; a
-    MapperConfig field of a path not ported (mono triangulation) is dropped
-    at its default and refused otherwise."""
+    of hybrid points included, directly and inside a MapperConfig; the mono
+    triangulation fields carry over; a MapperConfig field of a path not
+    ported (deferred fusion) is dropped at its default and refused
+    otherwise."""
     jcfg = jlba.LocalBAConfig(window_size=7, point_buckets=(64, 128), p_obs_buckets=(256, 512))
     assert set(jcfg._fields) == set(tlba.LocalBAConfig._fields)
     cfg = params_from(tlba.LocalBAConfig, jcfg)
@@ -121,9 +122,10 @@ def test_ba_configs_carry_ported_fields_only():
     assert all(getattr(cfg, k) == getattr(jcfg, k) for k in cfg._fields if k != "lm")
     assert tuple(cfg.lm) == tuple(jcfg.lm)
     assert mapper_config_from(JMapperConfig(ba=jcfg)).ba == cfg
-    for bad in (JMapperConfig(tri_max_reproj_px=2.0), JMapperConfig(fuse_defer=True)):
-        with pytest.raises(ValueError, match="not ported"):
-            mapper_config_from(bad)
+    tri = mapper_config_from(JMapperConfig(tri_max_reproj_px=2.0, tri_depth_band=(0.35, 3.0)))
+    assert tri.tri_max_reproj_px == 2.0 and tri.tri_depth_band == (0.35, 3.0) and tri.tri_match == JMapperConfig().tri_match
+    with pytest.raises(ValueError, match="not ported"):
+        mapper_config_from(JMapperConfig(fuse_defer=True))
 
 
 @pytest.mark.parametrize("kid", [3, 6, 7])

@@ -277,8 +277,9 @@ def test_unported_pipelined_configurations_raise(change):
 
 def test_tracker_config_converts():
     """The bench TrackerConfig carries into the port's types, the hybrid
-    point fields too; a JAX MapperConfig field of an unported path (mono
-    triangulation) is refused when set."""
+    point fields too; a JAX MapperConfig's mono triangulation fields carry
+    over, and a field of an unported path (deferred fusion) is refused when
+    set."""
     from tpuslam.frontend.points import PointFrontendParams
     from tpuslam.kernels.stereo_direct import DirectPointStereoParams
 
@@ -289,7 +290,9 @@ def test_tracker_config_converts():
     got = tracker_config_from(jcfg)
     assert got.points == bench_configs(points=True)[0].points and got.direct_points.rows == 3 and got.point_local_capacity == 256
     jmcfg.tri_depth_band = (0.35, 3.0)
-    with pytest.raises(ValueError, match="tri_depth_band"):
+    assert mapper_config_from(jmcfg).tri_depth_band == (0.35, 3.0)
+    jmcfg.fuse_defer = True
+    with pytest.raises(ValueError, match="fuse_defer"):
         mapper_config_from(jmcfg)
 
 

@@ -90,8 +90,8 @@ def test_unported_configurations_raise():
     assert s.mapper is not None and s.tracker.kf_db is s.kf_db
     s = System(QVGA, sensor="stereo", device="cpu")  # loop_closing=True is ported: the defaults build
     assert s.loop_closer is not None and s.loop_closer.db is s.kf_db and not s.loop_closer.mono
-    with pytest.raises(NotImplementedError, match="mono"):
-        System(QVGA, sensor="mono", mapping=False, loop_closing=False, device="cpu")
+    s = System(QVGA, sensor="mono", device="cpu")  # mono is ported: its defaults build, the closer on its Sim(3) branch
+    assert s.mapper is not None and s.mapper.mono and s.loop_closer is not None and s.loop_closer.mono
     with pytest.raises(NotImplementedError, match="base_scale"):  # the in-program resize; prescaled=True is ported
         s = System(
             QVGA, mapping=False, loop_closing=False,
@@ -110,8 +110,10 @@ def _entry_points():
 
     return {
         "System": lambda **kw: System(QVGA, sensor="stereo", loop_closing=False, **kw),
+        "mono System": lambda **kw: System(QVGA, sensor="mono", **kw),
         "Tracker": lambda **kw: Tracker(QVGA, SlamMap(), **kw),
         "LocalMapper": lambda **kw: LocalMapper(SlamMap(), QVGA, **kw),
+        "mono LocalMapper": lambda **kw: LocalMapper(SlamMap(), QVGA, mono=True, **kw),
         "KeyFrameDatabase": lambda **kw: KeyFrameDatabase(**kw),
         "build_problem": lambda **kw: local_ba.build_problem(SlamMap(), [0], [], [], (8, 8, 8), **kw),
         "assemble_problem": lambda **kw: local_ba.assemble_problem(SlamMap(), 0, QVGA, **kw),
@@ -127,7 +129,7 @@ def test_entry_points_default_to_the_card(name, monkeypatch):
     make = _entry_points()[name]
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         make()
-    if name in ("System", "Tracker", "LocalMapper", "KeyFrameDatabase"):  # objects: build on the CPU when asked
+    if name in ("System", "mono System", "Tracker", "LocalMapper", "mono LocalMapper", "KeyFrameDatabase"):  # objects: build on the CPU when asked
         obj = make(device="cpu")
         assert getattr(obj, "tracker", obj).device.type == "cpu"
 

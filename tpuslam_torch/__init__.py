@@ -1,4 +1,4 @@
-"""tpuslam_torch — stereo line SLAM in PyTorch, with hand-written CUDA kernels.
+"""tpuslam_torch — stereo and monocular line SLAM in PyTorch, with hand-written CUDA kernels.
 
 The PyTorch/CUDA counterpart of the JAX package ``tpuslam``. Modules keep
 the JAX package's layout and names (``geometry/``, ``kernels/``,
@@ -8,12 +8,14 @@ kernels of ``tpuslam`` (blur, gradients, connected-component propagation)
 are CUDA C++ kernels under ``csrc/``, built at first use on a CUDA tensor;
 on a CPU tensor every kernel wrapper runs its plain PyTorch version.
 
-Implemented so far: stereo line SLAM, lines only or with hybrid points,
-``System(cam)`` with its defaults (``sensor="stereo", mapping=True,
-loop_closing=True``): synchronous or pipelined tracking with
+Implemented so far: stereo and monocular line SLAM, lines only or with
+hybrid points. ``System(cam)`` with its defaults (``sensor="stereo",
+mapping=True, loop_closing=True``): synchronous or pipelined tracking with
 relocalization, local mapping with an LM+Schur local bundle adjustment at
 every keyframe, and loop closing (SE(3) essential graph, landmark
-correction, global bundle adjustment). Mono is not ported yet.
+correction, global bundle adjustment). ``System(cam, sensor="mono")``:
+a two-view bootstrap, synchronous tracking, two-view triangulation of new
+lines and points in the mapper, and loop closing on the Sim(3) branch.
 """
 
 __version__ = "0.1.0"

@@ -247,7 +247,8 @@ class LoopCloser:
         self.closed_loops: List[Tuple[int, int]] = []
         self.gba_skipped: int = 0  # maps too large for the global-BA buckets
         # per process() call: kid, detect_ms, candidate and, where _close ran,
-        # its stage times; per successful closure: the device problems solved
+        # its stage times and the estimated scale; per successful closure: the
+        # device problems solved
         self.timings: List[dict] = []
         self.closures: List[dict] = []
 
@@ -435,6 +436,7 @@ class LoopCloser:
         if res is None:
             return False
         s_corr, T_corr = res
+        ev["scale"] = float(s_corr)
         mx = self.cfg.max_scale_correction
         if not (1.0 / mx <= s_corr <= mx):
             print(f"loop closure rejected: implausible scale correction {s_corr:.3f} (gate {1 / mx:.2f}..{mx:.2f})", file=sys.stderr)

@@ -1,16 +1,18 @@
-"""Local mapping: the stereo mapper's steps at each keyframe (torch).
+"""Local mapping: the mapper's steps at each keyframe (torch).
 
-Counterpart of ``tpuslam.backend.mapping`` for stereo maps of lines and,
-with the hybrid front end, points. At each keyframe event, synchronously:
+Counterpart of ``tpuslam.backend.mapping`` for stereo and monocular maps of
+lines and, with the hybrid front end, points. At each keyframe event,
+synchronously:
 
   MapLine/PointCulling  -> drop recent landmarks not confirmed in time
+  CreateNewMapLines/Points -> (mono) two-view triangulation against covisible
+                           keyframes
   SearchInNeighbors     -> fuse duplicate lines and points (projection-gated match)
   UpdateConnections     -> covisibility recount
   LocalBundleAdjustment -> backend.local_ba (LM+Schur on the device)
   KeyFrameCulling       -> drop redundant keyframes
 
-Mono triangulation (of lines and points) is not ported. Neither is the JAX
-package's TPU machinery around the solve: the subprocess BA worker and the
+The JAX package's TPU machinery around the solve is not ported: the subprocess BA worker and the
 deferred fusion apply (both exist to hide the TPU's dispatch and compile
 costs). So ``tick`` and ``finish`` have nothing to do; they stay so that
 ``System`` drives both packages' mappers alike.
@@ -28,23 +30,48 @@ import torch
 from tpuslam_torch.backend.local_ba import LocalBAConfig, LocalBAStats, local_bundle_adjustment
 from tpuslam_torch.device import resolve_device
 from tpuslam_torch.frontend.matcher import ProjectionSearchParams, search_by_projection
-from tpuslam_torch.geometry.camera import Intrinsics
-from tpuslam_torch.kernels.match import MatchParams, match_descriptors, midpoint_radius_penalty
+from tpuslam_torch.geometry.camera import Intrinsics, image_line_through, line_projection_matrix
+from tpuslam_torch.geometry.plucker import plucker_transform
+from tpuslam_torch.geometry.triangulate import (
+    line_ray_endpoints,
+    projection_matrix,
+    triangulate_plucker_two_view,
+    triangulate_points,
+)
+from tpuslam_torch.kernels.match import (
+    MatchParams,
+    angle_penalty,
+    epipolar_penalty,
+    match_descriptors,
+    midpoint_radius_penalty,
+)
 from tpuslam_torch.slammap.map import KeyFrame, SlamMap, features_to_device, point_features_to_device
 
 
 @dataclass
 class MapperConfig:
-    """The stereo mapper's settings; same names and defaults as
-    ``tpuslam.backend.mapping.MapperConfig``. Its mono triangulation and
-    deferred-fusion fields belong to paths not ported and are absent, except
-    ``tri_point_match``, which point fusion uses."""
+    """The mapper's settings; same names and defaults as
+    ``tpuslam.backend.mapping.MapperConfig``. Its deferred-fusion fields
+    belong to a path not ported and are absent."""
 
     ba: LocalBAConfig = field(default_factory=LocalBAConfig)
     ba_every: int = 1  # run local BA every N keyframes
     cull_min_obs: int = 2  # landmark must reach this within cull_horizon KFs
     cull_horizon: int = 3
+    # mono two-view triangulation
+    triangulate_neighbors: int = 3  # covisible keyframes searched for new landmarks
+    tri_min_parallax_deg: float = 1.0  # points: least ray angle
+    # lines: least angle between the back-projected planes; a tiny floor only
+    # (the JAX package's note: a 1-degree floor rejects a whole orientation class)
+    tri_line_min_parallax_deg: float = 0.2
+    tri_depth_band: tuple = None  # (lo, hi) x the keyframe's median landmark depth, or None
+    tri_depth_band_min_ref: int = 10  # bound landmarks needed to define that median
+    tri_max_reproj_px: float = 4.0
+    tri_min_depth: float = 0.1
+    tri_max_depth: float = 60.0
+    tri_match: MatchParams = field(default_factory=lambda: MatchParams(max_dist=90.0, ratio=0.8))
     tri_point_match: MatchParams = field(default_factory=lambda: MatchParams(max_dist=60.0, ratio=0.8))
+    tri_epipolar_px: float = 3.0  # epipolar gate of two-view point matches
     fuse_search: ProjectionSearchParams = field(
         default_factory=lambda: ProjectionSearchParams(radius=10.0, angle_tol=0.15)
     )
@@ -64,14 +91,10 @@ class LocalMapper:
         mono: bool = False,
         device="cuda",
     ):
-        if mono:
-            raise NotImplementedError(
-                "mono mapping (two-view line triangulation) is not ported yet: it comes with the mono port "
-                "(ROADMAP.md, 'Mono')"
-            )
         self.map = slam_map
         self.cam = cam
         self.cfg = cfg
+        self.mono = mono
         self.device = resolve_device(device)
         self._recent: Dict[int, int] = {}  # line id -> kf id at creation
         self._recent_pts: Dict[int, int] = {}  # point id -> kf id at creation
@@ -90,6 +113,10 @@ class LocalMapper:
         self._register_recent(kf)
         self._cull_recent(kf)
         marks.append(("mp.cull", _t()))
+        if self.mono:
+            self._create_new_maplines(kf)
+            self._create_new_mappoints(kf)
+            marks.append(("mp.triangulate", _t()))
         self._fuse_all(kf)
         marks.append(("mp.fuse_dispatch", _t()))
         self.map.update_connections(kf)
@@ -137,6 +164,217 @@ class LocalMapper:
                         store.kill(lm, self.map.keyframes)
                     del recent[lm]
 
+    # ---- new landmark triangulation (mono) ------------------------------
+    def _dev(self, a) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _K(self) -> np.ndarray:
+        cam = self.cam
+        return np.array([[cam.fx, 0.0, cam.cx], [0.0, cam.fy, cam.cy], [0.0, 0.0, 1.0]], np.float32)
+
+    def _Kinv(self) -> np.ndarray:
+        return np.linalg.inv(self._K())
+
+    def _create_new_maplines(self, kf: KeyFrame):
+        """Two-view line triangulation against the covisible keyframes: an
+        angle-gated descriptor match of the free (unbound) lines, the planes'
+        intersection, then the checks of :meth:`_validate_triangulations`,
+        the plane-parallax floor and the optional depth band. Device work
+        runs at the fixed feature capacity K, one read back per neighbour."""
+        cfg = self.cfg
+        neighbors = self.map.covisible_keyframes(kf.kid, cfg.triangulate_neighbors)
+        f = kf.features
+        free = (kf.line_ids < 0) & (f.valid > 0.5)
+        if free.sum() == 0:
+            return
+        T0 = kf.T_cw
+        fd = features_to_device(f, self.device)
+        P0 = projection_matrix(self.cam, self._dev(T0))
+        l0 = image_line_through(fd.endpoints[:, 0], fd.endpoints[:, 1])
+        P0n, l0n = P0.cpu().numpy(), l0.cpu().numpy()
+        # the median depth of this keyframe's bound landmarks: the depth band's reference
+        ref_med_depth = None
+        bound = kf.line_ids[kf.line_ids >= 0]
+        st = self.map.lines
+        if bound.size >= cfg.tri_depth_band_min_ref:
+            alive_b = [int(l) for l in bound if st.alive[l]]
+            if len(alive_b) >= cfg.tri_depth_band_min_ref:
+                z = (st.endpoints[np.asarray(alive_b)] @ T0[:3, :3].T + T0[:3, 3])[..., 2]
+                ref_med_depth = float(np.median(np.median(z, axis=-1)))
+                if not np.isfinite(ref_med_depth) or ref_med_depth <= 0:
+                    ref_med_depth = None
+        a0 = f.endpoints
+        # view 0's unit endpoint rays (host float32, as the JAX package forms them)
+        rays = np.concatenate([a0, np.ones((a0.shape[0], 2, 1), np.float32)], axis=-1) @ self._Kinv().T
+        rays = self._dev(rays / np.maximum(np.linalg.norm(rays, axis=-1, keepdims=True), 1e-12))
+        for nkid in neighbors:
+            nkf = self.map.keyframes[nkid]
+            nfree = (nkf.line_ids < 0) & (nkf.features.valid > 0.5)
+            if nfree.sum() == 0:
+                continue
+            nd = features_to_device(nkf.features, self.device)
+            pen = angle_penalty(fd.angle, nd.angle, 0.35)
+            m = match_descriptors(
+                fd.desc_bits, self._dev(free.astype(np.float32)), nd.desc_bits, self._dev(nfree.astype(np.float32)),
+                cfg.tri_match, pen,
+            )
+            a1d = nd.endpoints[torch.clamp(m.idx, min=0)]  # (K, 2, 2)
+            T1 = nkf.T_cw
+            P1 = projection_matrix(self.cam, self._dev(T1))
+            l1 = image_line_through(a1d[:, 0], a1d[:, 1])
+            Lw = triangulate_plucker_two_view(P0, P1, l0, l1)
+            # the lines in both cameras and their endpoints from view 0's rays
+            L0 = plucker_transform(self._dev(T0), Lw)
+            pts, s = line_ray_endpoints(L0, rays)
+            mv, idx, Lw, L0, L1, pts, s, l1n, P1n = (
+                x.cpu().numpy() for x in (m.valid, m.idx, Lw, L0, plucker_transform(self._dev(T1), Lw), pts, s, l1, P1)
+            )
+            mv = mv > 0.5
+            if not mv.any():
+                continue
+            idx = np.maximum(idx, 0)
+            a1 = nkf.features.endpoints[idx]
+            # the plane-parallax gate: a low-parallax pair's planes nearly
+            # coincide, and its intersection depth is noise (a line reprojects
+            # onto itself at any depth, so the residual cannot catch it)
+            pi0 = l0n @ P0n
+            pi1 = l1n @ P1n
+            n0 = pi0[:, :3] / np.maximum(np.linalg.norm(pi0[:, :3], axis=-1, keepdims=True), 1e-12)
+            n1 = pi1[:, :3] / np.maximum(np.linalg.norm(pi1[:, :3], axis=-1, keepdims=True), 1e-12)
+            cosang = np.abs(np.sum(n0 * n1, axis=-1))
+            ok, ep3d = self._validate_triangulations(Lw, L0, L1, pts, s, a0, a1, T0, T1)
+            ok &= cosang < np.cos(np.deg2rad(cfg.tri_line_min_parallax_deg))
+            if ref_med_depth is not None and cfg.tri_depth_band is not None:
+                cand_z = np.maximum((ep3d @ T0[:3, :3].T + T0[:3, 3])[..., 2], 1e-6)  # (K, 2) depths in view 0
+                cand_med = np.median(cand_z, axis=-1)
+                lo, hi = cfg.tri_depth_band
+                ok &= (cand_med >= lo * ref_med_depth) & (cand_med <= hi * ref_med_depth)
+            ok &= mv
+            bits = f.desc_bits
+            for s0 in np.nonzero(ok)[0]:
+                s1 = int(idx[s0])
+                if kf.line_ids[s0] >= 0 or nkf.line_ids[s1] >= 0:
+                    continue
+                lid = st.allocate(Lw[s0], ep3d[s0], bits[s0], kf.kid)
+                st.add_observation(lid, kf, int(s0))
+                st.add_observation(lid, nkf, s1)
+                self._recent[lid] = kf.kid
+            free = (kf.line_ids < 0) & (f.valid > 0.5)
+
+    def _validate_triangulations(self, Lw, L0, L1, pts, s, a0, a1, T0, T1):
+        """Reprojection in both views, cheirality, depth bounds in both views,
+        on the host over the capacity K: ``L0`` / ``L1`` the lines in the two
+        cameras, ``pts`` / ``s`` view 0's endpoint-ray points and ray
+        parameters. Returns (ok (K,), world endpoints (K, 2, 3), 0 where not
+        ok)."""
+        cfg = self.cfg
+        K = Lw.shape[0]
+        KL = line_projection_matrix(self.cam).numpy()
+        # the parallax floor is implicit here: near-parallel planes give |v| ~ 0
+        ok = np.linalg.norm(Lw[:, 3:], axis=-1) > 1e-7
+        with np.errstate(divide="ignore", invalid="ignore"):
+            for Lc, a in ((L0, a0), (L1, a1)):
+                l = Lc[:, :3] @ KL.T  # (K, 3) projected image lines
+                den = np.hypot(l[:, 0], l[:, 1])
+                ok &= den > 1e-9
+                den = np.maximum(den, 1e-9)
+                for e in range(2):
+                    d = np.abs(l[:, 0] * a[:, e, 0] + l[:, 1] * a[:, e, 1] + l[:, 2]) / den
+                    ok &= d <= cfg.tri_max_reproj_px
+            z = pts[..., 2]
+            ok &= np.all(s > 0, axis=-1)
+            ok &= np.all(z >= cfg.tri_min_depth, axis=-1)
+            ok &= np.all(z <= cfg.tri_max_depth, axis=-1)
+            ok &= np.isfinite(pts).all(axis=(1, 2))
+            # cheirality and depth bounds in the second view too
+            T10 = (T1 @ np.linalg.inv(T0)).astype(np.float32)
+            z1 = (pts @ T10[:3, :3].T + T10[:3, 3])[..., 2]
+            ok &= np.all(z1 >= cfg.tri_min_depth, axis=-1)
+            ok &= np.all(z1 <= cfg.tri_max_depth, axis=-1)
+        Twc = np.linalg.inv(T0)
+        ep3d = (pts @ Twc[:3, :3].T + Twc[:3, 3]).astype(np.float32)
+        return ok, np.where(ok[:, None, None], ep3d, 0.0).astype(np.float32)
+
+    def _create_new_mappoints(self, kf: KeyFrame):
+        """Two-view corner triangulation against the covisible keyframes: an
+        epipolar-gated BRIEF match, DLT triangulation, then depth,
+        reprojection and parallax checks on the host. A match to a corner
+        already bound adds an observation of that landmark."""
+        pf = kf.point_features
+        if pf is None or kf.point_ids is None:
+            return
+        cfg = self.cfg
+        pst = self.map.points
+        uv0 = pf.uv
+        T0 = kf.T_cw
+        pd = point_features_to_device(pf, self.device)
+        P0 = projection_matrix(self.cam, self._dev(T0))
+        Kmat = self._K()
+        Kinv = np.linalg.inv(Kmat)
+        C0 = (-T0[:3, :3].T @ T0[:3, 3]).astype(np.float32)
+        cos_max = np.cos(np.deg2rad(cfg.tri_min_parallax_deg))
+        for nkid in self.map.covisible_keyframes(kf.kid, cfg.triangulate_neighbors):
+            free = (kf.point_ids < 0) & (pf.valid > 0.5)
+            if free.sum() == 0:
+                return
+            nkf = self.map.keyframes[nkid]
+            npf = nkf.point_features
+            if npf is None or nkf.point_ids is None:
+                continue
+            # corners bound to landmarks stay eligible: they add an observation
+            nfree = npf.valid > 0.5
+            if nfree.sum() == 0:
+                continue
+            T1 = nkf.T_cw
+            T10 = T1 @ np.linalg.inv(T0)
+            tx = np.array(
+                [[0.0, -T10[2, 3], T10[1, 3]], [T10[2, 3], 0.0, -T10[0, 3]], [-T10[1, 3], T10[0, 3], 0.0]], np.float32
+            )
+            F = (Kinv.T @ (tx @ T10[:3, :3]) @ Kinv).astype(np.float32)
+            npd = point_features_to_device(npf, self.device)
+            pen = epipolar_penalty(pd.uv, npd.uv, self._dev(F), cfg.tri_epipolar_px)
+            m = match_descriptors(
+                pd.desc_bits, self._dev(free.astype(np.float32)), npd.desc_bits, self._dev(nfree.astype(np.float32)),
+                cfg.tri_point_match, pen,
+            )
+            P1 = projection_matrix(self.cam, self._dev(T1))
+            X = triangulate_points(P0, P1, pd.uv, npd.uv[torch.clamp(m.idx, min=0)])  # (K, 3) world
+            mv, idx, X = (x.cpu().numpy() for x in (m.valid, m.idx, X))
+            mv = mv > 0.5
+            if not mv.any():
+                continue
+            idx = np.maximum(idx, 0)
+            uv1 = npf.uv[idx]  # (K, 2)
+            Xh = np.concatenate([X, np.ones((X.shape[0], 1), np.float32)], -1)
+            ok = mv & np.isfinite(X).all(axis=-1)
+            with np.errstate(divide="ignore", invalid="ignore"):
+                for T, uv in ((T0, uv0), (T1, uv1)):
+                    xc = Xh @ T.T[:, :3]  # (K, 3) camera coordinates
+                    z = xc[:, 2]
+                    ok &= (z > cfg.tri_min_depth) & (z < cfg.tri_max_depth)
+                    pr = xc @ Kmat.T
+                    pru = pr[:, :2] / np.maximum(pr[:, 2:3], 1e-9)
+                    ok &= np.linalg.norm(pru - uv, axis=-1) <= cfg.tri_max_reproj_px
+                C1 = (-T1[:3, :3].T @ T1[:3, 3]).astype(np.float32)
+                r0 = X - C0
+                r1 = X - C1
+                cosang = np.sum(r0 * r1, axis=-1) / np.maximum(np.linalg.norm(r0, axis=-1) * np.linalg.norm(r1, axis=-1), 1e-12)
+                ok &= cosang < cos_max  # enough parallax
+            bits = pf.desc_bits
+            for s0 in np.nonzero(ok)[0]:
+                s1 = int(idx[s0])
+                if kf.point_ids[s0] >= 0:
+                    continue
+                existing = int(nkf.point_ids[s1])
+                if existing >= 0:
+                    if pst.alive[existing]:
+                        pst.add_observation(existing, kf, int(s0))
+                    continue
+                pid = pst.allocate(X[s0], bits[s0], kf.kid)
+                pst.add_observation(pid, kf, int(s0))
+                pst.add_observation(pid, nkf, s1)
+                self._recent_pts[pid] = kf.kid
+
     # ---- duplicate fusion -----------------------------------------------
     def _fuse_all(self, kf: KeyFrame):
         """Match older local-map lines and points into this keyframe (one
@@ -183,14 +421,11 @@ class LocalMapper:
             return None
         ids, validf = self._padded_ids(old_ids)
 
-        def dev(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-
         m = search_by_projection(
-            dev(kf.T_cw),
-            dev(st.endpoints[ids]),
-            dev(st.desc_bits[ids].astype(np.int64)),
-            dev(validf),
+            self._dev(kf.T_cw),
+            self._dev(st.endpoints[ids]),
+            self._dev(st.desc_bits[ids].astype(np.int64)),
+            self._dev(validf),
             features_to_device(kf.features, self.device),
             self.cam,
             self.cfg.fuse_search,
@@ -230,19 +465,14 @@ class LocalMapper:
         ids, validf = self._padded_ids(old_ids)
         T = kf.T_cw
         Xc = pst.xyz[ids] @ T[:3, :3].T + T[:3, 3]
-        cam = self.cam
-        Kmat = np.array([[cam.fx, 0.0, cam.cx], [0.0, cam.fy, cam.cy], [0.0, 0.0, 1.0]], np.float32)
-        pr = Xc @ Kmat.T
+        pr = Xc @ self._K().T
         uv = pr[:, :2] / np.maximum(pr[:, 2:3], 1e-9)
         validf *= (Xc[:, 2] > 0.05).astype(np.float32)
 
-        def dev(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-
         pf = point_features_to_device(kf.point_features, self.device)
-        pen = midpoint_radius_penalty(dev(uv.astype(np.float32)), pf.uv, self.cfg.fuse_search.radius)
+        pen = midpoint_radius_penalty(self._dev(uv.astype(np.float32)), pf.uv, self.cfg.fuse_search.radius)
         m = match_descriptors(
-            dev(pst.desc_bits[ids].astype(np.int64)), dev(validf), pf.desc_bits, pf.valid, self.cfg.tri_point_match, pen
+            self._dev(pst.desc_bits[ids].astype(np.int64)), self._dev(validf), pf.desc_bits, pf.valid, self.cfg.tri_point_match, pen
         )
         return m, ids
 

@@ -19,6 +19,7 @@ from tpuslam_torch.backend.loop_closing import LoopConfig
 from tpuslam_torch.backend.mapping import MapperConfig
 from tpuslam_torch.backend.pose_graph import PoseGraphProblem, Sim3GraphProblem
 from tpuslam_torch.frontend.frame import FrameFeatures
+from tpuslam_torch.frontend.initializer import MonoInitParams
 from tpuslam_torch.frontend.points import PointFrontendParams
 from tpuslam_torch.frontend.tracking import TrackerConfig
 from tpuslam_torch.kernels.align_direct import DirectAlignParams
@@ -104,8 +105,9 @@ def ba_problem_from(value, device="cpu") -> BAProblem:
 def mapper_config_from(value) -> MapperConfig:
     """MapperConfig from a MapperConfig-like dataclass (the JAX package's).
 
-    Fields of paths this package does not run (mono triangulation, deferred
-    fusion) are dropped when they hold their class's defaults and refused
+    The mono triangulation fields (``triangulate_neighbors``, ``tri_*``)
+    carry over; those of the deferred fusion, a path this package does not
+    run, are dropped when they hold their class's defaults and refused
     otherwise."""
     ours = MapperConfig()
     out = {}
@@ -113,6 +115,32 @@ def mapper_config_from(value) -> MapperConfig:
         default = getattr(ours, name)
         out[name] = params_from(type(default), v) if hasattr(default, "_fields") else v
     return MapperConfig(**out)
+
+
+def mono_init_params_from(value) -> MonoInitParams:
+    """MonoInitParams from the JAX package's (its MatchParams included)."""
+    return params_from(MonoInitParams, value)
+
+
+def init_result_from(result, device="cpu"):
+    """A ``MonoInitializer.try_initialize`` result of the JAX package (None
+    or its 9-tuple) as this package's: the reference frame's features as
+    tensors on ``device``, the rest as numpy (T_10, Pluecker lines and
+    endpoints float32, ok bool, slots int64)."""
+    if result is None:
+        return None
+    ref, t0, idx0, T10, Lw, ep3d, ok, slots0, slots1 = result
+    return (
+        features_from(ref, device),
+        float(t0),
+        int(idx0),
+        np.asarray(T10, np.float32),
+        np.asarray(Lw, np.float32),
+        np.asarray(ep3d, np.float32),
+        np.asarray(ok, bool),
+        np.asarray(slots0, np.int64),
+        np.asarray(slots1, np.int64),
+    )
 
 
 def global_ba_config_from(value) -> GlobalBAConfig:

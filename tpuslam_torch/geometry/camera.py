@@ -65,3 +65,29 @@ def project_points(cam: Intrinsics, pts_c: torch.Tensor) -> torch.Tensor:
     u = cam.fx * (pts_c[..., 0:1] / z) + cam.cx
     v = cam.fy * (pts_c[..., 1:2] / z) + cam.cy
     return torch.cat([u, v], dim=-1)
+
+
+@functools.lru_cache(maxsize=32)
+def _intrinsic_matrix(cam: Intrinsics, device: str, dtype: torch.dtype) -> torch.Tensor:
+    return torch.tensor([[cam.fx, 0.0, cam.cx], [0.0, cam.fy, cam.cy], [0.0, 0.0, 1.0]], dtype=dtype, device=device)
+
+
+def intrinsic_matrix(cam: Intrinsics, device=None, dtype=torch.float32) -> torch.Tensor:
+    """The 3x3 calibration matrix K (the JAX package's ``Intrinsics.K``), one
+    copy per camera, device and dtype (the mapper asks for it at every
+    keyframe). Do not modify the returned tensor."""
+    return _intrinsic_matrix(cam, str(torch.device("cpu") if device is None else torch.device(device)), dtype)
+
+
+def image_line_through(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Homogeneous image line through two (..., 2) pixels: l = p_h x q_h."""
+    ph = torch.cat([p, torch.ones_like(p[..., :1])], dim=-1)
+    qh = torch.cat([q, torch.ones_like(q[..., :1])], dim=-1)
+    return torch.linalg.cross(ph, qh, dim=-1)
+
+
+def point_line_distance(l: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Signed distance of (..., 2) pixels to (..., 3) homogeneous image lines."""
+    num = l[..., 0] * uv[..., 0] + l[..., 1] * uv[..., 1] + l[..., 2]
+    den = torch.sqrt(l[..., 0] ** 2 + l[..., 1] ** 2)
+    return num / torch.clamp(den, min=_EPS)

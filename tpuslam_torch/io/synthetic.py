@@ -142,6 +142,39 @@ def make_loop_scene(
         cam=cam,
     )
 
+
+def make_mono_scene(
+    rng: np.random.Generator,
+    n_frames: int = 30,
+    cam: Intrinsics | None = None,
+    n_segments: int = 60,
+    n_points: int = 120,
+    step: float = 0.06,
+) -> SyntheticScene:
+    """The monocular walk of benchmarks/ladder.py (``_mono_scene``): a
+    wireframe scene (``make_wireframe_scene``'s draws for 2 frames) seen by a
+    camera that moves sideways by ``step`` per frame, its height wobbling by
+    0.02 sin(0.5 f): the parallax that two-view initialization and the
+    mapper's triangulation need."""
+    scene = make_wireframe_scene(rng, n_segments=n_segments, n_points=n_points, n_frames=2, cam=cam)
+    poses = np.tile(np.eye(4, dtype=np.float32), (n_frames, 1, 1))
+    for f in range(n_frames):
+        poses[f, 0, 3] = -f * step
+        poses[f, 1, 3] = 0.02 * np.sin(f * 0.5)
+    return scene._replace(poses=poses)
+
+
+def make_mono_loop_scene(
+    rng: np.random.Generator, n_frames: int = 120, dwell: int = 20, cam: Intrinsics | None = None
+) -> SyntheticScene:
+    """The monocular loop of benchmarks/ladder.py (``mono_loop``):
+    ``make_loop_scene`` with 260 segments, the camera on a circle of radius
+    5 m in a room of radius 14 m over ``n_frames``, then its first ``dwell``
+    poses again (the revisit that loop detection needs)."""
+    scene = make_loop_scene(rng, n_segments=260, n_frames=n_frames, radius=5.0, room=14.0, cam=cam)
+    return scene._replace(poses=np.concatenate([scene.poses, scene.poses[:dwell]]))
+
+
 class FrameObservations(NamedTuple):
     seg_uv: np.ndarray  # (S, 2, 2) projected segment endpoints (px)
     seg_visible: np.ndarray  # (S,) bool — both endpoints in front & in image

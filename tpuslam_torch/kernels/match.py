@@ -110,6 +110,18 @@ def midpoint_radius_penalty(mid_a: torch.Tensor, mid_b: torch.Tensor, radius: fl
     return torch.clamp(d2 - radius * radius, min=0.0) * 1e3
 
 
+def epipolar_penalty(uv_a: torch.Tensor, uv_b: torch.Tensor, F: torch.Tensor, tol_px: float) -> torch.Tensor:
+    """(KA, 2), (KB, 2) pixels and the (3, 3) fundamental matrix F (A -> B
+    lines) -> (KA, KB) penalty, 0 iff uv_b lies within tol_px of the
+    epipolar line F [uv_a; 1]: the gate of two-view point matches."""
+    ah = torch.cat([uv_a, torch.ones_like(uv_a[:, :1])], dim=-1)
+    l = ah @ F.to(torch.float32).T  # (KA, 3) epipolar lines in image B
+    den = torch.clamp(torch.sqrt(l[:, 0] ** 2 + l[:, 1] ** 2), min=1e-9)
+    bh = torch.cat([uv_b, torch.ones_like(uv_b[:, :1])], dim=-1)
+    d = torch.abs(l @ bh.T) / den[:, None]
+    return torch.clamp(d - tol_px, min=0.0) * _PEN
+
+
 def stereo_row_penalty(mid_a, mid_b, max_dy: float, min_disp: float, max_disp: float) -> torch.Tensor:
     """Rectified-stereo gate: same row band, positive bounded disparity
     (a = left features, b = right features, disparity = x_left - x_right)."""

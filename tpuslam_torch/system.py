@@ -2,6 +2,7 @@
 
     sys = System(cam, sensor="stereo", mapping=True, loop_closing=True, device="cuda")
     T_cw = sys.track_stereo(imL, imR, t)     # per-frame pose (numpy 4x4)
+    # or System(cam, sensor="mono") and sys.track_monocular(img, t)
     sys.map_lines(); sys.keyframe_graph()
     sys.save_trajectory_tum(path); sys.shutdown()
 
@@ -14,7 +15,9 @@ with hybrid points (``TrackerConfig.points``), and, with
 fusion, LM+Schur local BA on ``device``) followed, with
 ``loop_closing=True`` (the default), by the loop closer (detection, the
 SE(3) essential graph, landmark correction and global BA on ``device``).
-``sensor="mono"`` raises NotImplementedError.
+With ``sensor="mono"`` the tracker bootstraps from two views, the mapper
+triangulates new lines and points from two keyframes, and the loop closer
+takes its Sim(3) branch (the scale drifts in mono).
 """
 
 from __future__ import annotations
@@ -87,8 +90,8 @@ def bench_configs(chunk: int = 6, points: bool = False):
 
 
 class System:
-    """Top-level SLAM system: stereo line tracking, local mapping and loop
-    closing on ``device``."""
+    """Top-level SLAM system: stereo or monocular line tracking, local
+    mapping and loop closing on ``device``."""
 
     def __init__(
         self,
@@ -103,9 +106,7 @@ class System:
     ):
         if not isinstance(settings, Intrinsics):
             raise TypeError("settings: pass tpuslam_torch.Intrinsics (settings files are not ported yet)")
-        if sensor == "mono":
-            raise NotImplementedError("sensor='mono' is not ported yet (ROADMAP.md, the next module)")
-        if sensor != "stereo":
+        if sensor not in ("stereo", "mono"):
             raise ValueError(f"unknown sensor mode {sensor!r}")
         device = resolve_device(device)
         self.sensor = sensor
@@ -118,7 +119,9 @@ class System:
         if mapping:
             # synchronous, in this process: the JAX package's subprocess BA
             # worker exists for the TPU's compile costs and is not carried over
-            self.mapper = LocalMapper(self.map, settings, mapper_cfg or MapperConfig(), device=device)
+            self.mapper = LocalMapper(
+                self.map, settings, mapper_cfg or MapperConfig(), mono=(sensor == "mono"), device=device
+            )
             self.mapper.timer = self.timer  # KF-event wall split (mp.* stages)
             self.tracker.on_new_keyframe = self._on_new_keyframe
             self.mapper.on_map_changed = self.tracker.invalidate_local_map
@@ -185,9 +188,25 @@ class System:
             self._log(extra, 0.0)
         return np.asarray(self.tracker.T_cw)
 
+    def track_monocular(self, img, timestamp: float) -> np.ndarray:
+        """Track one monocular frame; returns the tracker's pose."""
+        t0 = time.perf_counter()
+        r = self.tracker.track_monocular(img, timestamp)
+        dt = time.perf_counter() - t0
+        self.timer.add("track", dt)
+        if self.mapper is not None:
+            self.mapper.tick()
+        self.trajectory.append(r)
+        self._log(r, dt)
+        return np.asarray(self.tracker.T_cw)
+
     def track_frame(self, images, timestamp: float) -> np.ndarray:
-        """Generic TrackFrame entry: (left, right) images."""
-        return self.track_stereo(images[0], images[1], timestamp)
+        """Generic TrackFrame entry: (left, right) images in stereo, an image
+        (or a sequence whose first item is the image) in mono."""
+        if self.sensor == "stereo":
+            return self.track_stereo(images[0], images[1], timestamp)
+        img = images[0] if isinstance(images, (list, tuple)) else images
+        return self.track_monocular(img, timestamp)
 
     @property
     def state(self) -> TrackingState:
