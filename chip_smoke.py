@@ -113,12 +113,40 @@ first failure and catches nothing):
    mono_loop (140 QVGA frames, dwell 20): OK frames within 2 of the JAX
    package's, a closure through the Sim(3) branch, the final keyframe-map
    Sim(3) ATE within the JAX package's x 1.05 + 0.01 m; each closure's
-   scale and stage times.
+   scale and stage times;
+12-17. the pipelined forms over the 40 VGA frames, each through
+   System(..., mapping=True, loop_closing=False) with the JAX bench's other
+   switches (`bench_configs`): 12 full-detection chunks of 6
+   (semidirect=False), 13 the single-frame direct program (chunk=1), run
+   twice (the same keyframes, bit-equal poses), 14 the single-frame
+   descriptor program (both cameras detected), 15 the semi-direct chunks
+   resized on the card (hostscale=False: the blur kernel at sigma 0.5,
+   radius 2, then the resize's two products), 16 the single-frame hybrid
+   program over make_frames(draw_points=True); 17 the classic pipeline
+   (TrackerConfig(pipelined=True, fused=False)) without mapping, bit-equal
+   to phase 4 before phase 4's first fallback, and with mapping. Each: one
+   trajectory entry per frame, every frame OK, the ATE within the JAX
+   package's x 1.05 + 0.01 m, the kernel calls per image extraction
+   (programs and synchronous path), frames/s from frame 1 through the
+   flush, and on a fresh System one steady frame's or chunk's host syncs,
+   device busy ms and launches;
+18. pipelined lines-only mono (the classic pipeline) over the mono
+   sequence: every frame after initialization OK and through the
+   pipeline, the kernel calls per frame, the median Sim(3) ATE over 11
+   RANSAC draws within the JAX package's pipelined median x 1.05 + 0.01 m;
+19. radtan: the bench scene through TUM fr1's distortion (a numpy
+   inverse-map bilinear remap): extract_features on the card, its
+   undistortion within 1e-3 px of the CPU's on the same detections, its
+   segments against the CPU port's (95% within 0.5 px), the median
+   endpoint-to-true-line distance below 2 px, the padding finite; then 20
+   frames of the synchronous descriptor-stereo tracker within the JAX
+   bound.
 
 Output: a {"kernels": [...]} JSON line (calls per path and launches per
 call from the mono phase's hybrid run, the main path; times, bounds,
 errors and profiled launches per call at 480x640 from phase 3, device us
-at every shape timed),
+at every shape timed; "blur.resize", the blur kernel at the resize's
+sigma, with its calls from phase 15),
 the card line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -206,6 +234,45 @@ MONO_ATE_FACTOR = 1.05  # mono ATE bounds: JAX x 1.05 + ATE_MARGIN_M
 # Sim(3) ATE is that after the last closure)
 JAX_MONO_LOOP_OK_FRAMES = 138
 JAX_MONO_LOOP_KF_ATE_M = 1.554863693170919
+# The pipelined forms (phases 12-17) on the same frames, tpuslam.system.System
+# with mapping on and loop closing off, XLA:CPU, cv2 hidden,
+# TPUSLAM_KF_DEFER_MS=0, TPUSLAM_NATIVE_MAP=0: `python
+# tests/test_torch_pipelined.py fullchunk frame hybrid descriptor hostscale
+# classic` prints them, under the JAX bench's switches (bench_configs here):
+# semidirect=False (full-detection chunks of 6; keyframes at frames 0, 8-17,
+# 37), chunk=1 (the single-frame program; 0, 8, 9, 10, 30), chunk=1 with points
+# over make_frames(draw_points=True) (0-7, 9-12, 32), chunk=1 with descriptor
+# stereo (0, 8, 9, 10, 13, 14, 15, 35), hostscale=False (semi-direct chunks
+# resized on the device; 0, 13, 19, 25); the classic pipeline
+# (TrackerConfig(pipelined=True, fused=False), mapping on; 0, 8, 17, 37: the
+# JAX package's synchronous mapping run's ATE to the last digit, as its
+# classic run without mapping gives JAX_ATE_M). Bound: JAX x 1.05 + 0.01 m.
+JAX_FULLCHUNK_ATE_M = 0.029031030910803432
+JAX_FRAME_ATE_M = 0.013331763301453577
+JAX_HYBRID_FRAME_ATE_M = 0.0512740825023997
+JAX_DESCRIPTOR_FRAME_ATE_M = 0.028262284993123426
+JAX_HOSTSCALE_ATE_M = 0.015130935636825193
+JAX_CLASSIC_MAPPING_ATE_M = 0.009802508959604729
+PIPELINED_ATE_FACTOR = 1.05
+# pipelined lines-only mono (the mono phase's settings with pipelined=True)
+# over the RANSAC draws PRNGKey(frame_idx + 1000 k), k = 0..10: `python
+# tests/test_torch_pipelined.py mono 0 11` prints them (every frame after
+# initialization OK in every draw; all but k = 2 equal the synchronous draws
+# above to the last digit, and so does the median)
+JAX_PIPELINED_MONO_DRAW_ATES_M = (
+    0.22372437381713334, 0.090788042155714, 0.4204503319701225, 0.16759669018952306, 0.1412654692079062,
+    0.1531556027260977, 0.2867959017854134, 0.2774904866119114, 0.27804777105496004, 0.3138127518700231,
+    0.1760691221047711,
+)
+# the synchronous descriptor-stereo tracker (mapping off) over
+# `make_radtan_frames()`, the JAX package's undistortion patched to leave the
+# padding slots alone (it undistorts them to NaN there, which poisons
+# descriptor stereo: ROADMAP.md section 3): `python
+# tests/test_torch_extract_variants.py` prints it (keyframes at frames 0, 5,
+# 9; its frame-0 left extraction's median endpoint-to-true-line distance
+# 1.92865 px)
+JAX_RADTAN_ATE_M = 0.011594484670728142
+RADTAN_LINE_ERR_PX = 2.0  # the median endpoint-to-true-line bound
 # benchmarks/ladder.py's mono tracker settings
 MONO_TRACKER = dict(min_init_lines=8, min_track_matches=6, min_track_inliers=6, max_frames_between_kf=4)
 RELOC_FRAME = 20
@@ -231,7 +298,7 @@ KERNELS = {
 # blur_brief: the 1e-5 of [0, 1] images on BRIEF's 0..255 input; the sums:
 # relative (t_min and t_max exact)
 TOL = {
-    "blur": 1e-5, "blur_brief": 255e-5, "gradients": 1e-3, "lsd_front": 1e-3, "ccl": 0,
+    "blur": 1e-5, "blur_brief": 255e-5, "blur_resize": 1e-5, "gradients": 1e-3, "lsd_front": 1e-3, "ccl": 0,
     "component_moments": 1e-5, "component_extents": 1e-5, "segment_moments": 1e-5,
 }
 # the bench path: chunks of 6; kernel calls of one left-image extraction at
@@ -262,11 +329,13 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def make_frames(n_frames: int = N_FRAMES, draw_points: bool = False):
+def make_frames(n_frames: int = N_FRAMES, draw_points: bool = False, noise_seed=None):
     """VGA stereo camera, the bench's scene (tpuslam/bench.py) and its
     rendered (left, right) uint8 frames, all from seed 0; with
     ``draw_points`` the scene's 3D points are drawn as dots (the hybrid
-    front end's corners; the same scene, lines and seed)."""
+    front end's corners; the same scene, lines and seed); with
+    ``noise_seed`` the same scene and trajectory with the image noise drawn
+    from that seed instead."""
     import numpy as np
 
     from tpuslam_torch import Intrinsics
@@ -278,6 +347,8 @@ def make_frames(n_frames: int = N_FRAMES, draw_points: bool = False):
     Tb = np.eye(4, dtype=np.float32)
     Tb[0, 3] = -cam.baseline
     scene_r = scene._replace(poses=np.stack([Tb @ T for T in scene.poses]))
+    if noise_seed is not None:
+        rng = np.random.default_rng(noise_seed)
     frames = [
         (
             render_wireframe_image(scene, f, noise=1.0, rng=rng, draw_points=draw_points),
@@ -360,6 +431,92 @@ def make_mono_loop_frames(n_frames: int = MONO_LOOP_FRAMES, dwell: int = MONO_LO
     scene = make_mono_loop_scene(rng, n_frames, dwell, cam=cam)
     frames = [render_wireframe_image(scene, f, noise=1.0, rng=rng, draw_points=True) for f in range(n_frames + dwell)]
     return cam, scene, frames
+
+
+# TUM fr1's radial-tangential coefficients (tests/test_distortion.py's), on
+# the bench camera
+RADTAN = dict(k1=0.2624, k2=-0.9531, p1=-0.0054, p2=0.0026)
+RADTAN_FRAMES = 20
+
+
+def undistort_np(cam, dist, uv, iters: int = 8):
+    """(..., 2) distorted pixels -> ideal pinhole pixels, float64: the radtan
+    model's fixed-point inversion (8 iterations, the radial factor floored at
+    1e-6), as the packages' undistort_pixels computes it."""
+    import numpy as np
+
+    uv = np.asarray(uv, np.float64)
+    xd, yd = (uv[..., 0] - cam.cx) / cam.fx, (uv[..., 1] - cam.cy) / cam.fy
+    x, y = xd, yd
+    with np.errstate(over="ignore", invalid="ignore"):  # diverges beyond the largest distorted radius
+        for _ in range(iters):
+            r2 = x * x + y * y
+            radial = 1.0 + dist["k1"] * r2 + dist["k2"] * r2 * r2
+            dx = 2.0 * dist["p1"] * x * y + dist["p2"] * (r2 + 2.0 * x * x)
+            dy = dist["p1"] * (r2 + 2.0 * y * y) + 2.0 * dist["p2"] * x * y
+            x = (xd - dx) / np.maximum(radial, 1e-6)
+            y = (yd - dy) / np.maximum(radial, 1e-6)
+        return np.stack([cam.fx * x + cam.cx, cam.fy * y + cam.cy], axis=-1)
+
+
+def distort_image(img, cam, dist, border: float = 200.0):
+    """A pinhole render -> the image the radtan camera sees: an inverse-map
+    bilinear remap (each distorted pixel samples the ideal image at its
+    undistorted position; outside it, the background ``border``), rounded to
+    uint8."""
+    import numpy as np
+
+    H, W = img.shape
+    uu, vv = np.meshgrid(np.arange(W, dtype=np.float64), np.arange(H, dtype=np.float64))
+    src = undistort_np(cam, dist, np.stack([uu, vv], -1))
+    # where the fixed point does not converge (beyond the model's largest
+    # distorted radius, at the corners) the sample falls outside
+    x = np.clip(np.nan_to_num(src[..., 0], nan=-2.0), -2.0, W + 1.0)
+    y = np.clip(np.nan_to_num(src[..., 1], nan=-2.0), -2.0, H + 1.0)
+    x0, y0 = np.floor(x), np.floor(y)
+    fx_, fy_ = x - x0, y - y0
+    a = np.asarray(img, np.float64)
+
+    def tap(yi, xi):
+        inside = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
+        v = a[np.clip(yi, 0, H - 1).astype(np.int64), np.clip(xi, 0, W - 1).astype(np.int64)]
+        return np.where(inside, v, border)
+
+    out = (
+        tap(y0, x0) * (1 - fx_) * (1 - fy_) + tap(y0, x0 + 1) * fx_ * (1 - fy_)
+        + tap(y0 + 1, x0) * (1 - fx_) * fy_ + tap(y0 + 1, x0 + 1) * fx_ * fy_
+    )
+    return np.clip(np.round(out), 0, 255).astype(np.uint8)
+
+
+def line_errors(endpoints, valid, gt_uv, near_px: float = 10.0):
+    """For each valid detected segment, the larger distance (px) of its two
+    endpoints to the line of a true segment (ideal pinhole pixels), the
+    smallest over the true segments that pass within ``near_px`` of its
+    midpoint (inf where none does): tests/test_distortion.py's measure, with
+    the true segment found by proximity (among the bench scene's 140
+    segments the nearest midpoint is often another segment's)."""
+    import numpy as np
+
+    ep = np.asarray(endpoints, np.float64)[np.asarray(valid) > 0.5]
+    a, b = np.asarray(gt_uv[:, 0], np.float64), np.asarray(gt_uv[:, 1], np.float64)
+    ab = b - a
+    n = np.stack([-ab[:, 1], ab[:, 0]], -1) / (np.linalg.norm(ab, axis=-1, keepdims=True) + 1e-9)
+    mid = ep.mean(axis=1)
+    t = np.clip(np.einsum("sgk,gk->sg", mid[:, None] - a[None], ab) / (np.einsum("gk,gk->g", ab, ab) + 1e-12), 0.0, 1.0)
+    near = np.linalg.norm(mid[:, None] - (a[None] + t[..., None] * ab[None]), axis=-1) <= near_px
+    d0 = np.abs(np.einsum("sgk,gk->sg", ep[:, None, 0] - a[None], n))
+    d1 = np.abs(np.einsum("sgk,gk->sg", ep[:, None, 1] - a[None], n))
+    return np.where(near, np.maximum(d0, d1), np.inf).min(axis=1)
+
+
+def make_radtan_frames(n_frames: int = RADTAN_FRAMES):
+    """The bench scene and camera (`make_frames`, seed 0) seen through TUM
+    fr1's radtan distortion: (cam, RADTAN, scene, distorted (left, right)
+    uint8 frames). Both cameras share the coefficients; the undistorted
+    features are rectified."""
+    cam, scene, frames = make_frames(n_frames)
+    return cam, RADTAN, scene, [tuple(distort_image(x, cam, RADTAN) for x in pair) for pair in frames]
 
 
 def ate_of(trajectory, scene) -> float:
@@ -589,6 +746,14 @@ def kernel_phase(frames, card):
             "ccl": (lambda: lsd.ccl_propagate(lab0, mx0, cb, R), lambda: lsd._ccl_torch(lab0, mx0, cb, R),
                     (lambda: lsd._ccl_per_round_cuda(lab0, mx0, cb, R), 10), None, REPS),
         }
+        if img is left:  # the in-program resize's prefilter (sigma 0.5, radius 2) on the full-resolution frame
+            rsig = 0.5 * (1.0 / 0.5 - 1.0)
+            rtaps = image._blur_taps(rsig).cuda()
+            rr = rtaps.numel() // 2
+            rpadded = F.pad(img[None, None], (rr, rr, rr, rr), mode="replicate")
+            rtaps2d = torch.outer(rtaps, rtaps)[None, None]
+            cases["blur_resize"] = (lambda: image.gaussian_blur(img, rsig), lambda: image.gaussian_blur_torch(img, rsig),
+                                    (lambda: image._blur_two_pass_cuda(img, rsig), REPS), lambda: F.conv2d(rpadded, rtaps2d), REPS)
         if img is left or img is half:  # FAST runs on the bench path's 240x320 left image
             bimg = (img * 255.0).contiguous()
             btaps = image._blur_taps(bsig).cuda()
@@ -627,6 +792,8 @@ def kernel_phase(frames, card):
             lib_ms = device_us(lib) / 1e3 if lib else None
             if name == "blur_brief":
                 b_us, b_by = bound_us("blur", H, W, bntaps, R, n_bits, n_support)
+            elif name == "blur_resize":
+                b_us, b_by = bound_us("blur", H, W, rtaps.numel(), R, n_bits, n_support)
             else:
                 b_us, b_by = bound_us(name, H, W, ntaps, R, n_bits, n_support)
             lib_txt = f"{lib_ms * 1e3:.3f} us" if lib else "none"
@@ -652,6 +819,8 @@ def kernel_phase(frames, card):
                 prev["bound_us_by_shape"][by_shape] = b_us
     # BRIEF's blur is the blur kernel's second instance on the main path
     res["blur"]["brief"] = dict(sigma=bsig, radius=bntaps // 2, **res.pop("blur_brief"))
+    # the in-program resize's prefilter: the blur kernel's third instance, its own entry of the kernels line
+    res["blur.resize"] = dict(sigma=0.5, radius=2, **res.pop("blur_resize"))
     res.update(sums_phase((left, half, half1), card))
     return res
 
@@ -1502,15 +1671,15 @@ def loop_phase(card):
     return launches
 
 
-def mono_system(cam, points: bool):
+def mono_system(cam, points: bool, pipelined: bool = False):
     """System(cam, sensor="mono") with its defaults (mapping and loop closing
     on) and benchmarks/ladder.py's mono tracker settings, hybrid or lines
-    only."""
+    only, pipelined (the classic pipeline, lines only) or not."""
     from tpuslam_torch.frontend.points import PointFrontendParams
     from tpuslam_torch.frontend.tracking import TrackerConfig
     from tpuslam_torch.system import System
 
-    cfg = TrackerConfig(**MONO_TRACKER, points=PointFrontendParams() if points else None)
+    cfg = TrackerConfig(**MONO_TRACKER, points=PointFrontendParams() if points else None, pipelined=pipelined)
     return System(cam, sensor="mono", tracker_cfg=cfg, device="cuda")
 
 
@@ -1553,7 +1722,7 @@ def seeded_draws(k: int):
     return draw
 
 
-def mono_run(cam, frames, points: bool, sampler=None):
+def mono_run(cam, frames, points: bool, sampler=None, pipelined: bool = False):
     """One mono System over the frames, the launch counts set to 0 just
     before and read just after; each frame and each of the initializer's
     attempts timed. Returns (system, launches)."""
@@ -1561,7 +1730,7 @@ def mono_run(cam, frames, points: bool, sampler=None):
 
     from tpuslam_torch.frontend.initializer import MonoInitializer
 
-    sys_ = mono_system(cam, points)
+    sys_ = mono_system(cam, points, pipelined)
     sys_.timer.warmup = 0  # keep every keyframe event's stage times
     init = sys_.tracker.mono_init = MonoInitializer(cam, sampler=sampler)
     attempts = []
@@ -1807,6 +1976,322 @@ def mono_loop_phase(card):
     return launches
 
 
+# ---- the pipelined forms and the front end's other branches (phases 12-19) ----
+
+
+def form_system(cam, tcfg, mcfg=None, mapping: bool = True, sensor: str = "stereo"):
+    from tpuslam_torch.system import System
+
+    return System(cam, sensor=sensor, mapping=mapping, loop_closing=False, tracker_cfg=tcfg, mapper_cfg=mcfg, device="cuda")
+
+
+def feed_frames(sys_, frames, lo: int, hi: int):
+    for f in range(lo, hi):
+        if sys_.sensor == "mono":
+            sys_.track_monocular(frames[f], f * 0.05)
+        else:
+            sys_.track_stereo(*frames[f], f * 0.05)
+
+
+def form_run(sys_, frames):
+    """The frames through the System, then its flush, with the launch counts
+    set to 0 just before and read just after. Returns (launches, seconds per
+    call, seconds from frame 1 through the flush)."""
+    import torch
+
+    reset_launches()
+    call_s = []
+    t1 = None
+    for f in range(len(frames)):
+        if f == 1:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        t = time.perf_counter()
+        feed_frames(sys_, frames, f, f + 1)
+        call_s.append(time.perf_counter() - t)
+    sys_.shutdown()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    return read_launches(), call_s, wall
+
+
+def check_form_launches(tag, launches, per_extraction: dict, n_images: int) -> None:
+    """Each kernel's calls equal to its count per image extraction times the
+    images extracted (in the programs and on the synchronous path), each
+    call its launches; none left out."""
+    calls, device = launches
+    want_lpc = launches_per_call()
+    for name, per in per_extraction.items():
+        want = per * n_images
+        print(f"{tag}: {name} calls {calls[name]} (expected {per} x {n_images} image extractions), device launches {device[name]}", flush=True)
+        if calls[name] != want or calls[name] == 0:
+            fail(f"{tag}: {name}: {calls[name]} calls, expected {want}")
+        if device[name] != want * want_lpc[name]:
+            fail(f"{tag}: {name}: {device[name]} device launches, expected {want_lpc[name]} per call")
+
+
+def form_profile(tag, make_system, frames, card, warm: int, per: int, unit: str) -> dict:
+    """A fresh System fed ``warm`` frames; the host syncs of the next ``per``
+    calls (one steady frame or chunk) and torch.profiler over the ``per``
+    calls after them: device busy ms and kernel launches per frame. The
+    frames each window resolved, and their keyframes (a keyframe runs the
+    mapper), are printed."""
+    import torch
+
+    sys_ = make_system()
+    feed_frames(sys_, frames, 0, warm)
+    torch.cuda.synchronize()
+    f = warm
+
+    def window(run):
+        n0 = len(sys_.trajectory)
+        out = run()
+        done = sys_.trajectory[n0:]
+        return out, [r.frame_idx for r in done], [r.frame_idx for r in done if r.made_keyframe]
+
+    syncs, sync_frames, sync_kfs = window(lambda: count_syncs(lambda: feed_frames(sys_, frames, f, f + per)))
+    f += per
+    walls = []
+
+    def run():
+        nonlocal f
+        if f + per > len(frames):
+            fail(f"{tag} profile: out of frames")
+        t = time.perf_counter()
+        feed_frames(sys_, frames, f, f + per)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        f += per
+
+    (_, (busy_us, n_kernels, n_copies)), prof_frames, prof_kfs = window(lambda: profiled(run, tries=3, whole=False))
+    sys_.shutdown()
+    out = dict(syncs_per_frame=len(syncs) / per, busy_ms_per_frame=busy_us / 1e3 / per, launches_per_frame=n_kernels / per)
+    print(
+        f"{tag} profile: one steady {unit} ({per} frame{'s' if per > 1 else ''}, resolving frames {sync_frames}, keyframes "
+        f"{sync_kfs}): {len(syncs)} host syncs at {sorted(set(syncs))} ({out['syncs_per_frame']:.2f} per frame); the next "
+        f"(resolving frames {prof_frames}, keyframes {prof_kfs}): device busy {busy_us / 1e3:.3f} ms, {n_kernels} kernel "
+        f"launches, {n_copies} memcpy/memset ({out['busy_ms_per_frame']:.3f} ms and {out['launches_per_frame']:.0f} launches per "
+        f"frame), {walls[-1] * 1e3:.2f} ms under the profiler (device idle {1 - busy_us / 1e6 / walls[-1]:.1%}) on {card}",
+        flush=True,
+    )
+    return out
+
+
+def report_rate(tag, call_s, wall, n_frames, card) -> None:
+    n = n_frames - 1
+    print(
+        f"{tag}: frames 1-{n_frames - 1} and the flush: {wall * 1e3:.1f} ms = {n / wall:.2f} frames/s "
+        f"({wall * 1e3 / n:.2f} ms/frame); calls median {statistics.median(call_s[1:]) * 1e3:.2f} ms, max "
+        f"{max(call_s[1:]) * 1e3:.2f} ms on {card}",
+        flush=True,
+    )
+
+
+def stereo_form_phase(tag, cam, scene, frames, card, tcfg, mcfg, jax_ate, per_extraction, program_cams: int,
+                      sync_cams: int, per: int, unit: str, mapping: bool = True, warm: int = 20):
+    """One pipelined stereo form over the frames (the launch counts around
+    the run): one trajectory entry per frame in order, every frame OK, the
+    ATE within the JAX package's x 1.05 + 0.01 m, the kernel calls per image
+    extraction; frames/s, and one steady frame's or chunk's host syncs,
+    device busy ms and launches. Returns (system, launches)."""
+    sys_ = form_system(cam, tcfg, mcfg, mapping=mapping)
+    launches, call_s, wall = form_run(sys_, frames)
+    tr, traj = sys_.tracker, sys_.trajectory
+    states = [r.state.name for r in traj]
+    kfs = [r.frame_idx for r in traj if r.made_keyframe]
+    ate = ate_of(traj, scene)
+    bound = jax_ate * PIPELINED_ATE_FACTOR + ATE_MARGIN_M
+    print(
+        f"{tag}: program frames {tr.anchor_frames}, synchronous frames {tr.sync_frames}, lagged frames {tr.lagged_frames}, "
+        f"fallbacks {tr.fallback_frames}; keyframes at frames {kfs}; states {states}",
+        flush=True,
+    )
+    print(
+        f"{tag}: ATE {ate:.5f} m, bound {bound:.5f} m (JAX package {jax_ate} m x {PIPELINED_ATE_FACTOR} + {ATE_MARGIN_M} m) "
+        f"on {card}",
+        flush=True,
+    )
+    if [r.frame_idx for r in traj] != list(range(len(frames))):
+        fail(f"{tag}: trajectory frames {[r.frame_idx for r in traj]}, expected one entry per frame in order")
+    if any(st != "OK" for st in states):
+        fail(f"{tag}: a frame did not track OK")
+    if not ate <= bound:
+        fail(f"{tag}: ATE {ate} m above {bound} m")
+    n_images = len(tr.anchor_frames) * program_cams + tr.n_sync_extractions * sync_cams
+    check_form_launches(tag, launches, per_extraction, n_images)
+    report_rate(tag, call_s, wall, len(frames), card)
+    sys_.profile = form_profile(tag, lambda: form_system(cam, tcfg, mcfg, mapping=mapping), frames, card, warm, per, unit)
+    sys_.n_images = n_images
+    return sys_, launches
+
+
+def same_run(tag, a, b) -> None:
+    import numpy as np
+
+    kfs = [[r.frame_idx for r in t if r.made_keyframe] for t in (a, b)]
+    same = [r.frame_idx for r in a] == [r.frame_idx for r in b] and all(np.array_equal(x.T_cw, y.T_cw) for x, y in zip(a, b))
+    print(f"{tag} repeat: keyframes {kfs[0]} then {kfs[1]}; poses bit-equal: {same}", flush=True)
+    if kfs[0] != kfs[1] or not same:
+        fail(f"{tag}: a second run differs from the first")
+
+
+def pipelined_phases(card, cam, scene, frames, slice_sys):
+    """Phases 12-17: the JAX bench's other switches and the classic
+    pipeline over the bench frames. Returns {tag: (launches, system)}."""
+    import numpy as np
+
+    from tpuslam_torch.frontend.tracking import TrackerConfig
+    from tpuslam_torch.system import bench_configs
+
+    out = {}
+    per_hostscale = {**PER_EXTRACTION, "blur": 2}  # the resize's prefilter and the pyramid's blur
+    for tag, switches, jax_ate, per_ext, cams, per, unit, warm in (
+        # a chunk's calls: frames 25-30 dispatch the chunk of 25-30 and resolve 19-24
+        ("fullchunk", dict(semidirect=False), JAX_FULLCHUNK_ATE_M, PER_EXTRACTION, (1, 1), BENCH_C, "chunk", 25),
+        ("frame", dict(chunk=1), JAX_FRAME_ATE_M, PER_EXTRACTION, (1, 1), 1, "frame", 20),
+        ("descriptor frame", dict(chunk=1, direct=False), JAX_DESCRIPTOR_FRAME_ATE_M, PER_EXTRACTION, (2, 2), 1, "frame", 20),
+        ("hostscale", dict(hostscale=False), JAX_HOSTSCALE_ATE_M, per_hostscale, (1, 1), BENCH_C, "chunk", 25),
+    ):
+        tcfg, mcfg = bench_configs(**switches)
+        sys_, launches = stereo_form_phase(tag, cam, scene, frames, card, tcfg, mcfg, jax_ate, per_ext, *cams, per, unit, warm=warm)
+        out[tag] = (launches, sys_)
+        if tag == "frame":  # the single-frame direct program again: the card repeats it
+            again = form_system(cam, tcfg, mcfg)
+            feed_frames(again, frames, 0, len(frames))
+            again.shutdown()
+            same_run(tag, sys_.trajectory, again.trajectory)
+    _, dot_scene_, dot_frames = make_frames(draw_points=True)
+    tcfg, mcfg = bench_configs(chunk=1, points=True)
+    sys_, launches = stereo_form_phase(
+        "hybrid frame", cam, dot_scene_, dot_frames, card, tcfg, mcfg, JAX_HYBRID_FRAME_ATE_M, PER_EXTRACTION_HYBRID, 1, 1, 1, "frame"
+    )
+    out["hybrid frame"] = (launches, sys_)
+
+    # the classic pipeline: without mapping bit-equal to the synchronous
+    # slice up to the slice's first fallback (where it goes LOST instead)
+    classic = TrackerConfig(pipelined=True, fused=False)
+    sys_, launches = stereo_form_phase(
+        "classic", cam, scene, frames, card, classic, None, JAX_ATE_M, PER_EXTRACTION, 0, 2, 1, "frame", mapping=False
+    )
+    first = min(slice_sys.tracker.fallback_frames, default=len(frames))
+    a, b = slice_sys.trajectory[:first], sys_.trajectory[:first]
+    same = all(np.array_equal(x.T_cw, y.T_cw) and x.made_keyframe == y.made_keyframe for x, y in zip(a, b))
+    print(
+        f"classic: the slice's first fallback at frame {first if first < len(frames) else 'none'}; poses and keyframes of frames "
+        f"0-{first - 1} bit-equal to the slice's: {same}; lagged frames {len(sys_.tracker.lagged_frames)}",
+        flush=True,
+    )
+    if not same or len(a) != first:
+        fail("classic: the classic pipeline without mapping differs from the synchronous slice before a fallback")
+    out["classic"] = (launches, sys_)
+    sys_, launches = stereo_form_phase(
+        "classic mapping", cam, scene, frames, card, classic, None, JAX_CLASSIC_MAPPING_ATE_M, PER_EXTRACTION, 0, 2, 1, "frame"
+    )
+    out["classic mapping"] = (launches, sys_)
+    return out
+
+
+def pipelined_mono_phase(card):
+    """Phase 18: pipelined lines-only mono (the classic pipeline) over the
+    mono sequence: every frame after initialization OK, the median Sim(3)
+    ATE over MONO_DRAWS RANSAC draws within the JAX package's pipelined
+    median x 1.05 + 0.01 m. Returns the launches of the k = 0 run."""
+    cam, scene, frames = make_mono_frames()
+    tag = "pipelined mono lines"
+    ates, keep = [], None
+    for k in range(MONO_DRAWS):
+        sys_, launches = mono_run(cam, frames, False, sampler=None if k == 0 else seeded_draws(k), pipelined=True)
+        traj = sys_.trajectory
+        states = [r.state.name for r in traj]
+        first = states.index("OK") if "OK" in states else len(states)
+        ates.append(sim3_ate(traj, scene) if first < len(states) else float("inf"))
+        if k:
+            continue
+        keep = launches
+        tr = sys_.tracker
+        print(
+            f"{tag}: states {states}; keyframes {[r.frame_idx for r in traj if r.made_keyframe]}; lagged frames "
+            f"{tr.lagged_frames}; Sim(3) ATE {ates[0]:.5f} m",
+            flush=True,
+        )
+        if [r.frame_idx for r in traj] != list(range(len(frames))):
+            fail(f"{tag}: trajectory frames {[r.frame_idx for r in traj]}, expected one entry per frame in order")
+        if first == len(states) or any(st != "OK" for st in states[first:]):
+            fail(f"{tag}: not every frame after initialization tracked OK")
+        if tr.lagged_frames != list(range(first + 1, len(frames))):
+            fail(f"{tag}: the frames after initialization did not all go through the classic pipeline")
+        check_mono_launches(tag, launches, PER_EXTRACTION, len(frames))
+        fs = sys_.frame_s[first + 1:]
+        print(
+            f"{tag}: frames after initialization: median {statistics.median(fs) * 1e3:.2f} ms/frame = "
+            f"{len(fs) / sum(fs):.2f} frames/s on {card}",
+            flush=True,
+        )
+        form_profile(tag, lambda: mono_system(cam, False, pipelined=True), frames, card, first + 3, 1, "frame")
+    ate, jax_ate = statistics.median(ates), statistics.median(JAX_PIPELINED_MONO_DRAW_ATES_M)
+    bound = jax_ate * MONO_ATE_FACTOR + ATE_MARGIN_M
+    print(
+        f"{tag}: Sim(3) ATE over {MONO_DRAWS} RANSAC draws {', '.join(f'{a:.5f}' for a in ates)} m: median {ate:.5f} m, bound "
+        f"{bound:.5f} m (the JAX package's pipelined median {jax_ate} m x {MONO_ATE_FACTOR} + {ATE_MARGIN_M} m) on {card}",
+        flush=True,
+    )
+    if not ate <= bound:
+        fail(f"{tag}: median Sim(3) ATE {ate} m above {bound} m")
+    return keep
+
+
+def radtan_phase(card):
+    """Phase 19: radtan. extract_features on a distorted VGA frame on the
+    card: its undistortion within 1e-3 px of the CPU's on the same
+    detections, its segments as sets against the CPU port's (95% within 0.5
+    px: kernels and plain versions round differently, and the detector's
+    thresholds see it), the median endpoint distance to the true lines
+    below 2 px; then the
+    synchronous descriptor-stereo tracker over RADTAN_FRAMES distorted pairs
+    within the JAX package's ATE x 1.05 + 0.01 m. Returns its launches."""
+    import numpy as np
+    import torch
+
+    from tpuslam_torch.frontend.frame import FrontendParams, _undistort_feature_geometry, extract_features
+    from tpuslam_torch.frontend.tracking import TrackerConfig
+    from tpuslam_torch.geometry.camera import Distortion
+    from tpuslam_torch.io.synthetic import observe_frame
+
+    cam, dist, scene, frames = make_radtan_frames()
+    fe = FrontendParams(dist=Distortion(**dist), cam=cam)
+    img = torch.from_numpy(frames[0][0]).to(torch.float32) / 255.0
+    gpu, cpu = extract_features(img.cuda(), fe), extract_features(img, fe)
+    # the undistortion: the CPU's of the card's own detections
+    raw = extract_features(img.cuda(), fe._replace(dist=Distortion(), cam=None))
+    ref = _undistort_feature_geometry(type(raw)(*(x.cpu() for x in raw)), cam, fe.dist)
+    und = float((gpu.endpoints.cpu() - ref.endpoints).abs().max())
+    ep_g = gpu.endpoints.cpu().numpy()[gpu.valid.cpu().numpy() > 0.5]
+    ep_c = cpu.endpoints.numpy()[cpu.valid.numpy() > 0.5]
+    d0 = np.abs(ep_g[:, None] - ep_c[None]).max(axis=(-1, -2))
+    d1 = np.abs(ep_g[:, None] - ep_c[None, :, ::-1]).max(axis=(-1, -2))
+    best = np.minimum(d0, d1).min(axis=1)
+    matched = best < 0.5
+    obs = observe_frame(scene, 0)
+    med = float(np.median(line_errors(ep_g, np.ones(len(ep_g)), obs.seg_uv[obs.seg_visible])))
+    finite = bool(np.isfinite(gpu.endpoints.cpu().numpy()).all())
+    print(
+        f"radtan extract: the card's undistortion of its detections within {und:.2e} px of the CPU's (bound 1e-3); "
+        f"{len(ep_g)} segments on the card, {len(ep_c)} on the CPU, {matched.mean():.1%} of the card's within 0.5 px of one "
+        f"of the CPU's (the largest of those {best[matched].max(initial=0.0):.2e} px); median endpoint-to-true-line "
+        f"{med:.4f} px (bound {RADTAN_LINE_ERR_PX} px); padding finite {finite} on {card}",
+        flush=True,
+    )
+    if und > 1e-3 or matched.mean() < 0.95 or abs(len(ep_g) - len(ep_c)) > 0.05 * len(ep_c):
+        fail("radtan: the card's undistorted segments differ from the CPU port's")
+    if not med < RADTAN_LINE_ERR_PX or not finite:
+        fail(f"radtan: median endpoint-to-true-line {med} px (bound {RADTAN_LINE_ERR_PX} px), padding finite {finite}")
+    sys_, launches = stereo_form_phase(
+        "radtan", cam, scene, frames, card, TrackerConfig(frontend=fe), None, JAX_RADTAN_ATE_M, PER_EXTRACTION, 0, 2, 1, "frame",
+        mapping=False, warm=12,
+    )
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1833,7 +2318,7 @@ def main() -> int:
     cam, scene, frames = make_frames()
     kres = kernel_phase(frames, card)
 
-    _, slice_launches = run_slice("slice", cam, scene, frames, card, mapping=False, jax_ate=JAX_ATE_M)
+    slice_sys, slice_launches = run_slice("slice", cam, scene, frames, card, mapping=False, jax_ate=JAX_ATE_M)
     profile_phase(cam, frames, card)
     sys_, map_launches = run_slice("mapping", cam, scene, frames, card, mapping=True, jax_ate=JAX_MAPPING_ATE_M)
     ba_phase(sys_, cam, card)
@@ -1847,6 +2332,11 @@ def main() -> int:
     loop_launches = loop_phase(card)
     mono_launches, mono_lines_launches = mono_phase(card)
     mono_loop_launches = mono_loop_phase(card)
+    forms = pipelined_phases(card, cam, scene, frames, slice_sys)
+    pmono_launches = pipelined_mono_phase(card)
+    radtan_launches = radtan_phase(card)
+    new_paths = {tag.replace(" ", "_"): launches[0] for tag, (launches, _) in forms.items()}
+    new_paths.update(pipelined_mono=pmono_launches[0], radtan=radtan_launches[0])
 
     calls, device = mono_launches  # this slice's path: mono (hybrid, the mode BASELINE.md recommends)
     kernels = [
@@ -1861,11 +2351,25 @@ def main() -> int:
                 "slice": slice_launches[0][name], "mapping": map_launches[0][name], "bench": bench_launches[0][name],
                 "bench_hybrid": hybrid_launches[0][name], "loop": loop_launches[0][name], "mono": calls[name],
                 "mono_lines": mono_lines_launches[0][name], "mono_loop": mono_loop_launches[0][name],
+                **{path: calls_[name] for path, calls_ in new_paths.items()},
             },
             **kres[name],
         )
         for name in PER_FRAME
     ]
+    # the resize's prefilter: one blur call per image extraction of the
+    # hostscale phase beside the pyramid's
+    hs_launches, hs_sys = forms["hostscale"]
+    n_resize = hs_launches[0]["blur"] - hs_sys.n_images
+    if n_resize != hs_sys.n_images:
+        fail(f"hostscale: {n_resize} resize blur calls for {hs_sys.n_images} image extractions")
+    kernels.append(
+        dict(
+            name="blur.resize", route="cuda", source=KERNELS["blur"][0], replaces=KERNELS["blur"][1], launches=n_resize,
+            launches_per_call=hs_launches[1]["blur"] // hs_launches[0]["blur"], launches_by_path={"hostscale": n_resize},
+            **kres["blur.resize"],
+        )
+    )
     print(
         f"torch.profiler: {TRACES['taken']} traces, {TRACES['again']} taken again; the traces kept lack the device records "
         f"of {TRACES['records_lost']} kernel launches",

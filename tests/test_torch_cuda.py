@@ -946,3 +946,138 @@ def test_mono_system_repeats_on_card(dev):
     kfs = [[r.frame_idx for r in s.trajectory if r.made_keyframe] for s in runs]
     assert kfs[0] == kfs[1], kfs
     assert all(np.array_equal(a.T_cw, b.T_cw) for a, b in zip(runs[0].trajectory, runs[1].trajectory))
+
+
+# ---- the pipelined forms and the front end's other branches ------------------
+
+
+@pytest.mark.parametrize("shape", [(480, 640), (240, 320)])
+def test_blur_kernel_at_the_resize_sigma(dev, shape):
+    """The in-program resize's prefilter (sigma 0.5, radius 2): within the
+    [0, 1] tolerance of the plain version and bit for bit the two-pass form;
+    the whole resize (blur, then the two weight products) within 1e-5 of the
+    CPU's."""
+    from tpuslam_torch.frontend.frame import FrontendParams, resize_to_base_scale
+
+    x = _image(shape, dev, seed=5)
+    assert image._blur_taps(0.5).numel() == 5
+    out = image.gaussian_blur(x, 0.5)
+    torch.testing.assert_close(out, image.gaussian_blur_torch(x, 0.5), rtol=0, atol=1e-5)
+    assert torch.equal(out, image._blur_two_pass_cuda(x, 0.5))
+    fe = FrontendParams(base_scale=0.5)
+    torch.testing.assert_close(resize_to_base_scale(x, fe).cpu(), resize_to_base_scale(x.cpu(), fe), rtol=0, atol=1e-5)
+
+
+def _card_forms():
+    """name -> (TrackerConfig, sensor): each pipelined form at QVGA (chunks
+    of 4), the synchronous tracker with radtan distortion."""
+    import chip_smoke
+    from tpuslam_torch.frontend.frame import FrontendParams
+    from tpuslam_torch.frontend.points import PointFrontendParams
+    from tpuslam_torch.frontend.tracking import TrackerConfig
+    from tpuslam_torch.geometry.camera import Distortion
+    from tpuslam_torch.kernels.align_direct import DirectAlignParams
+    from tpuslam_torch.kernels.stereo_direct import DirectStereoParams
+
+    d = DirectStereoParams(max_disp=64.0)
+    return {
+        "frame": TrackerConfig(pipelined=True, direct_stereo=d),
+        "descriptor frame": TrackerConfig(pipelined=True),
+        "hybrid frame": TrackerConfig(pipelined=True, direct_stereo=DirectStereoParams(), points=PointFrontendParams()),
+        "full-detection chunk": TrackerConfig(pipelined=True, chunk=4, direct_stereo=d),
+        "resized semi-direct chunk": TrackerConfig(
+            pipelined=True, chunk=4, direct_stereo=d, semidirect=DirectAlignParams(), frontend=FrontendParams(base_scale=0.5)
+        ),
+        "classic": TrackerConfig(pipelined=True, fused=False),
+        "radtan": TrackerConfig(frontend=FrontendParams(dist=Distortion(**chip_smoke.RADTAN), cam=QVGA)),
+    }
+
+
+def _form_frames(name):
+    import chip_smoke
+
+    if name == "hybrid frame":
+        return dot_scene(8)[1]
+    frames = stereo_scene(8)[1]
+    if name == "radtan":
+        return [tuple(chip_smoke.distort_image(x, QVGA, chip_smoke.RADTAN) for x in pair) for pair in frames]
+    return frames
+
+
+@pytest.mark.parametrize("name", list(_card_forms()))
+def test_pipelined_form_on_card_tracks_like_cpu(dev, name):
+    """Eight QVGA frames through System (mapping off) in each form on the
+    card and on the CPU: one result per frame, the same states and
+    keyframes, poses within 2 cm (kernels and plain versions differ in float
+    rounding, which the detector's thresholds can turn into slightly
+    different segments)."""
+    from tpuslam_torch.system import System
+    from torch_parity import DOTS
+
+    cfg = _card_forms()[name]
+    cam = DOTS if name == "hybrid frame" else QVGA
+    frames = _form_frames(name)
+    runs = []
+    for device in ("cpu", dev):
+        s = System(cam, sensor="stereo", mapping=False, loop_closing=False, tracker_cfg=cfg, device=device)
+        for f, (il, ir) in enumerate(frames):
+            s.track_stereo(il, ir, 0.05 * f)
+        s.shutdown()
+        runs.append(s.trajectory)
+    assert [r.frame_idx for r in runs[1]] == [r.frame_idx for r in runs[0]] == list(range(8))
+    for a, b in zip(*runs):
+        assert a.state == b.state and a.made_keyframe == b.made_keyframe, a.frame_idx
+        assert np.linalg.norm(np.linalg.inv(a.T_cw)[:3, 3] - np.linalg.inv(b.T_cw)[:3, 3]) < 0.02
+
+
+def test_pipelined_mono_on_card_tracks_like_cpu(dev):
+    """The mono sequence's first 10 VGA frames through pipelined lines-only
+    mono (the classic pipeline) on the card and on the CPU, with the same
+    RANSAC draws (the default generators of the two devices draw
+    differently): the same states and keyframes, poses within 2 cm once
+    initialized."""
+    import chip_smoke
+    from tpuslam_torch.frontend.initializer import MonoInitializer
+    from tpuslam_torch.frontend.tracking import TrackerConfig
+    from tpuslam_torch.system import System
+
+    cam, _, frames = chip_smoke.make_mono_frames(10)
+    cfg = TrackerConfig(**chip_smoke.MONO_TRACKER, pipelined=True)
+
+    def draws(frame_idx, n_rows, n_hypotheses):  # the same RANSAC draws on both devices
+        return np.random.default_rng(frame_idx).integers(0, n_rows, (n_hypotheses, 8))
+
+    runs = []
+    for device in ("cpu", dev):
+        s = System(cam, sensor="mono", tracker_cfg=cfg, device=device)
+        s.tracker.mono_init = MonoInitializer(cam, sampler=draws)
+        for f, img in enumerate(frames):
+            s.track_monocular(img, 0.05 * f)
+        s.shutdown()
+        runs.append(s.trajectory)
+    assert [r.frame_idx for r in runs[1]] == list(range(10))
+    assert any(r.state.name == "OK" for r in runs[1])
+    for a, b in zip(*runs):
+        assert a.state == b.state and a.made_keyframe == b.made_keyframe, a.frame_idx
+        if a.state.name == "OK":
+            assert np.linalg.norm(np.linalg.inv(a.T_cw)[:3, 3] - np.linalg.inv(b.T_cw)[:3, 3]) < 0.02
+
+
+def test_single_frame_program_repeats_on_card(dev):
+    """The single-frame direct program (System with bench_configs(chunk=1),
+    mapping on) over 10 host-halved VGA frames twice on the card: the same
+    keyframes and bit-equal poses."""
+    from tpuslam_torch.system import System, bench_configs
+
+    _, frames = stereo_scene(10, cam=VGA)
+    tcfg, mcfg = bench_configs(chunk=1)
+    runs = []
+    for _ in range(2):
+        s = System(VGA, sensor="stereo", mapping=True, loop_closing=False, tracker_cfg=tcfg, mapper_cfg=mcfg, device=dev)
+        for f, (il, ir) in enumerate(frames):
+            s.track_stereo(il, ir, 0.05 * f)
+        s.shutdown()
+        runs.append(s.trajectory)
+    assert s.tracker.anchor_frames == list(range(1, 10))
+    assert [r.made_keyframe for r in runs[0]] == [r.made_keyframe for r in runs[1]]
+    assert all(np.array_equal(a.T_cw, b.T_cw) for a, b in zip(*runs))

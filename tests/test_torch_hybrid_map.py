@@ -11,12 +11,14 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from test_torch_semidirect import _ate, _pose_gap
 from torch_parity import DOTS, JaxAsOnTheCard, dot_scene, np_of
 from tpuslam_torch.backend import local_ba as tlba
 from tpuslam_torch.backend.mapping import LocalMapper
 from tpuslam_torch.convert import map_state, mapper_config_from, slam_map_from, tracker_config_from
+from tpuslam_torch.frontend.frame import host_prescale
 from tpuslam_torch.frontend.points import PointFrontendParams
 from tpuslam_torch.frontend.tracking import TrackerConfig, TrackingState
 from tpuslam_torch.system import System, bench_configs
@@ -158,25 +160,79 @@ def test_mapper_event_matches_jax(runs, which):
     assert stats[:4] == jstats[:4] and stats.n_pruned == jstats.n_pruned
 
 
-def _unported():
+def _track_two(tracker, frames, mono=False):
+    """Two frames through ``tracker`` and its flush: the results in order."""
+    out = []
+    for f, fr in enumerate(frames):
+        r = tracker.track_monocular(fr[0], f * 0.05) if mono else tracker.track_stereo(fr[0], fr[1], f * 0.05)
+        out += ([] if r is None else [r]) + tracker.pop_results()
+    return out + tracker.flush_all()
+
+
+def _fused_hybrid_program():
+    """The single-frame hybrid program on frame 1 against the local maps of
+    a tracker initialized on frame 0: accepted, with corner matches."""
     from tpuslam_torch.frontend import pipeline
     from tpuslam_torch.frontend.tracking import Tracker
     from tpuslam_torch.slammap.map import SlamMap
 
+    _, frames = dot_scene(2)
+    tr = Tracker(DOTS, SlamMap(), dataclasses.replace(bench_configs(points=True)[0], chunk=1, semidirect=None), device="cpu")
+    tr.track_stereo(*frames[0], 0.0)
+    c = tr.cfg
+    pair = torch.from_numpy(np.stack([host_prescale(x, c.frontend) for x in frames[1]]))
+    T0, T1 = tr._seed_chain()
+    out = pipeline.fused_stereo_frame_hybrid(
+        pair, T0, T1, tr._local_map_arrays(), tr._point_local_arrays(), tr._fxb, DOTS, c.frontend, tr._direct_lines(),
+        tr._direct_points(), c.points, c.search_coarse, c.search_fine, c.pose_opt, c.min_track_inliers,
+    )
+    assert out.packed.shape == (20,) and float(out.packed[19]) == 1.0 and int((out.p_match_idx >= 0).sum()) > 10
+
+
+def _single_frame_hybrid_pipeline():
+    from tpuslam_torch.frontend.tracking import Tracker
+    from tpuslam_torch.slammap.map import SlamMap
+
+    _, frames = dot_scene(2)
+    tr = Tracker(DOTS, SlamMap(), dataclasses.replace(bench_configs(points=True)[0], chunk=1, semidirect=None), device="cpu")
+    out = _track_two(tr, frames)
+    assert [r.frame_idx for r in out] == [0, 1] and all(r.state.name == "OK" for r in out)
+    assert tr.anchor_frames == [1] and tr.sync_frames == [0]
+
+
+def _pipelined_hybrid_mono():
+    """Pipelined mono with points tracks synchronously, as in the JAX package."""
+    from tpuslam_torch.frontend.tracking import Tracker
+    from tpuslam_torch.slammap.map import SlamMap
+
+    _, frames = dot_scene(2)
+    tr = Tracker(DOTS, SlamMap(), bench_configs(points=True)[0], device="cpu")
+    out = _track_two(tr, frames, mono=True)
+    assert [r.frame_idx for r in out] == [0, 1] and tr.sync_frames == [0, 1] and tr.lagged_frames == []
+
+
+def _unported():
+    """name -> (run, raises): the hybrid paths that raised until the
+    single-frame fused programs and the classic pipeline were ported, and
+    map serialization, which still raises."""
     hybrid = TrackerConfig(points=PointFrontendParams())
     return {
-        "single-frame fused hybrid program": lambda: pipeline.fused_stereo_frame_hybrid(),
-        "single-frame hybrid pipeline": lambda: Tracker(
-            DOTS, SlamMap(), dataclasses.replace(bench_configs(points=True)[0], chunk=1, semidirect=None), device="cpu"
+        "single-frame fused hybrid program": (_fused_hybrid_program, False),
+        "single-frame hybrid pipeline": (_single_frame_hybrid_pipeline, False),
+        "map serialization": (
+            lambda: System(DOTS, loop_closing=False, tracker_cfg=hybrid, device="cpu").save_map("map.npz"), True,
         ),
-        "map serialization": lambda: System(DOTS, loop_closing=False, tracker_cfg=hybrid, device="cpu").save_map("map.npz"),
-        "pipelined mono tracking": lambda: Tracker(DOTS, SlamMap(), bench_configs(points=True)[0], device="cpu").track_monocular(
-            np.zeros((240, 320), np.uint8), 0.0
-        ),
+        "pipelined mono tracking": (_pipelined_hybrid_mono, False),
     }
 
 
 @pytest.mark.parametrize("name", list(_unported()))
 def test_unported_hybrid_paths_raise(name):
-    with pytest.raises(NotImplementedError):
-        _unported()[name]()
+    """Map serialization raises; the other paths build and track two QVGA
+    frames on the CPU."""
+    run, raises = _unported()[name]
+    if raises:
+        with pytest.raises(NotImplementedError):
+            run()
+    else:
+        run()

@@ -267,12 +267,28 @@ def test_system_ate_within_jax(system_runs):
 
 @pytest.mark.parametrize("change", [dict(chunk=1), dict(semidirect=None), dict(direct_stereo=None), dict(fused=False)])
 def test_unported_pipelined_configurations_raise(change):
-    """Pipelined tracking runs the semi-direct chunks only: the single-frame
-    fused program, the full-detection chunks and the classic pipeline
-    raise."""
+    """The pipelined configurations beside the semi-direct chunks, which
+    raised until the single-frame fused programs, the full-detection chunks
+    and the classic pipeline were ported, build and track: two QVGA frames,
+    one result each after the flush, both OK, the second through the form
+    the configuration selects (the single-frame program or the padded
+    full-detection chunk; the classic pipeline)."""
     tcfg = dataclasses.replace(bench_configs()[0], **change)
-    with pytest.raises(NotImplementedError, match="semi-direct"):
-        System(QVGA, sensor="stereo", mapping=False, loop_closing=False, tracker_cfg=tcfg, device="cpu")
+    _, frames = stereo_scene(2, QVGA)
+    s = System(QVGA, sensor="stereo", mapping=False, loop_closing=False, tracker_cfg=tcfg, device="cpu")
+    for f, (il, ir) in enumerate(frames):
+        s.track_stereo(il, ir, f * 0.05)
+    s.shutdown()
+    assert [r.frame_idx for r in s.trajectory] == [0, 1]
+    assert all(r.state == TrackingState.OK for r in s.trajectory)
+    tr = s.tracker
+    assert tr.sync_frames == [0]
+    if change == dict(fused=False):
+        assert tr.lagged_frames == [1] and tr.anchor_frames == []
+    elif change == dict(semidirect=None):
+        assert tr.anchor_frames == [1] + [-1] * (tcfg.chunk - 1)  # every frame of the padded chunk
+    else:
+        assert tr.anchor_frames == [1]
 
 
 def test_tracker_config_converts():

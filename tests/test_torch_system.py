@@ -92,13 +92,16 @@ def test_unported_configurations_raise():
     assert s.loop_closer is not None and s.loop_closer.db is s.kf_db and not s.loop_closer.mono
     s = System(QVGA, sensor="mono", device="cpu")  # mono is ported: its defaults build, the closer on its Sim(3) branch
     assert s.mapper is not None and s.mapper.mono and s.loop_closer is not None and s.loop_closer.mono
-    with pytest.raises(NotImplementedError, match="base_scale"):  # the in-program resize; prescaled=True is ported
-        s = System(
-            QVGA, mapping=False, loop_closing=False,
-            tracker_cfg=TrackerConfig(frontend=FrontendParams(base_scale=0.5, prescaled=False)),
-            device="cpu",
-        )
-        s.track_stereo(np.zeros((240, 320), np.uint8), np.zeros((240, 320), np.uint8), 0.0)
+    # base_scale without prescaled (the in-program resize) builds and tracks
+    s = System(
+        QVGA, mapping=False, loop_closing=False,
+        tracker_cfg=TrackerConfig(frontend=FrontendParams(base_scale=0.5, prescaled=False)),
+        device="cpu",
+    )
+    _, frames = stereo_scene(2, QVGA)
+    for f, (il, ir) in enumerate(frames):
+        s.track_stereo(il, ir, f * 0.05)
+    assert [r.state for r in s.trajectory] == [TrackingState.OK] * 2 and s.tracker.n_sync_extractions == 2
 
 
 def _entry_points():

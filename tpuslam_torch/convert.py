@@ -18,10 +18,11 @@ from tpuslam_torch.backend.lm import BAProblem
 from tpuslam_torch.backend.loop_closing import LoopConfig
 from tpuslam_torch.backend.mapping import MapperConfig
 from tpuslam_torch.backend.pose_graph import PoseGraphProblem, Sim3GraphProblem
-from tpuslam_torch.frontend.frame import FrameFeatures
+from tpuslam_torch.frontend.frame import FrameFeatures, FrontendParams
 from tpuslam_torch.frontend.initializer import MonoInitParams
 from tpuslam_torch.frontend.points import PointFrontendParams
 from tpuslam_torch.frontend.tracking import TrackerConfig
+from tpuslam_torch.geometry.camera import Intrinsics
 from tpuslam_torch.kernels.align_direct import DirectAlignParams
 from tpuslam_torch.kernels.fast import PointFeatures
 from tpuslam_torch.kernels.stereo_direct import DirectPointStereoParams, DirectStereoParams
@@ -69,6 +70,14 @@ def params_from(cls, value):
             v = params_from(type(default), v)
         out[name] = v
     return cls(**out)
+
+
+def frontend_params_from(value) -> FrontendParams:
+    """FrontendParams from the JAX package's: its LSD, LBD and radtan
+    ``dist`` settings, and the camera ``cam`` (set with distortion) as this
+    package's Intrinsics."""
+    fe = params_from(FrontendParams, value)
+    return fe if fe.cam is None else fe._replace(cam=Intrinsics(*fe.cam))
 
 
 def features_from(value, device="cpu") -> FrameFeatures:
@@ -197,16 +206,19 @@ _TRACKER_PARAMS = {
 
 def tracker_config_from(value) -> TrackerConfig:
     """TrackerConfig from a TrackerConfig-like dataclass (the JAX package's):
-    the front end, stereo, search and pose settings, the pipelined chunk
-    fields, ``direct_stereo``, ``semidirect`` and the hybrid-point fields
-    (``points``, ``point_local_capacity``, ``direct_points``) become this
-    package's types."""
+    the front end (radtan ``dist`` and ``cam`` included), stereo, search and
+    pose settings, the pipelined fields (``pipelined``, ``fused``,
+    ``fuse_lag``, ``chunk``), ``direct_stereo``, ``semidirect`` and the
+    hybrid-point fields (``points``, ``point_local_capacity``,
+    ``direct_points``) become this package's types."""
     ours = TrackerConfig()
     out = {}
     for name, v in _ported_fields(value, {f.name for f in dataclasses.fields(TrackerConfig)}, "TrackerConfig").items():
         default = getattr(ours, name)
         if name in _TRACKER_PARAMS:
             v = None if v is None else params_from(_TRACKER_PARAMS[name], v)
+        elif name == "frontend":
+            v = frontend_params_from(v)
         elif hasattr(default, "_fields"):
             v = params_from(type(default), v)
         out[name] = v

@@ -2,12 +2,14 @@
 
 Counterpart of ``tpuslam.frontend.frame``: pyramid -> line detection -> LBD
 per level, the levels merged into one fixed-capacity set in level-0 pixel
-coordinates, and descriptor stereo for endpoint depths. Zero distortion
-only (radtan undistortion is not ported yet and raises). The half-resolution
-bench path is the host-prescaled form: :func:`host_prescale` halves each
-frame on the host before it goes to the device (``prescaled=True``), and the
-merged geometry is reported in full-resolution pixels; the in-program resize
-(``base_scale != 1`` without ``prescaled``) is not ported and raises.
+coordinates, and descriptor stereo for endpoint depths. At ``base_scale``
+below 1 the detector runs on a smaller image and the merged geometry is
+reported in full-resolution pixels. The smaller image comes either from the
+host (``prescaled=True``: :func:`host_prescale` halves each frame before it
+goes to the device) or from the device (the in-program resize: a mild
+Gaussian, then the antialiased linear resize of ``jax.image.resize``).
+With radtan distortion (``dist`` and ``cam``) detection runs on the
+distorted image and the segment geometry is undistorted afterwards.
 """
 
 from __future__ import annotations
@@ -18,8 +20,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from tpuslam_torch.geometry.camera import Distortion, Intrinsics
-from tpuslam_torch.kernels.image import build_pyramid, gradients_xy
+from tpuslam_torch.geometry.camera import Distortion, Intrinsics, undistort_pixels
+from tpuslam_torch.kernels.image import build_pyramid, gaussian_blur, gradients_xy, resize_linear, sqrt_rn
 from tpuslam_torch.kernels.lbd import LBDParams, lbd_descriptors
 from tpuslam_torch.kernels.lsd import DetectedLines, LSDParams, detect_lines, topk_stable
 from tpuslam_torch.kernels.match import (
@@ -36,14 +38,18 @@ class FrontendParams(NamedTuple):
     n_levels: int = 2
     scale: float = 0.8
     # detect + describe at this fraction of the input resolution; geometry is
-    # reported at full resolution (sigma scaled up). Only with prescaled=True
+    # reported at full resolution (sigma scaled up)
     base_scale: float = 1.0
     # the caller (Tracker.track_stereo) downscales each frame to base_scale
-    # on the host with host_prescale before it goes to the device
+    # on the host with host_prescale before it goes to the device; without
+    # it extract_features resizes on the device
     prescaled: bool = False
     lsd: LSDParams = LSDParams()
     lbd: LBDParams = LBDParams()
-    dist: Distortion = Distortion()  # radtan distortion (not ported: zero only)
+    # radtan distortion: detection on the distorted image, the segment
+    # geometry undistorted afterwards (``cam`` required when non-zero);
+    # stereo association still assumes rectified cameras
+    dist: Distortion = Distortion()
     cam: Optional[Intrinsics] = None
 
 
@@ -132,20 +138,52 @@ def host_prescale(img, params: FrontendParams):
     raise NotImplementedError(f"host_prescale: base_scale {s} (only the 2x2 area mean, base_scale 0.5, is ported)")
 
 
+def _undistort_feature_geometry(feats: FrameFeatures, cam: Intrinsics, dist: Distortion) -> FrameFeatures:
+    """Valid segments' endpoints undistorted, their midpoint, angle and
+    length recomputed from them. Padding slots keep their geometry: the JAX
+    package undistorts them too, and a padding endpoint at pixel (0, 0) lies
+    beyond the model's largest distorted radius for strong distortion (TUM
+    fr1's at fx 458), where the fixed point diverges to NaN, which then
+    poisons descriptor stereo (ROADMAP.md section 3)."""
+    ep = undistort_pixels(cam, dist, feats.endpoints)  # (K, 2, 2)
+    d = ep[:, 1] - ep[:, 0]
+    ok = feats.valid > 0.5
+    return feats._replace(
+        endpoints=torch.where(ok[:, None, None], ep, feats.endpoints),
+        midpoint=torch.where(ok[:, None], 0.5 * (ep[:, 0] + ep[:, 1]), feats.midpoint),
+        angle=torch.where(ok, torch.atan2(d[:, 1], d[:, 0]), feats.angle),
+        length=torch.where(ok, sqrt_rn(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]), feats.length),
+    )
+
+
+def resize_to_base_scale(img: torch.Tensor, params: FrontendParams) -> torch.Tensor:
+    """The in-program resize: a Gaussian of sigma 0.5 (1 / s - 1) (a mild
+    antialias: at s = 0.5 the blur kernel at radius 2), then the antialiased
+    linear resize to (max(16, round(H s)), max(16, round(W s)))."""
+    H, W = img.shape
+    s = params.base_scale
+    bh, bw = max(16, int(round(H * s))), max(16, int(round(W * s)))
+    return resize_linear(gaussian_blur(img, 0.5 * (1.0 / s - 1.0)), (bh, bw))
+
+
 def extract_features(img: torch.Tensor, params: FrontendParams = FrontendParams()) -> FrameFeatures:
     """(H, W) float32 image in [0, 1] -> FrameFeatures, on the image's device.
-    With ``prescaled`` the image is already at ``base_scale`` of the frame."""
+    With ``prescaled`` the image is already at ``base_scale`` of the frame;
+    without it a ``base_scale`` below 1 resizes it here."""
+    if not params.dist.is_zero and params.cam is None:
+        raise ValueError("FrontendParams.cam required when distortion is set")
     if params.base_scale != 1.0 and not params.prescaled:
-        raise NotImplementedError("base_scale without prescaled (the in-program resize) is not ported yet")
-    if not params.dist.is_zero:
-        raise NotImplementedError("radtan undistortion is not ported yet")
+        img = resize_to_base_scale(img, params)
     per_level = []
     for lim in build_pyramid(img, params.n_levels, params.scale):
         det: DetectedLines = detect_lines(lim, params.max_lines, params.lsd)
         gx, gy = gradients_xy(lim, 255.0)
         desc, bits = lbd_descriptors(gx, gy, det.endpoints, params.lbd)
         per_level.append((det, desc, bits))
-    return _merge_levels(per_level, params)
+    feats = _merge_levels(per_level, params)
+    if not params.dist.is_zero:
+        feats = _undistort_feature_geometry(feats, params.cam, params.dist)
+    return feats
 
 
 class StereoParams(NamedTuple):

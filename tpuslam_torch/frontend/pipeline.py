@@ -1,28 +1,35 @@
-"""The semi-direct chunk program of the pipelined stereo tracker (torch).
+"""The fused device programs of the pipelined stereo tracker (torch).
 
-Counterpart of the direct-stereo and semi-direct parts of
-``tpuslam.frontend.pipeline``. One chunk is C consecutive frames handed to
-the device as one u8 tensor ``frames`` (C + 1, H, W) = [L0, R0, L1, ...,
-L_{C-1}]:
+Counterpart of the pipelined programs of ``tpuslam.frontend.pipeline``. Each
+program takes u8 frames (or float32 in [0, 1]), the pose chain (T_last,
+T_prevlast) and the local map, and returns the frames' features, matches and
+one ``packed`` row each (pose (16), n_matched, n_inliers, n_depth, accept):
 
-- the anchor frame (the first) runs the full frame: the detector and LBD on
-  the left image, direct epipolar stereo against the right image, coarse and
-  fine projection search with the pose LM (:func:`_fused_frame_direct_body`),
-  then photometric templates of the local map under its accepted pose;
-- each of the C - 1 followers is tracked by template alignment against the
-  local line map (``kernels/align_direct.py``), from the motion model.
+- the single-frame programs (:func:`fused_stereo_frame`): one (2, H, W)
+  pair; the full frame on the left image (detector, LBD), line depths by
+  direct epipolar correlation against the right image (``sd``) or by
+  descriptor stereo against the right image's own detection (both cameras
+  through the single-image extract in turn, as the JAX package's ``lax.map``
+  does: batching would reorder the detector's float sums), then coarse and
+  fine projection search with the pose LM and the in-program acceptance.
+  :func:`fused_stereo_frame_hybrid` adds FAST/BRIEF corners with direct
+  corner depths, both landmark families in one pose LM per stage;
+- the full-detection chunk (:func:`fused_stereo_chunk`): C pairs, each
+  through the single-frame direct program, the pose chain carried through;
+  every per-frame output has a leading (C,) axis;
+- the semi-direct chunk (:func:`fused_stereo_semidirect`): C frames handed
+  over as (C + 1, H, W) = [L0, R0, L1, ..., L_{C-1}]; the anchor (the first)
+  runs the full frame and makes photometric templates of the local map
+  under its accepted pose; each of the C - 1 followers is tracked by
+  template alignment against the local line map (``kernels/align_direct.py``),
+  from the motion model. The hybrid chunk (``_fused_chunk_semidirect_hybrid``)
+  adds corners on the anchor and point templates on the followers (one
+  joint Gauss-Newton).
 
-The hybrid chunk (``_fused_chunk_semidirect_hybrid``) adds FAST/BRIEF
-corners on the anchor (direct epipolar corner depths, both landmark
-families in one pose LM per stage) and point templates beside the line
-templates on the followers (one joint Gauss-Newton). The single-frame fused
-hybrid program of the JAX package is not ported (:func:`fused_stereo_frame_hybrid`
-raises).
-
-The pose chain (T_last, T_prevlast) and the per-frame acceptance stay on
-the device: each select is arithmetic on a 0-d float mask, every shape is
-fixed, and nothing in the chunk reads back to the host; the tracker reads
-the chunk's (C, 20) ``packed`` rows once, when it resolves the chunk.
+The pose chain and the per-frame acceptance stay on the device: each select
+is arithmetic on a 0-d float mask, every shape is fixed, and nothing in a
+program reads back to the host; the tracker reads the ``packed`` rows once,
+when it resolves the frames.
 """
 
 from __future__ import annotations
@@ -33,7 +40,7 @@ import numpy as np
 import torch
 
 from tpuslam_torch.backend.pose_opt import PoseOptConfig
-from tpuslam_torch.frontend.frame import FrameFeatures, FrontendParams, extract_features
+from tpuslam_torch.frontend.frame import FrameFeatures, FrontendParams, StereoParams, extract_features, stereo_line_depths
 from tpuslam_torch.frontend.matcher import ProjectionSearchParams, tracked_pose_step
 from tpuslam_torch.frontend.points import PointFrontendParams, tracked_pose_step_hybrid
 from tpuslam_torch.geometry.camera import Intrinsics
@@ -55,10 +62,12 @@ from tpuslam_torch.kernels.stereo_direct import (
 
 
 class FusedFrameOut(NamedTuple):
-    feats: FrameFeatures  # the anchor's stereo-associated left features
-    match_idx: torch.Tensor  # (NL,) landmark -> anchor feature slot
+    # per frame for single frames and full-detection chunks (with a leading
+    # (C,) axis), the anchor's for semi-direct chunks
+    feats: FrameFeatures  # stereo-associated left features
+    match_idx: torch.Tensor  # (NL,) landmark -> feature slot
     inlier: torch.Tensor  # (NL,) float32
-    packed: torch.Tensor  # (C, 20) float32 rows: pose (16), n_matched, n_inliers, n_depth, accept
+    packed: torch.Tensor  # (20,) or (C, 20) float32 rows: pose (16), n_matched, n_inliers, n_depth, accept
     T_last: torch.Tensor  # (4, 4) the chain forward: the last frame's accepted (or predicted) pose
     T_prevlast: torch.Tensor  # (4, 4) the chain forward
     # hybrid chunks only
@@ -68,15 +77,15 @@ class FusedFrameOut(NamedTuple):
 
 
 # XLA rewrites a division by a constant inside a jitted program into a
-# multiplication by its float32 reciprocal: the JAX package's chunk programs
+# multiplication by its float32 reciprocal: the JAX package's fused programs
 # scale their u8 frames by this, not by 1/255 exactly (a one-ulp difference on
 # about half of the 256 levels, which the FAST and detector thresholds see)
 _INV255 = float(np.float32(1.0) / np.float32(255.0))
 
 
 def _frames01(frames: torch.Tensor) -> torch.Tensor:
-    """A chunk's u8 frames -> float32 in [0, 1], as the JAX package's jitted
-    chunk programs compute it; float32 frames pass through."""
+    """u8 frames -> float32 in [0, 1], as the JAX package's jitted fused
+    programs compute it; float32 frames pass through."""
     if frames.dtype == torch.float32:
         return frames
     return frames.to(torch.float32) * _INV255
@@ -148,6 +157,129 @@ def _fused_frame_direct_body(
     depth = okf[:, None] * fxb / torch.clamp(disp, min=1e-6)
     out = _track_core_body(fl, depth, okf, T_last, T_prevlast, lm_plucker, lm_ep3d, lm_bits, lm_validf, cam, sc, sf, po, min_inliers)
     return (fl,) + out
+
+
+def _fused_frame_body(
+    pair: torch.Tensor,
+    T_last: torch.Tensor,
+    T_prevlast: torch.Tensor,
+    lm_plucker: torch.Tensor,
+    lm_ep3d: torch.Tensor,
+    lm_bits: torch.Tensor,
+    lm_validf: torch.Tensor,
+    fxb: float,
+    cam: Intrinsics,
+    fe: FrontendParams,
+    sp: StereoParams,
+    sc: ProjectionSearchParams,
+    sf: ProjectionSearchParams,
+    po: PoseOptConfig,
+    min_inliers: int,
+):
+    """One descriptor-stereo frame: both images detected and described, one
+    after the other through the single-image extract, the left lines' depths
+    from their stereo matches on the right. pair: (2, H, W) float32 in [0,
+    1]. Returns (feats, depth, okf, match_idx, inlier, packed, T_acc,
+    T_prev_next)."""
+    fl = extract_features(pair[0], fe)
+    fr = extract_features(pair[1], fe)
+    st = stereo_line_depths(fl, fr, fxb, sp)
+    out = _track_core_body(fl, st.depth, st.has_depth, T_last, T_prevlast, lm_plucker, lm_ep3d, lm_bits, lm_validf, cam, sc, sf, po, min_inliers)
+    return (fl,) + out
+
+
+def fused_stereo_frame(
+    pair: torch.Tensor,
+    T_last: torch.Tensor,
+    T_prevlast: torch.Tensor,
+    local: dict,
+    fxb: float,
+    cam: Intrinsics,
+    fe: FrontendParams,
+    sp: StereoParams,
+    sc: ProjectionSearchParams,
+    sf: ProjectionSearchParams,
+    po: PoseOptConfig,
+    min_inliers: int,
+    sd: DirectStereoParams | None = None,
+) -> FusedFrameOut:
+    """One stereo frame (pair: (2, H, W) u8, or float32 in [0, 1]) against
+    the local map arrays ``local`` (plucker, ep3d, bits, valid): direct
+    epipolar stereo with ``sd``, descriptor stereo (``sp``) without. The
+    result holds the frame's features and matches and its (20,) ``packed``
+    row."""
+    pair = _frames01(pair)
+    args = (T_last, T_prevlast, local["plucker"], local["ep3d"], local["bits"], local["valid"], float(fxb), cam, fe)
+    tail = (sc, sf, po, int(min_inliers))
+    if sd is not None:
+        fl, depth, okf, midx, inlier, packed, T_acc, T_prev = _fused_frame_direct_body(pair, *args, sd, *tail)
+    else:
+        fl, depth, okf, midx, inlier, packed, T_acc, T_prev = _fused_frame_body(pair, *args, sp, *tail)
+    return FusedFrameOut(
+        feats=fl._replace(depth=depth, has_depth=okf), match_idx=midx, inlier=inlier, packed=packed, T_last=T_acc, T_prevlast=T_prev
+    )
+
+
+def _fused_chunk_direct(
+    pairs: torch.Tensor,
+    T_last: torch.Tensor,
+    T_prevlast: torch.Tensor,
+    lm_plucker: torch.Tensor,
+    lm_ep3d: torch.Tensor,
+    lm_bits: torch.Tensor,
+    lm_validf: torch.Tensor,
+    fxb: float,
+    cam: Intrinsics,
+    fe: FrontendParams,
+    sd: DirectStereoParams,
+    sc: ProjectionSearchParams,
+    sf: ProjectionSearchParams,
+    po: PoseOptConfig,
+    min_inliers: int,
+):
+    """C consecutive direct-stereo frames, each through the single-frame
+    direct program against the same local map, the pose chain carried from
+    one to the next. pairs: (C, 2, H, W) u8 or float32 in [0, 1]. Returns
+    (feats, depth, okf, match_idx, inlier, packed) stacked on a leading (C,)
+    axis, then the final (T_last, T_prevlast)."""
+    pairs = _frames01(pairs)
+    T_l, T_p = T_last, T_prevlast
+    per_frame = []
+    for pair in pairs:
+        fl, depth, okf, midx, inlier, packed, T_l, T_p = _fused_frame_direct_body(
+            pair, T_l, T_p, lm_plucker, lm_ep3d, lm_bits, lm_validf, fxb, cam, fe, sd, sc, sf, po, min_inliers
+        )
+        per_frame.append((fl, depth, okf, midx, inlier, packed))
+    fl = FrameFeatures(*(torch.stack(x) for x in zip(*(f[0] for f in per_frame))))
+    rest = tuple(torch.stack(x) for x in zip(*(f[1:] for f in per_frame)))
+    return (fl,) + rest + (T_l, T_p)
+
+
+def fused_stereo_chunk(
+    pairs: torch.Tensor,
+    T_last: torch.Tensor,
+    T_prevlast: torch.Tensor,
+    local: dict,
+    fxb: float,
+    cam: Intrinsics,
+    fe: FrontendParams,
+    sc: ProjectionSearchParams,
+    sf: ProjectionSearchParams,
+    po: PoseOptConfig,
+    min_inliers: int,
+    sd: DirectStereoParams,
+) -> FusedFrameOut:
+    """The full-detection chunk (direct stereo, lines only): C stereo frames
+    (pairs: (C, 2, H, W)) against the local map arrays ``local``. The
+    per-frame fields of the result carry a leading (C,) axis; T_last and
+    T_prevlast are the chain after the last frame."""
+    fl, depth, okf, midx, inlier, packed, T_l, T_p = _fused_chunk_direct(
+        pairs, T_last, T_prevlast, local["plucker"], local["ep3d"], local["bits"], local["valid"],
+        float(fxb), cam, fe, sd, sc, sf, po, int(min_inliers),
+    )
+    return FusedFrameOut(
+        feats=fl._replace(depth=depth, has_depth=okf), match_idx=midx, inlier=inlier, packed=packed, T_last=T_l, T_prevlast=T_p
+    )
 
 
 def _follower_step(img, T_l, T_p, plucker_a, tm, cam: Intrinsics, ap: DirectAlignParams, min_inliers: int, tm_p=None):
@@ -368,9 +500,32 @@ def fused_stereo_semidirect_hybrid(
     )
 
 
-def fused_stereo_frame_hybrid(*args, **kwargs):
-    """The JAX package's single-frame fused hybrid program: not ported."""
-    raise NotImplementedError(
-        "the single-frame fused hybrid program (fused_stereo_frame_hybrid) is not ported: hybrid points run in the "
-        "semi-direct chunks or on the synchronous path"
+def fused_stereo_frame_hybrid(
+    pair: torch.Tensor,
+    T_last: torch.Tensor,
+    T_prevlast: torch.Tensor,
+    local: dict,
+    plocal: dict,
+    fxb: float,
+    cam: Intrinsics,
+    fe: FrontendParams,
+    sd: DirectStereoParams,
+    sdp: DirectPointStereoParams,
+    pp: PointFrontendParams,
+    sc: ProjectionSearchParams,
+    sf: ProjectionSearchParams,
+    po: PoseOptConfig,
+    min_inliers: int,
+) -> FusedFrameOut:
+    """One hybrid (lines and corners) direct-stereo frame (pair: (2, H, W)
+    u8, or float32 in [0, 1]) against the local line map ``local`` and the
+    local point map ``plocal`` (xyz, bits, valid). The result holds the
+    frame's line and corner features and matches and its (20,) ``packed``
+    row, the counts those of both families."""
+    fl, fp, l_depth, l_okf, midx, l_inl, p_idx, p_inl, packed, T_acc, T_prev = _fused_frame_hybrid_body(
+        _frames01(pair), T_last, T_prevlast, local, plocal, float(fxb), cam, fe, sd, sdp, pp, sc, sf, po, int(min_inliers)
+    )
+    return FusedFrameOut(
+        feats=fl._replace(depth=l_depth, has_depth=l_okf), match_idx=midx, inlier=l_inl, packed=packed, T_last=T_acc,
+        T_prevlast=T_prev, pfeats=fp, p_match_idx=p_idx, p_inlier=p_inl,
     )

@@ -1,9 +1,12 @@
-"""Geometry core: SE(3), Pluecker lines, the pinhole camera (torch)."""
+"""Geometry core: SE(3), Pluecker lines, the pinhole camera and its radtan distortion (torch)."""
 
 from tpuslam_torch.geometry.camera import (  # noqa: F401
+    Distortion,
     Intrinsics,
+    distort_pixels,
     line_projection_matrix,
     project_points,
+    undistort_pixels,
 )
 from tpuslam_torch.geometry.plucker import (  # noqa: F401
     plucker_from_points,

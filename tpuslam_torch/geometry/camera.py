@@ -1,7 +1,10 @@
-"""Pinhole camera model: point projection and Pluecker line projection (torch).
+"""Pinhole camera model: point projection, Pluecker line projection and the
+radial-tangential distortion model (torch).
 
-Zero distortion only (rectified stereo input); the radtan model of
-``tpuslam.geometry.camera`` is not ported yet.
+Counterpart of ``tpuslam.geometry.camera``. Projection assumes ideal
+(undistorted) pixels; a camera with radtan distortion is handled at the
+feature level: segments are detected on the distorted image and their
+endpoints undistorted (:func:`undistort_pixels`, ``frontend/frame.py``).
 """
 
 from __future__ import annotations
@@ -27,7 +30,8 @@ class Intrinsics(NamedTuple):
 
 
 class Distortion(NamedTuple):
-    """Radial-tangential coefficients (the front end takes zeros only)."""
+    """Radial-tangential (OpenCV "radtan") coefficients: zeros for rectified
+    stereo, non-zero for TUM fr1/fr2 and raw EuRoC."""
 
     k1: float = 0.0
     k2: float = 0.0
@@ -91,3 +95,36 @@ def point_line_distance(l: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     num = l[..., 0] * uv[..., 0] + l[..., 1] * uv[..., 1] + l[..., 2]
     den = torch.sqrt(l[..., 0] ** 2 + l[..., 1] ** 2)
     return num / torch.clamp(den, min=_EPS)
+
+
+def _distort_normalized(dist: Distortion, x: torch.Tensor, y: torch.Tensor):
+    r2 = x * x + y * y
+    radial = 1.0 + dist.k1 * r2 + dist.k2 * r2 * r2
+    xd = x * radial + 2.0 * dist.p1 * x * y + dist.p2 * (r2 + 2.0 * x * x)
+    yd = y * radial + dist.p1 * (r2 + 2.0 * y * y) + 2.0 * dist.p2 * x * y
+    return xd, yd
+
+
+def undistort_pixels(cam: Intrinsics, dist: Distortion, uv: torch.Tensor, iters: int = 8) -> torch.Tensor:
+    """(..., 2) distorted pixels -> (..., 2) ideal pinhole pixels: the
+    fixed-point inversion of the radtan model (OpenCV's undistortPoints
+    iteration), ``iters`` rounds with the radial factor floored at 1e-6."""
+    xd = (uv[..., 0] - cam.cx) / cam.fx
+    yd = (uv[..., 1] - cam.cy) / cam.fy
+    x, y = xd, yd
+    for _ in range(iters):
+        r2 = x * x + y * y
+        radial = torch.clamp(1.0 + dist.k1 * r2 + dist.k2 * r2 * r2, min=1e-6)
+        dx = 2.0 * dist.p1 * x * y + dist.p2 * (r2 + 2.0 * x * x)
+        dy = dist.p1 * (r2 + 2.0 * y * y) + 2.0 * dist.p2 * x * y
+        x = (xd - dx) / radial
+        y = (yd - dy) / radial
+    return torch.stack([cam.fx * x + cam.cx, cam.fy * y + cam.cy], dim=-1)
+
+
+def distort_pixels(cam: Intrinsics, dist: Distortion, uv: torch.Tensor) -> torch.Tensor:
+    """(..., 2) ideal pinhole pixels -> distorted pixels (the forward model)."""
+    x = (uv[..., 0] - cam.cx) / cam.fx
+    y = (uv[..., 1] - cam.cy) / cam.fy
+    xd, yd = _distort_normalized(dist, x, y)
+    return torch.stack([cam.fx * xd + cam.cx, cam.fy * yd + cam.cy], dim=-1)

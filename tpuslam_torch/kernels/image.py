@@ -213,7 +213,10 @@ def _resize_weights(in_size: int, out_size: int, device: str) -> torch.Tensor:
 def resize_linear(img: torch.Tensor, shape) -> torch.Tensor:
     """Antialiased linear resize of an (H, W) image, equal to
     ``jax.image.resize(img, shape, "linear")`` up to float rounding: two small
-    matmuls with the weight matrices of :func:`_resize_weights_np`."""
+    matmuls with the weight matrices of :func:`_resize_weights_np`. The rows
+    are contracted first, as XLA:CPU orders JAX's einsum (the lowered program
+    holds ``dot_general(w_rows, img)`` and then the product with the column
+    weights)."""
     H, W = img.shape
     wh = _resize_weights(H, int(shape[0]), str(img.device))
     ww = _resize_weights(W, int(shape[1]), str(img.device))

@@ -8,9 +8,10 @@
 
 Same signature as ``tpuslam.system.System`` plus ``device``, the card
 unless ``device="cpu"`` is passed (without a card the default raises). This port runs
-stereo tracking with relocalization (synchronous, or in pipelined
-semi-direct chunks: the JAX package's bench configuration), lines only or
-with hybrid points (``TrackerConfig.points``), and, with
+stereo tracking with relocalization (synchronous, or pipelined: the fused
+single-frame programs, full-detection or semi-direct chunks, the classic
+one-frame-lagged pipeline), lines only or with hybrid points
+(``TrackerConfig.points``), and, with
 ``mapping=True``, synchronous local mapping after each keyframe (culling,
 fusion, LM+Schur local BA on ``device``) followed, with
 ``loop_closing=True`` (the default), by the loop closer (detection, the
@@ -65,26 +66,42 @@ class StageTimer:
         return out
 
 
-def bench_configs(chunk: int = 6, points: bool = False):
-    """The configuration the JAX package benchmarks (``tpuslam/bench.py``):
-    pipelined semi-direct chunks of ``chunk`` frames with direct stereo on
-    host-halved frames, and local BA on the two-rung bucket ladder (8, 128,
-    512) / (16, 256, 1024) (points on the default point buckets). With
-    ``points`` the hybrid variant (``TPUSLAM_BENCH_POINTS=1`` there):
-    ``PointFrontendParams()`` corners beside the lines. Fusion applies at the
-    keyframe (the JAX bench's deferred fusion is not ported). Returns
-    (TrackerConfig, MapperConfig)."""
+def bench_configs(
+    chunk: int = 6,
+    points: bool = False,
+    pipelined: bool = True,
+    direct: bool = True,
+    halfres: bool = True,
+    hostscale: bool = True,
+    semidirect: bool = True,
+):
+    """The configuration the JAX package benchmarks (``tpuslam/bench.py``),
+    under its switches (TPUSLAM_BENCH_CHUNK, _POINTS, _PIPELINED, _DIRECT,
+    _HALFRES, _HOSTSCALE, _SEMIDIRECT), with their defaults: pipelined
+    semi-direct chunks of ``chunk`` frames with direct stereo on host-halved
+    frames, and local BA on the two-rung bucket ladder (8, 128, 512) / (16,
+    256, 1024) (points on the default point buckets). The same rules:
+    ``halfres`` detects at half resolution, halved on the host with
+    ``hostscale`` or on the device without; ``semidirect`` needs ``chunk``
+    > 1 and ``direct`` stereo; ``points`` adds ``PointFrontendParams()``
+    corners beside the lines. Fusion applies at the keyframe (the JAX
+    bench's deferred fusion is not ported). Returns (TrackerConfig,
+    MapperConfig)."""
     from tpuslam_torch.backend.local_ba import LocalBAConfig
     from tpuslam_torch.frontend.frame import FrontendParams
     from tpuslam_torch.frontend.points import PointFrontendParams
     from tpuslam_torch.kernels.align_direct import DirectAlignParams
     from tpuslam_torch.kernels.stereo_direct import DirectStereoParams
 
-    tcfg = TrackerConfig(
-        pipelined=True, chunk=chunk, direct_stereo=DirectStereoParams(),
-        frontend=FrontendParams(base_scale=0.5, prescaled=True), semidirect=DirectAlignParams(),
-        points=PointFrontendParams() if points else None,
-    )
+    tcfg = TrackerConfig(pipelined=pipelined, chunk=chunk)
+    if direct:
+        tcfg.direct_stereo = DirectStereoParams()
+    if halfres:
+        tcfg.frontend = FrontendParams(base_scale=0.5, prescaled=hostscale)
+    if chunk > 1 and direct and semidirect:
+        tcfg.semidirect = DirectAlignParams()
+    if points:
+        tcfg.points = PointFrontendParams()
     mcfg = MapperConfig(ba=LocalBAConfig(pose_buckets=(8, 16), line_buckets=(128, 256), obs_buckets=(512, 1024)))
     return tcfg, mcfg
 
@@ -173,7 +190,7 @@ class System:
     # ---- public API -----------------------------------------------------
     def track_stereo(self, img_left, img_right, timestamp: float) -> np.ndarray:
         """Track one frame; returns the tracker's newest resolved pose (in
-        pipelined mode that of a frame one chunk back)."""
+        pipelined mode that of an earlier frame)."""
         t0 = time.perf_counter()
         r = self.tracker.track_stereo(img_left, img_right, timestamp)
         dt = time.perf_counter() - t0
@@ -189,15 +206,17 @@ class System:
         return np.asarray(self.tracker.T_cw)
 
     def track_monocular(self, img, timestamp: float) -> np.ndarray:
-        """Track one monocular frame; returns the tracker's pose."""
+        """Track one monocular frame; returns the tracker's pose (pipelined,
+        that of the frame before)."""
         t0 = time.perf_counter()
         r = self.tracker.track_monocular(img, timestamp)
         dt = time.perf_counter() - t0
         self.timer.add("track", dt)
         if self.mapper is not None:
             self.mapper.tick()
-        self.trajectory.append(r)
-        self._log(r, dt)
+        if r is not None:  # the classic pipeline resolves a frame later
+            self.trajectory.append(r)
+            self._log(r, dt)
         return np.asarray(self.tracker.T_cw)
 
     def track_frame(self, images, timestamp: float) -> np.ndarray:
