@@ -140,13 +140,32 @@ first failure and catches nothing):
    segments against the CPU port's (95% within 0.5 px), the median
    endpoint-to-true-line distance below 2 px, the padding finite; then 20
    frames of the synchronous descriptor-stereo tracker within the JAX
-   bound.
+   bound;
+20. BASELINE config #5: 8 VGA stereo sequences with their own
+   calibrations (`make_multi_frames`) through
+   tpuslam_torch.parallel.multi_seq.MultiTracker with a LocalMapper each:
+   (a) every batched kernel (blur, LBD gradients, front, CCL, the three
+   sums) on the 8 images at 480x640 and 384x512 bit-equal per image to the
+   single-image calls and within its tolerance of the plain version, one
+   call's launches the single call's (the wrapper's count), device us in
+   turns with 8 single calls, bound, plain and library times; the batched
+   extraction bit-equal to 8 single extractions; (b) the main path, the
+   launch counts set to 0 just before its 20 frames and read just after:
+   only batched kernels, their calls per batched frame, one batched
+   tracking dispatch per steady frame, every later frame OK, each
+   sequence's ATE within the JAX MultiTracker's x 1.05 + 0.01 m; (c)
+   batched_ba of 8 toy problems at (16, 256, 1024) against 8 single run_lm
+   solves (float64: within 1e-8; float32: converged, costs within 1e-5,
+   poses within 5e-3), their ms, device busy ms and launches; (d) host ms,
+   device busy ms and launches per sequence-frame at N = 1, 2 and 8
+   (tracking alone), and the host syncs of one steady batched frame.
 
 Output: a {"kernels": [...]} JSON line (calls per path and launches per
 call from the mono phase's hybrid run, the main path; times, bounds,
 errors and profiled launches per call at 480x640 from phase 3, device us
 at every shape timed; "blur.resize", the blur kernel at the resize's
-sigma, with its calls from phase 15),
+sigma, with its calls from phase 15; "<name>.batch", each kernel's batched
+form, from phase 20),
 the card line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -272,6 +291,18 @@ JAX_PIPELINED_MONO_DRAW_ATES_M = (
 # 9; its frame-0 left extraction's median endpoint-to-true-line distance
 # 1.92865 px)
 JAX_RADTAN_ATE_M = 0.011594484670728142
+# BASELINE config #5 (phase 20): per-sequence ATE of the JAX MultiTracker
+# (tpuslam.parallel.multi_seq, the default TrackerConfig, a LocalMapper per
+# sequence) over `make_multi_frames()` (8 VGA stereo sequences, 20 frames,
+# per-sequence calibrations), XLA:CPU, cv2 hidden, TPUSLAM_KF_DEFER_MS=0,
+# TPUSLAM_NATIVE_MAP=0: `python tests/test_torch_parallel.py` prints them
+# (every frame OK; keyframes per sequence at frames [0, 6, 7, 12, 18], [0, 7,
+# 12], [0], [0, 10], [0, 7], [0], [0], [0]). Bound: JAX x 1.05 + 0.01 m per
+# sequence.
+JAX_MULTI_ATE_M = (
+    0.025014201498682432, 0.020736853320132545, 0.007569044372442805, 0.011306460205816975,
+    0.015105178520964208, 0.009269905592480133, 0.008823428466979828, 0.009899952828617309,
+)
 RADTAN_LINE_ERR_PX = 2.0  # the median endpoint-to-true-line bound
 # benchmarks/ladder.py's mono tracker settings
 MONO_TRACKER = dict(min_init_lines=8, min_track_matches=6, min_track_inliers=6, max_frames_between_kf=4)
@@ -358,6 +389,48 @@ def make_frames(n_frames: int = N_FRAMES, draw_points: bool = False, noise_seed=
     ]
     return cam, scene, frames
 
+
+# BASELINE config #5 (phase 20): N sequences tracked concurrently, each
+# with its own calibration (tests/test_parallel.py's, extended to 8) and
+# scene seed
+MULTI_SEQ, MULTI_FRAMES = 8, 20
+
+
+def multi_cams(n: int = MULTI_SEQ):
+    """n VGA stereo calibrations: fx, fy, cx, cy and the baseline moved per
+    sequence as tests/test_parallel.py moves them."""
+    from tpuslam_torch import Intrinsics
+
+    return [
+        Intrinsics(
+            fx=458.0 + 14.0 * s, fy=457.0 - 11.0 * s, cx=320.0 + 6.0 * s, cy=240.0 - 5.0 * s, width=640, height=480,
+            baseline=0.11 + 0.015 * s,
+        )
+        for s in range(n)
+    ]
+
+
+def make_multi_frames(n_seq: int = MULTI_SEQ, n_frames: int = MULTI_FRAMES):
+    """(cams, scenes, frames): n_seq VGA stereo sequences, sequence s the
+    bench scene's generator at seed 100 + s under its own calibration
+    (multi_cams), frames[s][f] its rendered (left, right) uint8 pair."""
+    import numpy as np
+
+    from tpuslam_torch.io.synthetic import make_wireframe_scene, render_wireframe_image
+
+    cams, scenes, frames = multi_cams(n_seq), [], []
+    for s, cam in enumerate(cams):
+        rng = np.random.default_rng(100 + s)
+        scene = make_wireframe_scene(rng, n_segments=140, n_frames=n_frames, cam=cam, motion_scale=0.02)
+        Tb = np.eye(4, dtype=np.float32)
+        Tb[0, 3] = -cam.baseline
+        scene_r = scene._replace(poses=np.stack([Tb @ T for T in scene.poses]))
+        scenes.append(scene)
+        frames.append([
+            (render_wireframe_image(scene, f, noise=1.0, rng=rng), render_wireframe_image(scene_r, f, noise=1.0, rng=rng))
+            for f in range(n_frames)
+        ])
+    return cams, scenes, frames
 
 
 LOOP_FRAMES, LOOP_DWELL = 100, 48  # the circle's frames, then its first LOOP_DWELL frames again
@@ -1252,7 +1325,10 @@ def bench_phase(cam, scene, frames, card, points: bool = False):
     traj = sys_.trajectory
     states = [r.state.name for r in traj]
     kfs = [r.frame_idx for r in traj if r.made_keyframe]
-    print(f"{tag}: anchors {tr.anchor_frames}, synchronous frames {tr.sync_frames}, keyframes at frames {kfs}", flush=True)
+    print(
+        f"{tag}: anchors {tr.anchor_frames}, dispatched again at the flush {tr.flush_frames}, synchronous frames "
+        f"{tr.sync_frames}, keyframes at frames {kfs}", flush=True,
+    )
     print(f"{tag}: states {states}", flush=True)
     if [r.frame_idx for r in traj] != list(range(len(frames))):
         fail(f"{tag}: trajectory frames {[r.frame_idx for r in traj]}, expected one entry per frame in order")
@@ -1269,12 +1345,16 @@ def bench_phase(cam, scene, frames, card, points: bool = False):
 
     calls, device = launches
     want_lpc = launches_per_call()
-    n_anchor, n_ext = len(tr.anchor_frames), len(tr.anchor_frames) + tr.n_sync_extractions
+    # an anchor dispatched again at the final flush (ROADMAP.md section 3,
+    # fault 3.3) extracts again
+    n_anchor = len(tr.anchor_frames) + len(tr.flush_frames)
+    n_ext = n_anchor + tr.n_sync_extractions
     for name, per in per_extraction.items():
         want = per * n_ext
         print(
-            f"{tag}: {name} calls {calls[name]} (expected {per} x {n_ext} extractions = {want}: {n_anchor} anchors, "
-            f"{tr.n_sync_extractions} synchronous), {calls[name] / n_anchor:.2f} per anchor, device launches {device[name]}",
+            f"{tag}: {name} calls {calls[name]} (expected {per} x {n_ext} extractions = {want}: {n_anchor} anchors "
+            f"({len(tr.flush_frames)} again at the flush), {tr.n_sync_extractions} synchronous), "
+            f"{calls[name] / n_anchor:.2f} per anchor, device launches {device[name]}",
             flush=True,
         )
         if calls[name] != want or calls[name] == 0:
@@ -2102,7 +2182,8 @@ def stereo_form_phase(tag, cam, scene, frames, card, tcfg, mcfg, jax_ate, per_ex
     ate = ate_of(traj, scene)
     bound = jax_ate * PIPELINED_ATE_FACTOR + ATE_MARGIN_M
     print(
-        f"{tag}: program frames {tr.anchor_frames}, synchronous frames {tr.sync_frames}, lagged frames {tr.lagged_frames}, "
+        f"{tag}: program frames {tr.anchor_frames} (again at the flush {tr.flush_frames}), synchronous frames "
+        f"{tr.sync_frames}, lagged frames {tr.lagged_frames}, "
         f"fallbacks {tr.fallback_frames}; keyframes at frames {kfs}; states {states}",
         flush=True,
     )
@@ -2117,7 +2198,7 @@ def stereo_form_phase(tag, cam, scene, frames, card, tcfg, mcfg, jax_ate, per_ex
         fail(f"{tag}: a frame did not track OK")
     if not ate <= bound:
         fail(f"{tag}: ATE {ate} m above {bound} m")
-    n_images = len(tr.anchor_frames) * program_cams + tr.n_sync_extractions * sync_cams
+    n_images = (len(tr.anchor_frames) + len(tr.flush_frames)) * program_cams + tr.n_sync_extractions * sync_cams
     check_form_launches(tag, launches, per_extraction, n_images)
     report_rate(tag, call_s, wall, len(frames), card)
     sys_.profile = form_profile(tag, lambda: form_system(cam, tcfg, mcfg, mapping=mapping), frames, card, warm, per, unit)
@@ -2292,6 +2373,342 @@ def radtan_phase(card):
     return launches
 
 
+# ---- BASELINE config #5: batched multi-sequence tracking and BA (phase 20) ----
+
+# the batched kernels' calls per batched stereo frame: both cameras' batched
+# extraction (the pyramid's blur per camera batch; per camera batch and
+# level the LBD gradients, the front, the propagation and the three sums)
+PER_MULTI_FRAME = {f"{name}_batch": per for name, per in PER_FRAME.items()}
+MULTI_SCALING = (1, 2, 8)  # sequences per batch in the scaling run
+MULTI_WARM, MULTI_TIMED = 4, 3  # frames before the timed ones, timed (and profiled) frames
+
+
+def batch_kernel_phase(imgs, card) -> dict:
+    """Phase 20a: each batched kernel on N images of one shape (the N
+    sequences' first left frames, at 480x640 and the pyramid level 384x512)
+    in one call, bit for bit N single-image calls and within its tolerance
+    of the plain version (the single plain version per image); its device
+    launches per call (torch.profiler: the single call's), device time per
+    call in turns with N single calls, bound (N images' bytes or
+    operations), plain time and the library call. Then the batched
+    extraction bit-equal to N single extractions (every field, both levels
+    inside). Returns {name: kernels-line fields} at 480x640."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpuslam_torch.frontend.frame import FrontendParams, extract_features
+    from tpuslam_torch.kernels import image, lsd
+
+    params = lsd.LSDParams()
+    R, sigma = params.ccl_rounds, params.prefilter_sigma
+    ntaps = image._blur_taps(sigma).numel()
+    psig = 0.6 / 0.8  # the pyramid's blur
+    N = imgs.shape[0]
+    res = {}
+    for level in (imgs, image.build_pyramid(imgs, 2, 0.8)[1].contiguous()):
+        _, H, W = level.shape
+        planes = lsd.ccl_inputs_batch(level, params)
+        _, sup, lab0, mx0, cb = planes
+        n_bits = int(sum(((cb >> d) & 1).sum() for d in range(8)))
+        n_support = int(sup.sum())
+        ptaps = image._blur_taps(psig).cuda()
+        r = ptaps.numel() // 2
+        padded = F.pad(level[:, None], (r, r, r, r), mode="replicate")
+        taps2d = torch.outer(ptaps, ptaps)[None, None]
+        sums = detector_sum_inputs_batch(level)
+        per = lambda args, i: [x[i] if isinstance(x, torch.Tensor) else x for x in args]  # noqa: E731
+        cases = {
+            # name: (batched call, N single calls, plain version, library call, bound)
+            "blur": (lambda: image.gaussian_blur_batch(level, psig), lambda: [image.gaussian_blur(x, psig) for x in level],
+                     lambda: image.gaussian_blur_batch_torch(level, psig), lambda: F.conv2d(padded, taps2d),
+                     bound_us("blur", N * H, W, ptaps.numel(), R, n_bits, n_support)),
+            "gradients": (lambda: image.gradients_xy_batch(level, 255.0), lambda: [image.gradients_xy(x, 255.0) for x in level],
+                          lambda: image.gradients_xy_batch_torch(level, 255.0), None,
+                          bound_us("gradients", N * H, W, ntaps, R, n_bits, n_support)),
+            "lsd_front": (lambda: lsd.ccl_inputs_batch(level, params), lambda: [lsd.ccl_inputs(x, params) for x in level],
+                          None, None, bound_us("lsd_front", N * H, W, ntaps, R, n_bits, n_support)),
+            "ccl": (lambda: lsd.ccl_propagate_batch(lab0, mx0, cb, R), lambda: [lsd.ccl_propagate(*per((lab0, mx0, cb), i), R) for i in range(N)],
+                    lambda: lsd._ccl_batch_torch(lab0, mx0, cb, R), None, bound_us("ccl", N * H, W, ntaps, R, n_bits, n_support)),
+        }
+        for name, args in sums.items():
+            K = args[3].shape[1] if name != "segment_moments" else args[2]
+            V = args[0].shape[1] if name == "segment_moments" else 7
+            n_items = args[0].shape[2] if name == "segment_moments" else args[0][0].numel()
+            cases[name] = (
+                lambda name=name, args=args: getattr(lsd, f"{name}_batch")(*args),
+                lambda name=name, args=args: [getattr(lsd, name)(*per(args, i)) for i in range(N)],
+                None, None, sums_bound_us(name, N * n_items, N * K, V),
+            )
+        for name, (batched, singles, plain, lib, (b_us, b_by)) in cases.items():
+            tag = f"batched {name:17s} {N}x{(H, W)}"
+            got, want = batched(), singles()
+            got = got if isinstance(got, tuple) else (got,)
+            want = [w if isinstance(w, tuple) else (w,) for w in want]
+            same = all(torch.equal(got[j][i], want[i][j]) for i in range(N) for j in range(len(got)))
+            if plain is not None:
+                ref = plain()
+                ref = ref if isinstance(ref, tuple) else (ref,)
+                err = max(float((a.double() - b.double()).abs().max()) for a, b in zip(got, ref))
+            elif name in lsd.SUMS:
+                # each image's plain version on its own inputs, on the CPU (index_add_ in item order)
+                plain_of = {"component_moments": lsd.component_moments_torch, "component_extents": lsd.component_extents_torch,
+                            "segment_moments": lsd.segment_moments_torch}[name]
+                args = sums[name]
+                errs = [_sum_errors(name, got[0][i], plain_of(*(x.cpu() if isinstance(x, torch.Tensor) else x for x in per(args, i)))) for i in range(N)]
+                err = max(e[1] for e in errs)  # relative, as sums_phase holds them
+                if any(e[2] is False for e in errs):
+                    fail(f"{tag}: t_min / t_max differ from the plain version")
+                plain = lambda name=name, args=args, plain_of=plain_of: [plain_of(*per(args, i)) for i in range(N)]  # noqa: E731
+            else:  # the front: each image against its plain version, as kernel_phase holds the single call
+                err = 0.0
+                for i in range(N):
+                    x = level[i]
+                    gx, gy, _, _ = image.image_gradients_torch(image.gaussian_blur_torch(x, sigma) * 255.0)
+                    e, _, n_other = lsd.front_disagreements(tuple(p[i] for p in got), lsd.ccl_inputs_torch(x, params), gx, gy, params, TOL[name])
+                    if n_other:
+                        fail(f"{tag}: image {i}: integer planes differ from the plain version away from a threshold")
+                    err = max(err, e)
+                plain = lambda: [lsd.ccl_inputs_torch(x, params) for x in level]  # noqa: E731
+            ok = same and err <= TOL[name]
+            print(f"{tag}: bit-equal to {N} single-image calls: {same}; max_abs_err={err:.3g} (tol {TOL[name]}) "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"{tag}: the batched kernel differs from its single-image calls or its plain version")
+            if H != imgs.shape[1]:
+                continue  # the second level: bit-equality and errors only
+            # the wrapper's count of one call's device launches (a trace of a
+            # single one-launch call can lose its only device record)
+            counter = (image if name in image.KERNEL_LAUNCHES else lsd).KERNEL_LAUNCHES
+            before = counter[f"{name}_batch"]
+            batched()
+            lpc = counter[f"{name}_batch"] - before
+            if lpc != launches_per_call()[name]:
+                fail(f"{tag}: {lpc} device launches per batched call, expected {launches_per_call()[name]} (the single call's)")
+            dev_us, singles_us = in_turns((singles, max(1, REPS // N)), (batched, REPS))
+            plain_ms = host_paced_ms(plain, 3)
+            lib_ms = device_us(lib) / 1e3 if lib else None
+            print(
+                f"{tag}: device {dev_us:.3f} us per batched call ({dev_us / N:.3f} us per image), {N} single calls "
+                f"{singles_us:.3f} us ({singles_us / N:.3f} us per image); bound {b_us:.3f} us ({b_by}, {b_us / dev_us:.1%} "
+                f"of it); launches per call {lpc} (the wrapper's count); plain {plain_ms:.4f} ms (host-paced); library "
+                f"{f'{lib_ms * 1e3:.3f} us' if lib_ms is not None else 'none'} on {card}",
+                flush=True,
+            )
+            res[name] = dict(
+                shape=f"{N}x{H}x{W}", batch=N, max_abs_err=err, device_us=dev_us, ms=dev_us / 1e3, plain_ms=plain_ms,
+                bound_us=b_us, bound_ms=b_us / 1e3, bound_by=b_by, library_ms=lib_ms, per_image_us=dev_us / N,
+                single_calls_us=singles_us, single_per_image_us=singles_us / N, launches_per_call_counted=lpc,
+                bit_equal_to_single=same,
+            )
+    fp = FrontendParams()
+    fb = extract_features(imgs, fp)
+    for i in range(N):
+        fs = extract_features(imgs[i], fp)
+        bad = [name for name, a, b in zip(fs._fields, fb, fs) if not torch.equal(a[i], b)]
+        if bad:
+            fail(f"batched extraction: image {i} differs from its single extraction in {bad}")
+    print(f"batched extraction of {N} VGA frames (both levels, detection, LBD, the level merge): every field bit-equal to "
+          f"{N} single extractions ok", flush=True)
+    return res
+
+
+def detector_sum_inputs_batch(imgs):
+    """{single entry name: args} of the three batched sums one batched
+    detect_lines call makes on a (N, H, W) batch."""
+    from tpuslam_torch.kernels import lsd
+
+    seen, names = {}, {f"{name}_batch": name for name in lsd.SUMS}
+    real = {name: getattr(lsd, name) for name in names}
+
+    def grab(name):
+        def call(*args):
+            seen[names[name]] = args
+            return real[name](*args)
+
+        return call
+
+    for name in names:
+        setattr(lsd, name, grab(name))
+    try:
+        lsd.detect_lines(imgs, 256)
+    finally:
+        for name in names:
+            setattr(lsd, name, real[name])
+    if set(seen) != set(lsd.SUMS):
+        fail(f"batched sums: detect_lines called {sorted(seen)}, expected the three batched sums")
+    return seen
+
+
+def multi_tracker(cams, mapping: bool):
+    """tpuslam_torch.parallel.multi_seq.MultiTracker on the card over the
+    sequences' calibrations (the default TrackerConfig), with a LocalMapper
+    per sequence when ``mapping``."""
+    from tpuslam_torch.backend.mapping import LocalMapper, MapperConfig
+    from tpuslam_torch.parallel.multi_seq import MultiTracker
+
+    mt = MultiTracker(cams, device="cuda")
+    if mapping:
+        for cam, tr in zip(cams, mt.trackers):
+            m = LocalMapper(tr.map, cam, MapperConfig(), device="cuda")
+            tr.on_new_keyframe, m.on_map_changed = m.process, tr.invalidate_local_map
+    return mt
+
+
+def multi_feed(mt, frames, f: int):
+    import numpy as np
+
+    lefts = np.stack([seq[f][0] for seq in frames[: len(mt.trackers)]])
+    rights = np.stack([seq[f][1] for seq in frames[: len(mt.trackers)]])
+    return mt.track_stereo(lefts, rights, [f * 0.05] * len(mt.trackers))
+
+
+def multi_phase(card):
+    """Phase 20: BASELINE config #5, N = MULTI_SEQ VGA stereo sequences with
+    per-sequence calibrations tracked concurrently (MultiTracker, a
+    LocalMapper each) on the card. (a) the batched kernels and the batched
+    extraction bit-equal to single-image calls; (b) the main path: the
+    launch counts set to 0 just before the sequences' MULTI_FRAMES frames
+    and read just after (only batched kernels, their calls per batched
+    frame), every frame after the first OK and one batched dispatch per
+    steady frame, each sequence's ATE within the JAX MultiTracker's x 1.05 +
+    0.01 m; (c) batched_ba of 8 toy problems at the bench rung (16, 256,
+    1024) against 8 single run_lm solves, with their device ms and
+    launches; (d) scaling: host ms, device busy ms and launches per
+    sequence-frame at N = 1, 2 and 8 (tracking, no mapper), and the host
+    syncs of one steady batched frame. Returns ({name: kernels-line
+    fields}, launches)."""
+    import numpy as np
+    import torch
+
+    from tpuslam_torch.backend.lm import BAProblem, LMConfig, run_lm
+    from tpuslam_torch.parallel import multi_seq
+    from tpuslam_torch.parallel.sharded_ba import _toy_problem, batched_ba, stack_problems
+
+    t_phase = time.perf_counter()
+    cams, scenes, frames = make_multi_frames()
+    N = len(cams)
+    imgs = torch.stack([torch.from_numpy(seq[0][0]) for seq in frames]).cuda().float() / 255.0
+    kres = batch_kernel_phase(imgs, card)
+
+    # (b) the main path
+    mt = multi_tracker(cams, mapping=True)
+    calls = {"batched": 0}
+    real = multi_seq.batched_track_step
+
+    def counting(*a, **k):
+        calls["batched"] += 1
+        return real(*a, **k)
+
+    multi_seq.batched_track_step = counting
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        results = [multi_feed(mt, frames, f) for f in range(MULTI_FRAMES)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        multi_seq.batched_track_step = real
+    states = [[r.state.name for r in res] for res in results]
+    print(f"multi: {N} sequences x {MULTI_FRAMES} frames on {card}: {wall:.2f} s, {N * MULTI_FRAMES / wall:.2f} sequence-frames/s "
+          f"(tracking and mapping); batched dispatches {calls['batched']}", flush=True)
+    if any(st != "OK" for row in states[1:] for st in row):
+        fail(f"multi: a frame after the first did not track OK: {states}")
+    if calls["batched"] != MULTI_FRAMES - 1:
+        fail(f"multi: {calls['batched']} batched dispatches, expected one per steady frame ({MULTI_FRAMES - 1})")
+    calls_, device = launches
+    want_lpc = launches_per_call()
+    for name, n in calls_.items():
+        per = PER_MULTI_FRAME.get(name, 0)
+        lpc = want_lpc[name.removesuffix("_batch")]
+        print(f"multi: {name} calls {n} (expected {per} x {MULTI_FRAMES}), device launches {device[name]}", flush=True)
+        if n != per * MULTI_FRAMES or device[name] != n * lpc:
+            fail(f"multi: {name}: {n} calls and {device[name]} device launches, expected {per * MULTI_FRAMES} and {lpc} per call")
+    if len(JAX_MULTI_ATE_M) != N:
+        fail(f"multi: {len(JAX_MULTI_ATE_M)} JAX references for {N} sequences")
+    for s in range(N):
+        traj = [res[s] for res in results]
+        ate = ate_of(traj, scenes[s])
+        bound = JAX_MULTI_ATE_M[s] * PIPELINED_ATE_FACTOR + ATE_MARGIN_M
+        kfs = [r.frame_idx for r in traj if r.made_keyframe]
+        print(f"multi: sequence {s} (fx {cams[s].fx}, baseline {cams[s].baseline:.3f}): keyframes {kfs}, ATE {ate:.5f} m, "
+              f"bound {bound:.5f} m (JAX {JAX_MULTI_ATE_M[s]} m x {PIPELINED_ATE_FACTOR} + {ATE_MARGIN_M} m)", flush=True)
+        if not ate <= bound:
+            fail(f"multi: sequence {s}: ATE {ate} m above {bound} m")
+
+    # (c) batched BA against single solves at the bench rung
+    rng = np.random.default_rng(0)
+    probs = [_toy_problem(rng, 16, 256, 1024, cams[0], device="cuda") for _ in range(8)]
+    for dtype in (torch.float64, torch.float32):
+        ps = [BAProblem(*(x.to(dtype) if x.is_floating_point() else x for x in p)) for p in probs]
+        cfg = LMConfig(max_iters=4) if dtype == torch.float64 else LMConfig()
+        out = batched_ba(stack_problems(ps), cams[0], cfg)
+        singles = [run_lm(p, cams[0], cfg) for p in ps]
+        for i, sgl in enumerate(singles):
+            if dtype == torch.float64:
+                gap = max(float((x[i] - y).abs().max()) - 1e-6 * float(y.abs().max()) for x, y in zip(out, sgl))
+                ok = gap <= 1e-8
+            else:
+                gap = float((out.poses[i] - sgl.poses).abs().max())
+                ok = (float(out.cost[i]) < 1e-4 and float(sgl.cost) < 1e-4 and abs(float(out.cost[i]) - float(sgl.cost)) <= 1e-5
+                      and gap <= 5e-3)
+            if not ok:
+                fail(f"batched BA ({dtype}): problem {i} differs from its single solve (cost {float(out.cost[i])!r} against "
+                     f"{float(sgl.cost)!r}, gap {gap!r})")
+        print(f"batched BA ({str(dtype).removeprefix('torch.')}, {cfg.max_iters} iterations): 8 problems at (16, 256, 1024) "
+              f"match 8 single run_lm solves; costs {[f'{float(c):.3g}' for c in out.cost]}", flush=True)
+    batch = stack_problems(probs)
+    # whole=False: a trace that lost a device record still counts (TRACES says how many)
+    _, (b_us, b_launches, _) = profiled(lambda: batched_ba(batch, cams[0], LMConfig()), whole=False)
+    _, (s_us, s_launches, _) = profiled(lambda: [run_lm(p, cams[0], LMConfig()) for p in probs], whole=False)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    batched_ba(batch, cams[0], LMConfig())
+    torch.cuda.synchronize()
+    b_wall = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    for p in probs:
+        run_lm(p, cams[0], LMConfig())
+    torch.cuda.synchronize()
+    s_wall = (time.perf_counter() - t) * 1e3
+    print(f"batched BA: 8 problems at (16, 256, 1024), 10 iterations: batched {b_wall:.2f} ms wall, {b_us / 1e3:.3f} ms device "
+          f"busy, {b_launches} launches; 8 single solves {s_wall:.2f} ms wall, {s_us / 1e3:.3f} ms device busy, {s_launches} "
+          f"launches on {card}", flush=True)
+
+    # (d) scaling: tracking alone (mapping stays per sequence) at N = 1, 2, 8
+    scaling = {}
+    for n in MULTI_SCALING:
+        m = multi_tracker(cams[:n], mapping=False)
+        for f in range(MULTI_WARM):
+            multi_feed(m, frames, f)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for f in range(MULTI_WARM, MULTI_WARM + MULTI_TIMED):
+            multi_feed(m, frames, f)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t) * 1e3 / MULTI_TIMED
+        nxt = iter(range(MULTI_WARM + MULTI_TIMED, MULTI_FRAMES))
+        _, (busy_us, n_launch, _) = profiled(lambda: multi_feed(m, frames, next(nxt)), whole=False)
+        scaling[n] = dict(host_ms_per_frame=host_ms, host_ms_per_seq_frame=host_ms / n, device_ms_per_seq_frame=busy_us / 1e3 / n,
+                          launches_per_frame=n_launch, launches_per_seq_frame=n_launch / n)
+        print(f"multi scaling N={n}: host {host_ms:.2f} ms per batched frame = {host_ms / n:.2f} ms per sequence-frame "
+              f"({1e3 * n / host_ms:.2f} sequence-frames/s); device busy {busy_us / 1e3:.3f} ms per frame = "
+              f"{busy_us / 1e3 / n:.3f} ms per sequence-frame; {n_launch} launches per frame = {n_launch / n:.1f} per "
+              f"sequence-frame on {card}", flush=True)
+    one, top = scaling[1], scaling[max(MULTI_SCALING)]
+    nt = max(MULTI_SCALING)
+    print(f"multi scaling: N={nt} against N=1: {top['launches_per_frame'] / one['launches_per_frame']:.2f}x the launches per "
+          f"frame for {nt}x the sequences ({nt * one['launches_per_frame']} for {nt} trackers one by one); sequence-frames/s "
+          f"{one['host_ms_per_seq_frame'] / top['host_ms_per_seq_frame']:.2f}x", flush=True)
+    syncs = count_syncs(lambda: multi_feed(m, frames, MULTI_FRAMES - 1))
+    print(f"multi: host syncs of one steady batched frame at N={n}: {len(syncs)} ({syncs}; the packed rows' read once, "
+          f"and the host reads of each keyframe a sequence makes in it)", flush=True)
+    print(f"multi: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    for name, r in kres.items():
+        r["scaling"] = {str(k): v for k, v in scaling.items()}
+    return kres, launches
+
+
 def main() -> int:
     import torch
 
@@ -2335,6 +2752,7 @@ def main() -> int:
     forms = pipelined_phases(card, cam, scene, frames, slice_sys)
     pmono_launches = pipelined_mono_phase(card)
     radtan_launches = radtan_phase(card)
+    multi_kres, multi_launches = multi_phase(card)
     new_paths = {tag.replace(" ", "_"): launches[0] for tag, (launches, _) in forms.items()}
     new_paths.update(pipelined_mono=pmono_launches[0], radtan=radtan_launches[0])
 
@@ -2370,6 +2788,17 @@ def main() -> int:
             **kres["blur.resize"],
         )
     )
+    # the batched forms (phase 20), one launch for N images, launched on the
+    # config-#5 path
+    for name in PER_FRAME:
+        kernels.append(
+            dict(
+                name=f"{name}.batch", route="cuda", source=KERNELS[name][0], replaces=KERNELS[name][1],
+                launches=multi_launches[0][f"{name}_batch"],
+                launches_per_call=multi_launches[1][f"{name}_batch"] // multi_launches[0][f"{name}_batch"],
+                launches_by_path={"multi": multi_launches[0][f"{name}_batch"]}, **multi_kres[name],
+            )
+        )
     print(
         f"torch.profiler: {TRACES['taken']} traces, {TRACES['again']} taken again; the traces kept lack the device records "
         f"of {TRACES['records_lost']} kernel launches",

@@ -284,7 +284,7 @@ def test_system_runs_on_the_card_by_default(dev):
     # the LBD gradients, the detector's front, its propagation and three
     # sums (the components' moments and extents, the merge's sums)
     after = {**image.LAUNCHES, **lsd.LAUNCHES}
-    assert {k: after[k] - before[k] for k in after} == {
+    assert {k: after[k] - before[k] for k in after if not k.endswith("_batch")} == {
         "blur": 2 * 2, "gradients": 4 * 2, "lsd_front": 4 * 2, "ccl": 4 * 2,
         "component_moments": 4 * 2, "component_extents": 4 * 2, "segment_moments": 4 * 2,
     }
@@ -351,12 +351,23 @@ def test_local_ba_on_card_is_deterministic_and_matches_cpu(dev):
     torch.testing.assert_close(a.cost.cpu(), c.cost, rtol=1e-2, atol=0)
 
 
+# The JAX package's ATE on the 12 frames of the next test (tpuslam.system.System
+# with the same settings, XLA:CPU, cv2 hidden, TPUSLAM_KF_DEFER_MS=0,
+# TPUSLAM_NATIVE_MAP=0; keyframes at frames 0, 4, 6, 10): `python
+# tests/test_torch_slam.py` prints it
+JAX_VGA12_MAPPING_ATE_M = 0.024150047360940955
+
+
 def test_mapping_slice_on_card_tracks_like_cpu(dev):
     """System(mapping=True) over 12 VGA frames (default tracker, a keyframe
     at least every 4 frames) on the card and on the CPU: every frame OK,
     keyframe counts within one, a local BA at every keyframe event after the
-    first, ATE within 1 cm of each other and under 2 cm, camera centres
-    within 5 cm. Kernels and plain versions differ in float rounding (and
+    first, ATE within 1 cm of each other and each within 1 mm of the JAX
+    package's on the same frames, camera centres within 5 cm. (The ATE was
+    held under 2 cm while the stereo pose LM weighed each observation, 6.4
+    mm on the CPU; with the JAX package's IRLS formula, fault 3.2 of
+    ROADMAP.md, the port gives the JAX package's 2.4 cm: 0.024039 m on the
+    CPU, 0.024090 m on the card, the JAX package 0.024150 m.) Kernels and plain versions differ in float rounding (and
     the detector's moment sums use atomics on the card), which the
     detector's thresholds can turn into slightly different segments; with
     mapping those reach the keyframe decisions, the landmarks and the BA."""
@@ -369,7 +380,7 @@ def test_mapping_slice_on_card_tracks_like_cpu(dev):
     gt = np.stack([np.linalg.inv(T)[:3, 3] for T in scene.poses])
     ates = [absolute_trajectory_error(c, gt).rmse for c in centres]
     assert all(r.state == TrackingState.OK for s in runs for r in s.trajectory)
-    assert max(ates) < 0.02 and abs(ates[0] - ates[1]) < 0.01, ates
+    assert all(abs(a - JAX_VGA12_MAPPING_ATE_M) <= 1e-3 for a in ates) and abs(ates[0] - ates[1]) < 0.01, ates
     assert np.linalg.norm(centres[0] - centres[1], axis=1).max() < 0.05
     n_events = [sum(r.made_keyframe for r in s.trajectory) for s in runs]
     assert abs(n_events[0] - n_events[1]) <= 1
@@ -434,8 +445,8 @@ def test_bench_path_on_card(dev):
     assert all(r.state.name == "OK" for r in s.trajectory)
     assert tr.anchor_frames == [1, 7, 13] and tr.sync_frames == [0]
     assert {r.frame_idx for r in s.trajectory if r.made_keyframe} <= {0, 1, 7, 13}
-    n = len(tr.anchor_frames) + tr.n_sync_extractions
-    assert {k: after[k] - before[k] for k in after} == {k: v * n for k, v in PER_EXTRACTION.items()}
+    n = len(tr.anchor_frames) + len(tr.flush_frames) + tr.n_sync_extractions
+    assert {k: after[k] - before[k] for k in after if not k.endswith("_batch")} == {k: v * n for k, v in PER_EXTRACTION.items()}
 
 
 def test_chunk_on_card_matches_cpu(dev):
@@ -813,10 +824,10 @@ def test_hybrid_bench_path_on_card(dev):
     after = {**image.LAUNCHES, **lsd.LAUNCHES}
     tr = s.tracker
     assert [r.frame_idx for r in s.trajectory] == list(range(13)) and all(r.state.name == "OK" for r in s.trajectory)
-    n = len(tr.anchor_frames) + tr.n_sync_extractions
+    n = len(tr.anchor_frames) + len(tr.flush_frames) + tr.n_sync_extractions
     want = {k: v * n for k, v in PER_EXTRACTION.items()}
     want["blur"] = 2 * n
-    assert {k: after[k] - before[k] for k in after} == want
+    assert {k: after[k] - before[k] for k in after if not k.endswith("_batch")} == want
     assert (s.map_points()["n_obs"] >= 2).sum() >= 50
 
 
@@ -1081,3 +1092,173 @@ def test_single_frame_program_repeats_on_card(dev):
     assert s.tracker.anchor_frames == list(range(1, 10))
     assert [r.made_keyframe for r in runs[0]] == [r.made_keyframe for r in runs[1]]
     assert all(np.array_equal(a.T_cw, b.T_cw) for a, b in zip(*runs))
+
+
+# ---- the batched kernels: one launch for N images ---------------------------
+
+BATCHES = [1, 3, 8]
+
+
+def _batch(shape, n, dev):
+    """n random images of one shape at amplitudes 0, 1/2 and 1 in turn: the
+    all-zero ones have no support pixel and no component, so the images of
+    one batch hold different numbers of components (and of live CCL cells)."""
+    return torch.stack([_image(shape, dev, seed=i) * ((i % 3) / 2.0) for i in range(n)]).contiguous()
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("n", BATCHES)
+def test_batched_image_kernels_bit_equal_to_single(dev, shape, n):
+    """The blur (the pyramid's and the front's radii) and the LBD gradients
+    of N images in one launch each, bit for bit N single-image calls."""
+    x = _batch(shape, n, dev)
+    before = dict(image.KERNEL_LAUNCHES)
+    blurs = {sigma: image.gaussian_blur_batch(x, sigma) for sigma in (0.75, 5.0)}
+    gx, gy = image.gradients_xy_batch(x, 255.0)
+    assert image.KERNEL_LAUNCHES["blur_batch"] == before["blur_batch"] + 2
+    assert image.KERNEL_LAUNCHES["gradients_batch"] == before["gradients_batch"] + 1
+    for i in range(n):
+        for sigma, out in blurs.items():
+            assert torch.equal(out[i], image.gaussian_blur(x[i], sigma)), (i, sigma)
+        sx, sy = image.gradients_xy(x[i], 255.0)
+        assert torch.equal(gx[i], sx) and torch.equal(gy[i], sy), i
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("n", BATCHES)
+def test_batched_front_and_ccl_bit_equal_to_single(dev, shape, n):
+    """The detector's front and the label propagation (64 rounds) of N
+    images, one front launch and ceil(64 / k) CCL launches for the batch,
+    bit for bit N single-image calls."""
+    x = _batch(shape, n, dev)
+    before = dict(lsd.KERNEL_LAUNCHES)
+    planes = lsd.ccl_inputs_batch(x)
+    lab, mx = lsd.ccl_propagate_batch(*planes[2:], 64)
+    assert lsd.KERNEL_LAUNCHES["lsd_front_batch"] == before["lsd_front_batch"] + 1
+    assert lsd.KERNEL_LAUNCHES["ccl_batch"] == before["ccl_batch"] + -(-64 // lsd.CCL_TILE[2])
+    for i in range(n):
+        single = lsd.ccl_inputs(x[i])
+        assert all(torch.equal(a[i], b) for a, b in zip(planes, single)), i
+        sl, sm = lsd.ccl_propagate(*single[2:], 64)
+        assert torch.equal(lab[i], sl) and torch.equal(mx[i], sm), i
+
+
+def test_batched_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x = torch.zeros((2, 16, 16), device=dev)
+    with pytest.raises(ValueError):
+        image.gaussian_blur_batch(x[0], 0.75)  # not (B, H, W)
+    with pytest.raises(ValueError):
+        image.gaussian_blur_batch(torch.zeros((0, 16, 16), device=dev), 0.75)  # an empty batch
+    with pytest.raises(ValueError):
+        image.gradients_xy_batch(torch.zeros((2, 16, 32), device=dev)[..., ::2], 255.0)  # not contiguous
+    with pytest.raises(TypeError):
+        lsd.ccl_inputs_batch(x.double())
+    i = torch.zeros((2, 16, 16), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        lsd.ccl_propagate_batch(i, i, i[:1].contiguous(), 3)
+    sup = torch.zeros((2, 16, 16), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError):  # the roots of another batch
+        lsd.component_moments_batch(i, x, sup, torch.zeros((3, 4), dtype=torch.int64, device=dev))
+    with pytest.raises(ValueError):  # one slot row for a batch
+        lsd.segment_moments_batch(torch.zeros((2, 7, 8), device=dev), torch.zeros((8,), dtype=torch.int32, device=dev), 8)
+
+
+def _batched_sum_inputs(imgs):
+    """{single entry: args} of the three batched sums one batched
+    detect_lines call makes."""
+    seen = {}
+    names = {f"{name}_batch": name for name in lsd.SUMS}
+    real = {name: getattr(lsd, name) for name in names}
+
+    def grab(name):
+        def call(*args):
+            seen[names[name]] = args
+            return real[name](*args)
+
+        return call
+
+    for name in names:
+        setattr(lsd, name, grab(name))
+    try:
+        lsd.detect_lines(imgs, 256)
+    finally:
+        for name in names:
+            setattr(lsd, name, real[name])
+    assert set(seen) == set(lsd.SUMS)
+    return seen
+
+
+@pytest.mark.parametrize("shape", SUM_SHAPES)
+@pytest.mark.parametrize("n", BATCHES)
+def test_batched_component_sums_bit_equal_to_single(dev, shape, n):
+    """The three sum kernels on a batched detector's own inputs, images with
+    different numbers of components (rendered frames and all-zero ones, which
+    have none): one launch each for the batch, each image bit for bit its
+    single call (its own ticket counters: one image's last-block combine
+    never fires on another's count), twice in a row bit-equal."""
+    rendered = _level_image(shape, dev)
+    imgs = torch.stack([rendered * (i % 3) / 2.0 for i in range(n)]).contiguous()
+    inputs = _batched_sum_inputs(imgs)
+    for name, args in inputs.items():
+        fn = getattr(lsd, f"{name}_batch")
+        before = lsd.KERNEL_LAUNCHES[f"{name}_batch"]
+        a, b = fn(*args), fn(*args)
+        assert lsd.KERNEL_LAUNCHES[f"{name}_batch"] == before + 2
+        assert torch.equal(_bits(a), _bits(b)), name
+        for i in range(n):
+            per = [x[i] if isinstance(x, torch.Tensor) else x for x in args]
+            assert torch.equal(_bits(a[i]), _bits(getattr(lsd, name)(*per))), (name, i)
+    counts = inputs["component_moments"]
+    members = [float(lsd.component_moments(*(x[i] for x in counts))[0].sum()) for i in range(n)]
+    assert n < 2 or len(set(members)) > 1, members
+
+
+@pytest.mark.parametrize("n", [2, 8])
+def test_batched_extraction_bit_equal_to_single(dev, n):
+    """extract_features of N VGA frames (both pyramid levels, detection,
+    LBD, the level merge) in one set of launches, bit for bit N single
+    extractions; the batched kernels alone launched."""
+    from tpuslam_torch.frontend.frame import FrontendParams, extract_features
+
+    _, frames = stereo_scene(n, cam=VGA)
+    imgs = torch.stack([torch.from_numpy(image01(f[0])) for f in frames]).to(dev)
+    before = ({**image.LAUNCHES, **lsd.LAUNCHES})
+    fb = extract_features(imgs, FrontendParams())
+    after = ({**image.LAUNCHES, **lsd.LAUNCHES})
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {
+        "blur_batch": 1, "gradients_batch": 2, "lsd_front_batch": 2, "ccl_batch": 2,
+        "component_moments_batch": 2, "component_extents_batch": 2, "segment_moments_batch": 2,
+    }
+    for i in range(n):
+        fs = extract_features(imgs[i], FrontendParams())
+        for name, a, b in zip(fs._fields, fb, fs):
+            assert torch.equal(a[i], b), (i, name)
+
+
+def test_batched_ba_on_card_matches_single_solves(dev):
+    """batched_ba of 8 toy problems at the bench rung (16, 256, 1024) against
+    8 single run_lm solves on the card. float64, 4 iterations: every field
+    within 1e-8 plus 1e-6 of its largest entry (the same LM, batched). float32 (what local BA runs): both converge
+    (noiseless observations: final costs below 1e-4), the costs within 1e-5
+    and the poses within 5e-3 (on the CPU the two roundings leave converged
+    poses up to 2.3e-3 apart along the weakly constrained directions of
+    line-only BA); two batched solves bit-equal."""
+    from tpuslam_torch.backend.lm import BAProblem, LMConfig, run_lm
+    from tpuslam_torch.parallel.sharded_ba import _toy_problem, batched_ba, stack_problems
+
+    rng = np.random.default_rng(0)
+    probs = [_toy_problem(rng, 16, 256, 1024, VGA, device=dev) for _ in range(8)]
+    for dtype in (torch.float64, torch.float32):
+        ps = [BAProblem(*(x.to(dtype) if x.is_floating_point() else x for x in p)) for p in probs]
+        cfg = LMConfig(max_iters=4) if dtype == torch.float64 else LMConfig()  # float64: short of ties at convergence
+        a = batched_ba(stack_problems(ps), VGA, cfg)
+        singles = [run_lm(p, VGA, cfg) for p in ps]
+        for i, s in enumerate(singles):
+            if dtype == torch.float64:
+                assert all(float((x[i] - y).abs().max()) <= 1e-8 + 1e-6 * float(y.abs().max()) for x, y in zip(a, s)), i
+            else:
+                assert float(a.cost[i]) < 1e-4 and float(s.cost) < 1e-4, i
+                assert abs(float(a.cost[i]) - float(s.cost)) <= 1e-5, i
+                assert float((a.poses[i] - s.poses).abs().max()) <= 5e-3, i
+    b = batched_ba(stack_problems(ps), VGA, LMConfig())
+    assert all(torch.equal(x, y) for x, y in zip(a, b))

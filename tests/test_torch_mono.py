@@ -31,7 +31,6 @@ TPUSLAM_BA_SUBPROCESS=0 (the JAX_MONO_* constants there):
 
     python tests/test_torch_mono.py mono   # the VGA walk, hybrid and lines only (~5 min)
     python tests/test_torch_mono.py draws 1 11   # lines only, RANSAC draws k = 1..10 (~2.5 min each)
-    python tests/test_torch_mono.py weights   # lines only on the same features: the two IRLS weightings (~5 min)
     python tests/test_torch_mono.py loop   # the QVGA loop; the dwell grows until a loop closes
 """
 
@@ -315,8 +314,8 @@ def test_mapper_triangulation_matches_jax(synthetic_runs):
 
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
 def test_mono_pose_lm_weights_match_jax(seed):
-    """The monocular tracker's pose LM (``PoseOptConfig(family_weights=True)``,
-    the JAX package's IRLS formula for lines) against the JAX pose_optimize
+    """The monocular tracker's pose LM (``PoseOptConfig()``: the JAX
+    package's IRLS formula, which every tracker form takes) against the JAX pose_optimize
     on ~25 lines with 5 gross outliers: poses within 2e-5, the same inliers.
     (With one weight per observation, seed 3 lands 7e-3 away.)"""
     import jax.numpy as jnp
@@ -343,7 +342,7 @@ def test_mono_pose_lm_weights_match_jax(seed):
         jnp.zeros((1, 3)), jnp.zeros((1, 2)), jnp.zeros((1,)), J_CAM,
     )
     out = tpose.pose_optimize(
-        *(torch.from_numpy(x) for x in (T0, L, ep, valid)), T_CAM, tpose.PoseOptConfig(family_weights=True)
+        *(torch.from_numpy(x) for x in (T0, L, ep, valid)), T_CAM, tpose.PoseOptConfig()
     )
     np.testing.assert_allclose(out.pose.numpy(), np.asarray(ref.pose), atol=2e-5)
     np.testing.assert_array_equal(out.inlier_lines.numpy(), np.asarray(ref.inlier_lines))
@@ -416,54 +415,7 @@ if __name__ == "__main__":
     import chip_smoke
 
     what = sys.argv[1] if len(sys.argv) > 1 else "mono"
-    if what == "weights":
-        # both trackers and mono mappers on the same detected features (the
-        # port's detector) and RANSAC draws, the JAX 8-point on the port's
-        # float64 solve; the port's lines-only pose LM with one Huber weight
-        # per observation, then with the JAX formula (family_weights)
-        import torch
-
-        from tpuslam.backend.mapping import LocalMapper as JLocalMapper
-        from tpuslam.backend.mapping import MapperConfig as JMapperConfig
-        from tpuslam.frontend.frame import FrameFeatures as JFrameFeatures
-        from tpuslam.frontend.tracking import Tracker as JTracker
-        from tpuslam.geometry.camera import Intrinsics as JIntrinsics
-        from tpuslam.slammap.map import SlamMap as JSlamMap
-        from tpuslam_torch.backend.mapping import LocalMapper
-        from tpuslam_torch.convert import features_from, mapper_config_from, tracker_config_from
-        from tpuslam_torch.frontend.frame import extract_features
-        from tpuslam_torch.frontend.initializer import MonoInitializer
-        from tpuslam_torch.frontend.tracking import Tracker
-        from tpuslam_torch.slammap.map import SlamMap, features_to_numpy
-
-        cam, scene, frames = chip_smoke.make_mono_frames()
-        feats = [features_to_numpy(extract_features(torch.from_numpy(f).float() / 255.0)) for f in frames]
-        tcfg = mono_tracker_cfg(False)
-
-        def wire(tracker, mapper):
-            tracker.on_new_keyframe = mapper.process
-            mapper.on_map_changed = tracker.invalidate_local_map
-
-        with JaxMono(), jax_e8_float64():
-            jt = JTracker(JIntrinsics(*cam), JSlamMap(), tcfg)
-            wire(jt, JLocalMapper(jt.map, JIntrinsics(*cam), JMapperConfig(), mono=True))
-            jres = []
-            for f, fe in enumerate(feats):
-                jt.frame_idx = f
-                jres.append(jt._track(JFrameFeatures(*fe), f * 0.05, stereo=False))
-        for family in (False, True):
-            tt = Tracker(cam, SlamMap(), tracker_config_from(tcfg), device="cpu")
-            tt.mono_init = MonoInitializer(cam, sampler=jax_samples)
-            tt._pose_opt_for = lambda stereo, t=tt, f=family: t.cfg.pose_opt._replace(family_weights=f)
-            wire(tt, LocalMapper(tt.map, cam, mapper_config_from(JMapperConfig()), mono=True, device="cpu"))
-            tres = []
-            for f, fe in enumerate(feats):
-                tt.frame_idx = f
-                tres.append(tt._track(features_from(fe), f * 0.05, stereo=False))
-            gaps = " ".join(f"{a.frame_idx}:{np.abs(a.T_cw - b.T_cw).max():.1e}" for a, b in zip(jres, tres) if a.state.name == "OK")
-            print(f"family_weights={family}: pose gap to the JAX package by frame {gaps}", flush=True)
-            print(f"family_weights={family}: Sim(3) ATE {sim3_ate(tres, scene)!r} m, the JAX package's {sim3_ate(jres, scene)!r} m", flush=True)
-    elif what == "draws":
+    if what == "draws":
         # lines only over other RANSAC draws: PRNGKey(frame_idx + 1000 k)
         import jax.random
 

@@ -23,6 +23,7 @@ TPUSLAM_KF_DEFER_MS=0 and TPUSLAM_NATIVE_MAP=0 (the JAX_* constants there):
     python tests/test_torch_pipelined.py fullchunk frame hybrid descriptor hostscale classic
     python tests/test_torch_pipelined.py mono 0 11   # pipelined lines-only mono, RANSAC draws k = 0..10
     python tests/test_torch_pipelined.py seeds frame 1 5   # the single-frame program, image-noise seeds 1..4
+    python tests/test_torch_pipelined.py portseeds bench 0 5   # the port's bench path on the CPU, seeds 0..4
 """
 
 import os
@@ -35,7 +36,7 @@ import numpy as np
 import pytest
 
 from torch_parity import DOTS, QVGA, JaxAsOnTheCard, dot_scene, np_of, stereo_scene
-from torch_pipelined_parity import ate, keyframe_split, pose_gap, run_jax_tracker, run_port_tracker
+from torch_pipelined_parity import ate, effective_dispatches, keyframe_split, pose_gap, run_jax_tracker, run_port_tracker
 from tpuslam_torch.convert import chunk_inputs_from, point_local_from, tracker_config_from
 from tpuslam_torch.frontend import pipeline as tpipe
 from tpuslam_torch.frontend.frame import FrontendParams, host_prescale
@@ -70,6 +71,7 @@ def jax_switch_config(chunk=6, points=False, pipelined=True, direct=True, halfre
 
 # chip_smoke.py's pipelined stereo phases: name -> (bench switches, frames with dots)
 BENCH_PHASES = {
+    "bench": (dict(), False),  # the bench path itself (phase 8): semi-direct chunks of 6
     "fullchunk": (dict(semidirect=False), False),
     "frame": (dict(chunk=1), False),
     "hybrid": (dict(chunk=1, points=True), True),
@@ -197,11 +199,11 @@ def run_port_program(name, case, jcfg, device="cpu"):
         )
     if name == "chunk":
         return tpipe.fused_stereo_chunk(
-            pairs, T_last, T_prev, local, tr._fxb, cam, c.frontend, c.search_coarse, c.search_fine, tr._fused_pose_opt(),
+            pairs, T_last, T_prev, local, tr._fxb, cam, c.frontend, c.search_coarse, c.search_fine, c.pose_opt,
             c.min_track_inliers, tr._direct_lines(),
         )
     return tpipe.fused_stereo_frame(
-        pairs, T_last, T_prev, local, tr._fxb, cam, c.frontend, c.stereo, c.search_coarse, c.search_fine, tr._fused_pose_opt(),
+        pairs, T_last, T_prev, local, tr._fxb, cam, c.frontend, c.stereo, c.search_coarse, c.search_fine, c.pose_opt,
         c.min_track_inliers, sd=tr._direct_lines(),
     )
 
@@ -354,6 +356,45 @@ def test_form_snapshot_order_matches_jax(form_run):
         assert [e[:2] for e in tlog][3:] == [(k, k - 3) for k in range(4, N_FRAMES - 1)] + [(N_FRAMES - 1, N_FRAMES - 2)]
 
 
+FLUSH_FRAMES = 18  # chunks 1-6 and 7-12 full, 13-17 padded: chunk 7-12 waits at the JAX flush
+
+
+def test_flush_order_matches_jax():
+    """The final flush with a full chunk waiting (semi-direct chunks of 6 over
+    18 QVGA frames, a keyframe at every anchor so the previous chunk's
+    resolve changes the map): per effective dispatch the same frames, last
+    frame resolved before it and keyframes in the map at its snapshot as the
+    JAX package's. The port dispatched chunk 7-12 when it filled, before
+    chunk 1-6's resolve and keyframe, and dispatches it again at the flush
+    after them (``flush_frames``); every frame OK, up to the first keyframe
+    decision that differs the anchors' poses within POSE_TOL and the
+    followers' within 5e-3 (their template alignment lands 1e-3 apart even
+    on identical inputs, test_torch_semidirect.py, and here from maps and
+    seeds that differ by float rounding: 4.0e-3 m at frame 8)."""
+    from tpuslam.frontend.tracking import TrackerConfig
+    from tpuslam.kernels.align_direct import DirectAlignParams
+    from tpuslam.kernels.stereo_direct import DirectStereoParams
+
+    jcfg = TrackerConfig(
+        pipelined=True, chunk=C, direct_stereo=DirectStereoParams(max_disp=64.0), semidirect=DirectAlignParams(),
+        max_frames_between_kf=1,
+    )
+    scene, frames = stereo_scene(FLUSH_FRAMES)
+    jres, jlog = run_jax_tracker(QVGA, frames, jcfg)
+    tres, tlog, tr = run_port_tracker(QVGA, frames, jcfg)
+    assert [r.frame_idx for r in tres] == [r.frame_idx for r in jres] == list(range(FLUSH_FRAMES))
+    assert all(r.state.name == "OK" for r in tres)
+    assert tr.anchor_frames == [1, 7, 13] and tr.flush_frames == [7]
+    assert [e[0] for e in jlog] == [list(range(1, 7)), list(range(7, 13)), list(range(13, 18)) + [-1]]
+    assert effective_dispatches(tlog) == jlog
+    split = keyframe_split(jres, tres)
+    for a, b in zip(jres[:split], tres[:split]):
+        ang, dc = pose_gap(b.T_cw, a.T_cw)
+        tol = POSE_TOL if a.frame_idx in tr.anchor_frames else 5e-3
+        assert ang <= tol and dc <= tol, (a.frame_idx, ang, dc)
+    assert ate(tres, scene) <= ate(jres, scene) + 0.01
+
+
 if __name__ == "__main__":
     import jax
 
@@ -385,17 +426,29 @@ if __name__ == "__main__":
             print(f"JAX pipelined mono lines, draws k = {k}: states {states}, keyframes {kfs}, Sim(3) ATE {ates[-1]!r}", flush=True)
         print(f"JAX_PIPELINED_MONO_DRAW_ATES_M[{k0}:{k1}] = {ates!r}", flush=True)
         sys.exit(0)
-    if args and args[0] == "seeds":
-        # a phase over other image-noise seeds of the same scene
+    if args and args[0] in ("seeds", "portseeds"):
+        # a phase over other image-noise seeds of the same scene: the JAX
+        # package's (seeds), or the port's System on the CPU (portseeds)
         name, k0, k1 = args[1], int(args[2]), int(args[3])
         switches, dots = BENCH_PHASES[name]
         ates = []
         for k in range(k0, k1):
             cam, scene, frames = chip_smoke.make_frames(draw_points=dots, noise_seed=k)
-            js, traj = run_jax_system(cam, frames, *jax_switch_config(**switches))
+            if args[0] == "seeds":
+                js, traj = run_jax_system(cam, frames, *jax_switch_config(**switches))
+            else:
+                from tpuslam_torch.system import System, bench_configs
+
+                tcfg, mcfg = bench_configs(**switches)
+                ts = System(cam, sensor="stereo", mapping=True, loop_closing=False, tracker_cfg=tcfg, mapper_cfg=mcfg, device="cpu")
+                for f, (il, ir) in enumerate(frames):
+                    ts.track_stereo(il, ir, f * 0.05)
+                ts.shutdown()
+                traj = sorted(ts.trajectory, key=lambda r: r.frame_idx)
+            who = "JAX" if args[0] == "seeds" else "port"
             ates.append(chip_smoke.ate_of(traj, scene))
-            print(f"JAX {name}, noise seed {k}: keyframes {[r.frame_idx for r in traj if r.made_keyframe]}, ATE {ates[-1]!r}", flush=True)
-        print(f"JAX_{name.upper()}_SEED_ATES_M[{k0}:{k1}] = {ates!r}", flush=True)
+            print(f"{who} {name}, noise seed {k}: keyframes {[r.frame_idx for r in traj if r.made_keyframe]}, ATE {ates[-1]!r}", flush=True)
+        print(f"{'JAX' if args[0] == 'seeds' else 'PORT'}_{name.upper()}_SEED_ATES_M[{k0}:{k1}] = {ates!r}", flush=True)
         sys.exit(0)
     for name in args:
         if name == "classic":

@@ -176,10 +176,12 @@ def _pose_gap(T, T_ref):
 
 
 # The anchor's two-stage pose LM (32 float32 LM iterations with accept
-# tests and chi2 re-gating) lands 1.5e-4 from XLA's in the pose entries even
-# on identical features and matches (camera centre 2.0e-4 m); the detector's
-# own rounding (endpoints up to 0.013 px apart) adds nothing visible on top
-# (1.8e-4 m for the whole chunk). Rotation agrees to 2e-5 rad.
+# tests and chi2 re-gating) landed 1.5e-4 from XLA's in the pose entries
+# even on identical features and matches (camera centre 2.0e-4 m) while it
+# weighed each observation; with the JAX package's IRLS formula (one weight
+# per residual family, every pose LM since the repair of ROADMAP.md's fault
+# 3.2) 6.5e-6 m and 9.3e-7 rad. The detector's own rounding (endpoints up to
+# 0.013 px apart) adds nothing visible on top.
 ANCHOR_TOL_RAD, ANCHOR_TOL_M = 1e-4, 3e-4
 
 

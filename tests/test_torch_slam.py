@@ -4,6 +4,13 @@ tpuslam: both Systems see the same exact synthetic features (through
 mapping and relocalization alone. The JAX map's native graph mirror is off
 (see test_torch_mapping.py)."""
 
+import copy
+import os
+import sys
+
+if __name__ == "__main__":
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
 import numpy as np
 import pytest
 
@@ -14,7 +21,8 @@ from tpuslam.geometry import Intrinsics as JIntrinsics
 from tpuslam.io.synthetic import make_wireframe_scene, synthetic_frame_features
 from tpuslam.system import System as JSystem
 from tpuslam_torch import Intrinsics
-from tpuslam_torch.convert import features_from
+from tpuslam_torch.backend.mapping import LocalMapper
+from tpuslam_torch.convert import features_from, map_state, mapper_config_from, slam_map_from
 from tpuslam_torch.eval.ate import absolute_trajectory_error
 from tpuslam_torch.frontend.tracking import TrackerConfig, TrackingState
 from tpuslam_torch.system import System
@@ -27,12 +35,23 @@ def _center(T):
     return np.linalg.inv(np.asarray(T, np.float64))[:3, 3]
 
 
-def _pair(n_frames, n_segments=140, seed=0):
+def _pair(n_frames, n_segments=140, seed=0, events=None):
     """Both Systems (stereo, mapping on, a keyframe at least every 4 frames)
-    over the same synthetic features of ``n_frames`` frames."""
+    over the same synthetic features of ``n_frames`` frames. With
+    ``events`` (a list), the JAX mapper's keyframe events are appended to
+    it: the map and mapper state before each, and the map after."""
     rng = np.random.default_rng(seed)
     scene = make_wireframe_scene(rng, n_segments=n_segments, n_frames=n_frames, cam=J_CAM, motion_scale=0.02)
     js = JSystem(J_CAM, sensor="stereo", loop_closing=False, tracker_cfg=JTrackerConfig(max_frames_between_kf=4))
+    if events is not None:
+        process = js.mapper.process
+
+        def recorded(kf):
+            before = copy.deepcopy((map_state(js.map), dict(js.mapper._recent), js.mapper._kf_count))
+            process(kf)
+            events.append(dict(kid=kf.kid, before=before, after=copy.deepcopy(map_state(js.map))))
+
+        js.mapper.process = recorded
     ts = System(
         T_CAM, sensor="stereo", loop_closing=False, tracker_cfg=TrackerConfig(max_frames_between_kf=4), device="cpu"
     )
@@ -50,18 +69,30 @@ def _feed(js, ts, feats, frame_idx, t):
 
 @pytest.fixture(scope="module")
 def runs():
+    events = []
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("TPUSLAM_NATIVE_MAP", "0")
-        scene, js, ts, _ = _pair(20)
+        scene, js, ts, _ = _pair(20, events=events)
     js.shutdown()
     ts.shutdown()
-    return scene, js, ts
+    return scene, js, ts, events
 
 
 def test_mapping_system_tracks_like_jax(runs):
     """Same states, keyframes within one, camera centres within 5 cm of the
-    JAX package's every frame and ATE within 1 cm of it; local BA ran."""
-    scene, js, ts = runs
+    JAX package's every frame and ATE within 1 cm of it; local BA ran.
+
+    Keyframe poses within 2e-3: the frames tracked before the first local
+    BA's result reaches tracking (frames 0-4, keyframe 1 at frame 4) in the
+    whole runs, and every keyframe event on identical inputs (the port's
+    mapper replayed on the map the JAX mapper started from, as
+    test_torch_mapping.py replays events). From the local BA at keyframe 2
+    on, the two whole runs' maps differ by float32 LM rounding on weakly
+    observed lines (ROADMAP.md section 3, on local BA), and with the JAX
+    package's IRLS formula in the stereo pose LM (fault 3.2, repaired)
+    keyframe 3's pose lands 2.3e-3 apart there (frame 9 2.5e-3), while
+    frames 0-8 agree to 1e-5."""
+    scene, js, ts, events = runs
     assert [r.state.name for r in ts.trajectory] == [r.state.name for r in js.trajectory]
     assert all(r.state == TrackingState.OK for r in ts.trajectory)
     assert abs(len(ts.map.keyframes) - len(js.map.keyframes)) <= 1 and len(ts.map.keyframes) >= 4
@@ -80,14 +111,26 @@ def test_mapping_system_tracks_like_jax(runs):
     np.testing.assert_allclose(tb[2:4], jb[2:4], rtol=0.02)
     assert 0.5 < (tb.cost / tb.n_obs) / (jb.cost / jb.n_obs) < 2.0
     assert sorted(ts.map.keyframes) == sorted(js.map.keyframes)
-    for kid, kf in ts.map.keyframes.items():
-        np.testing.assert_allclose(kf.T_cw, js.map.keyframes[kid].T_cw, atol=2e-3)
+    first_ba = js.map.keyframes[1].frame_idx  # the event of keyframe 1 runs the first local BA
+    for a, b in zip(js.trajectory[: first_ba + 1], ts.trajectory):
+        np.testing.assert_allclose(b.T_cw, a.T_cw, atol=2e-3)
+    assert len(events) == len(js.map.keyframes)
+    for ev in events:
+        before, recent, kf_count = ev["before"]
+        tmap = slam_map_from(before)
+        mapper = LocalMapper(tmap, T_CAM, mapper_config_from(js.mapper.cfg), device="cpu")
+        mapper._recent, mapper._kf_count = dict(recent), kf_count
+        mapper.process(tmap.keyframes[ev["kid"]])
+        want = {k["kid"]: k["T_cw"] for k in ev["after"]["keyframes"]}
+        assert sorted(tmap.keyframes) == sorted(want)
+        for kid, kf in tmap.keyframes.items():
+            np.testing.assert_allclose(kf.T_cw, want[kid], atol=2e-3, err_msg=f"event {ev['kid']}, keyframe {kid}")
 
 
 def test_mapping_system_bookkeeping(runs):
     """Every live keyframe is in the relocalization database; the mapper's
     stages and local mapping are timed; solves are recorded by rung."""
-    _, js, ts = runs
+    _, js, ts, _ = runs
     assert sorted(k for k in ts.kf_db.kids if k is not None) == sorted(ts.map.keyframes)
     assert len(ts.kf_db) == len(js.kf_db)
     stages = ts.timing_summary()
@@ -123,3 +166,24 @@ def test_relocalization_like_jax(keyframe_poses):
     assert ts.tracker.n_relocalizations == js.tracker.n_relocalizations == 1
     assert np.linalg.norm(_center(rt.T_cw) - _center(scene.poses[5])) < 0.05
     assert np.linalg.norm(_center(rt.T_cw) - _center(rj.T_cw)) < 0.01
+
+
+if __name__ == "__main__":
+    # tests/test_torch_cuda.py's JAX_VGA12_MAPPING_ATE_M: the JAX System (mapping
+    # on, a keyframe at least every 4 frames) over 12 rendered VGA frames
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    from test_torch_cuda import VGA
+    from torch_parity import JaxAsOnTheCard, stereo_scene
+
+    scene, frames = stereo_scene(12, cam=VGA)
+    with JaxAsOnTheCard():
+        js = JSystem(JIntrinsics(*VGA), sensor="stereo", mapping=True, loop_closing=False,
+                     tracker_cfg=JTrackerConfig(max_frames_between_kf=4))
+        for f, (il, ir) in enumerate(frames):
+            js.track_stereo(il, ir, 0.05 * f)
+    c = np.stack([_center(r.T_cw) for r in js.trajectory])
+    gt = np.stack([_center(T) for T in scene.poses])
+    print(f"keyframes at frames {[r.frame_idx for r in js.trajectory if r.made_keyframe]}", flush=True)
+    print(f"JAX_VGA12_MAPPING_ATE_M = {absolute_trajectory_error(c, gt).rmse!r}", flush=True)

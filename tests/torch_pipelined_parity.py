@@ -106,6 +106,18 @@ def run_port_tracker(cam, frames, jcfg, mono: bool = False):
     return sorted(results, key=lambda r: r.frame_idx), order.log, tr
 
 
+def effective_dispatches(log):
+    """The dispatch log without the dispatches that a later one of the same
+    frames replaced (the port's final flush dispatches the last full chunk
+    again where the map it matched changed: its frames' results come from
+    the later dispatch)."""
+    out = []
+    for i, e in enumerate(log):
+        if not any(later[0] == e[0] for later in log[i + 1:]):
+            out.append(e)
+    return out
+
+
 def pose_gap(T, T_ref):
     """(rotation angle rad, camera centre distance m) between two T_cw."""
     T, T_ref = np.asarray(T, np.float64), np.asarray(T_ref, np.float64)

@@ -16,6 +16,9 @@ every keyframe, and loop closing (SE(3) essential graph, landmark
 correction, global bundle adjustment). ``System(cam, sensor="mono")``:
 a two-view bootstrap, synchronous tracking, two-view triangulation of new
 lines and points in the mapper, and loop closing on the Sim(3) branch.
+``parallel/``: N stereo sequences tracked concurrently (``MultiTracker``,
+one set of kernel launches per stage for all N) and batched local BA
+(``batched_ba``), BASELINE config #5.
 """
 
 __version__ = "0.1.0"

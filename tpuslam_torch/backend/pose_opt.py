@@ -7,18 +7,16 @@ rounds of ``iters_per_round`` iterations with chi-squared re-gating between
 rounds. The loops are Python loops over device tensors; the accept step is
 a ``torch.where`` on the device, so nothing in them waits for the device.
 
-With both families the IRLS weights follow the JAX package's as written:
-its ``jnp.linalg.norm(r, -1)`` takes -1 as the norm's ``ord``, so each
+The IRLS weights follow the JAX package's as written: its
+``jnp.linalg.norm(r, -1)`` takes -1 as the norm's ``ord``, so each residual
 family gets one Huber weight, from the matrix norm min_j sum_i |r_ij| over
 all its rows, instead of one per observation (:func:`_family_norm`). With
 lines alone that common weight cancels in the step (a Gauss-Newton step, the
-Huber cost deciding acceptance). The lines-only LM keeps per-observation
-weights unless ``PoseOptConfig.family_weights`` asks for the JAX formula,
-as the monocular tracker does: there, with 12-40 line inliers, the
-per-observation weights (which down-weight the gross outliers the JAX
-package keeps) moved the trajectory away from the JAX package's within a
-few frames, while on stereo frames the JAX package's own non-robust step
-follows the chaos of its local BA's weakly observed lines.
+Huber cost deciding acceptance); with both families it sets their relative
+weight. Every tracker form takes this formula, stereo and mono: with one
+weight per observation the lines-only LM left the JAX package's pose on
+identical inputs (the semi-direct anchor 1.9e-4 m against 6.5e-6 m, the
+monocular tracker 1e-2 m within 12 frames; ROADMAP.md section 3).
 """
 
 from __future__ import annotations
@@ -47,9 +45,6 @@ class PoseOptConfig(NamedTuple):
     huber_point: float = 2.45
     chi2_line: float = 7.378  # 95% for 2 DoF
     chi2_point: float = 5.991
-    # lines alone: one Huber weight for all rows, the JAX package's formula
-    # (the monocular tracker sets it); False = one per observation
-    family_weights: bool = False
 
 
 class PoseOptResult(NamedTuple):
@@ -116,7 +111,7 @@ def pose_optimize(
             rl, Jl = line_residuals_and_pose_jacobian(T, lines, l_endpoints, cam)
             rl = rl / l_sigma[:, None]
             Jl = Jl / l_sigma[:, None, None]
-            wl = huber_weight(_family_norm(rl) if hybrid or cfg.family_weights else torch.linalg.norm(rl, dim=-1), cfg.huber_line) * ml
+            wl = huber_weight(_family_norm(rl), cfg.huber_line) * ml
             H = torch.einsum("oia,o,oib->ab", Jl, wl, Jl)
             b = torch.einsum("oia,o,oi->a", Jl, wl, rl)
             if hybrid:

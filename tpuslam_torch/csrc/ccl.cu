@@ -25,6 +25,11 @@
 // per-round form below: 64 launches of ~5 us, each under 0.2 us of work) is
 // far from either.
 //
+// Batches: tpuslam_ccl_batch runs B images of one shape, (B, H, W) planes,
+// in the same launches (grid z over the images; each block offsets its
+// planes by its image's), so one call of R rounds is ceil(R / k) launches
+// for the whole batch, and each image is bit for bit its single-image call.
+//
 // Design (ccl_tile_kernel): each block owns a TY x TX output tile and loads
 // the (TY + 2k) x (TX + 2k) window around it into shared memory, reading the
 // planes wrap-indexed ((y mod H), (x mod W)), as jnp.roll does. It then runs
@@ -206,6 +211,13 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.y * 32 + threadIdx.x;
   const int ty0 = blockIdx.y * TY;
   const int tx0 = blockIdx.x * TX;
+  // image blockIdx.z of the batch: its planes (labels stay indices within it)
+  const long plane = static_cast<long>(blockIdx.z) * H * W;
+  lab_in += plane;
+  mx_in += plane;
+  compat += plane;
+  lab_out += plane;
+  mx_out += plane;
   for (int d = tid; d <= K; d += kThreads) count[d] = 0;
   for (int i = tid; i < WH; i += kThreads) row_at[i] = static_cast<long>(wrap(ty0 - K + i, H)) * W;
   for (int c = tid; c < WW; c += kThreads) col_at[c] = wrap(tx0 - K + c, W);
@@ -293,7 +305,7 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int TY, int TX, int K>
 cudaError_t run_tiles(const int* lab0, const int* mx0, const int* compat, int* lab_out,
-                      int* mx_out, int* lab_tmp, int* mx_tmp, int H, int W, int rounds,
+                      int* mx_out, int* lab_tmp, int* mx_tmp, int B, int H, int W, int rounds,
                       cudaStream_t s, int* n_launches) {
   using T = Tile<TY, TX, K>;
   auto kernel = ccl_tile_kernel<TY, TX, K>;
@@ -301,7 +313,7 @@ cudaError_t run_tiles(const int* lab0, const int* mx0, const int* compat, int* l
                                          static_cast<int>(T::kSmemBytes));
   if (err != cudaSuccess) return err;
   const dim3 block(32, kThreads / 32);
-  const dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY);
+  const dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY, B);
   const int n = (rounds + K - 1) / K;
   // launch t writes `out` when n - 1 - t is even, so the last one does
   const int* src_l = lab0;
@@ -321,9 +333,9 @@ cudaError_t run_tiles(const int* lab0, const int* mx0, const int* compat, int* l
   return cudaSuccess;
 }
 
-cudaError_t copy_inputs(const int* lab0, const int* mx0, int* lab_out, int* mx_out, int H, int W,
+cudaError_t copy_inputs(const int* lab0, const int* mx0, int* lab_out, int* mx_out, int B, int H, int W,
                         cudaStream_t s) {
-  const size_t bytes = static_cast<size_t>(H) * W * sizeof(int);
+  const size_t bytes = static_cast<size_t>(B) * H * W * sizeof(int);
   cudaError_t err = cudaMemcpyAsync(lab_out, lab0, bytes, cudaMemcpyDeviceToDevice, s);
   if (err != cudaSuccess) return err;
   return cudaMemcpyAsync(mx_out, mx0, bytes, cudaMemcpyDeviceToDevice, s);
@@ -338,15 +350,26 @@ extern "C" {
 // same (H, W) int32 shape. The inputs are not modified. (tile_y, tile_x, k)
 // must be the built instance, (32, 32, 8) (others: cudaErrorInvalidValue);
 // *n_launches is increased by the kernel launches made (ceil(rounds / k)).
+//
+// tpuslam_ccl_batch: the same for B images of one shape, (B, H, W) planes,
+// each launch over all of them (grid z over the images); each image is bit
+// for bit its single-image call, which is the batch of one.
+int tpuslam_ccl_batch(const int* lab0, const int* mx0, const int* compat, int* lab_out, int* mx_out,
+                      int* lab_tmp, int* mx_tmp, int B, int H, int W, int rounds, int tile_y, int tile_x,
+                      int k, int* n_launches, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rounds < 0 || B < 1 || B > 65535 || H < 1 || W < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (tile_y != 32 || tile_x != 32 || k != 8) return static_cast<int>(cudaErrorInvalidValue);
+  if (rounds == 0) return static_cast<int>(copy_inputs(lab0, mx0, lab_out, mx_out, B, H, W, s));
+  return run_tiles<32, 32, 8>(lab0, mx0, compat, lab_out, mx_out, lab_tmp, mx_tmp, B, H, W, rounds,
+                              s, n_launches);
+}
+
 int tpuslam_ccl(const int* lab0, const int* mx0, const int* compat, int* lab_out, int* mx_out,
                 int* lab_tmp, int* mx_tmp, int H, int W, int rounds, int tile_y, int tile_x, int k,
                 int* n_launches, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rounds < 0 || H < 1 || W < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (tile_y != 32 || tile_x != 32 || k != 8) return static_cast<int>(cudaErrorInvalidValue);
-  if (rounds == 0) return static_cast<int>(copy_inputs(lab0, mx0, lab_out, mx_out, H, W, s));
-  return run_tiles<32, 32, 8>(lab0, mx0, compat, lab_out, mx_out, lab_tmp, mx_tmp, H, W, rounds,
-                              s, n_launches);
+  return tpuslam_ccl_batch(lab0, mx0, compat, lab_out, mx_out, lab_tmp, mx_tmp, 1, H, W, rounds, tile_y,
+                           tile_x, k, n_launches, stream);
 }
 
 // The per-round form: one launch of ccl_round_kernel per round, same arguments
@@ -356,7 +379,7 @@ int tpuslam_ccl_per_round(const int* lab0, const int* mx0, const int* compat, in
                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rounds < 0 || H < 1 || W < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (rounds == 0) return static_cast<int>(copy_inputs(lab0, mx0, lab_out, mx_out, H, W, s));
+  if (rounds == 0) return static_cast<int>(copy_inputs(lab0, mx0, lab_out, mx_out, 1, H, W, s));
   const dim3 block(32, 8);
   const dim3 grid((W + block.x - 1) / block.x, (H + block.y - 1) / block.y);
   // Round r (1-based) writes `out` when rounds - r is even, so the last

@@ -53,6 +53,14 @@
 // it beside the one-launch kernel and the card tests hold the two
 // bit-equal. The front end never calls it.
 //
+// Batches: tpuslam_blur_batch and tpuslam_gradients_xy_batch take B images
+// of one shape, (B, H, W), in one launch with grid z over the images (the
+// counterpart of the JAX package's vmap over N sequences,
+// tpuslam/parallel/multi_seq.py batched_extract). Each block offsets its
+// pointers by its image's plane and then does what it does for one image,
+// so every image of a batch is bit for bit its single-image launch; the
+// single-image entry points are the batch of one.
+//
 // Built with --fmad=false so that gx*gx + gy*gy rounds as the plain PyTorch
 // version rounds it: the detector thresholds these magnitudes.
 
@@ -87,7 +95,8 @@ __global__ void gradients_xy_kernel(const float* __restrict__ img, float* __rest
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   if (x >= W || y >= H) return;
-  const long i = static_cast<long>(y) * W + x;
+  // image blockIdx.z of the batch
+  const long i = (static_cast<long>(blockIdx.z) * H + y) * W + x;
   gx[i] = (x > 0 && x < W - 1) ? (img[i + 1] * scale - img[i - 1] * scale) * 0.5f : 0.0f;
   gy[i] = (y > 0 && y < H - 1) ? (img[i + W] * scale - img[i - W] * scale) * 0.5f : 0.0f;
 }
@@ -104,6 +113,9 @@ __global__ void __launch_bounds__(kBlurTile * kBlurThreadsY)
   constexpr int WN = kBlurTile + 2 * R;  // window side
   __shared__ float win[WN * WN];         // edge-clamped input
   __shared__ float mid[WN * kBlurTile];  // after the row pass
+  const long plane = static_cast<long>(blockIdx.z) * H * W;  // image blockIdx.z of the batch
+  in += plane;
+  out += plane;
   const int y0 = blockIdx.y * kBlurTile;
   const int x0 = blockIdx.x * kBlurTile;
 #pragma unroll 4
@@ -132,9 +144,9 @@ __global__ void __launch_bounds__(kBlurTile * kBlurThreadsY)
 }
 
 template <int R>
-void launch_blur(const float* img, float* out, int H, int W, const Taps& t, cudaStream_t s) {
+void launch_blur(const float* img, float* out, int B, int H, int W, const Taps& t, cudaStream_t s) {
   const dim3 block(kBlurTile, kBlurThreadsY);
-  const dim3 grid((W + kBlurTile - 1) / kBlurTile, (H + kBlurTile - 1) / kBlurTile);
+  const dim3 grid((W + kBlurTile - 1) / kBlurTile, (H + kBlurTile - 1) / kBlurTile, B);
   blur_tile_kernel<R><<<grid, block, 0, s>>>(img, out, H, W, t);
 }
 
@@ -159,9 +171,13 @@ __global__ void blur_pass_kernel(const float* __restrict__ in, float* __restrict
   out[static_cast<long>(y) * W + x] = acc;
 }
 
-dim3 grid_for(int H, int W, dim3 block) {
-  return dim3((W + block.x - 1) / block.x, (H + block.y - 1) / block.y);
+dim3 grid_for(int H, int W, dim3 block, int B = 1) {
+  return dim3((W + block.x - 1) / block.x, (H + block.y - 1) / block.y, B);
 }
+
+// A batch of B images in one launch: at least one, and a grid z within the
+// card's 65,535.
+bool batch_ok(int B) { return B >= 1 && B <= 65535; }
 
 }  // namespace
 
@@ -180,30 +196,44 @@ int tpuslam_gradients(const float* img, float* gx, float* gy, float* mag, float*
   return static_cast<int>(cudaGetLastError());
 }
 
-// (H, W) float32 image -> gx, gy of `img * scale`, each (H, W) float32, zero
-// on the image's first and last columns (gx) and rows (gy).
-int tpuslam_gradients_xy(const float* img, float* gx, float* gy, int H, int W, float scale,
-                         void* stream) {
+// (B, H, W) float32 images -> gx, gy of `img * scale`, each (B, H, W)
+// float32, zero on each image's first and last columns (gx) and rows (gy),
+// in one launch (grid z over the images).
+int tpuslam_gradients_xy_batch(const float* img, float* gx, float* gy, int B, int H, int W, float scale,
+                               void* stream) {
+  if (!batch_ok(B)) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 block(32, 8);
-  gradients_xy_kernel<<<grid_for(H, W, block), block, 0, static_cast<cudaStream_t>(stream)>>>(
+  gradients_xy_kernel<<<grid_for(H, W, block, B), block, 0, static_cast<cudaStream_t>(stream)>>>(
       img, gx, gy, H, W, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Separable blur of `img` into `out` in one launch. `taps` is a host array
-// of `ntaps` (odd, <= 32) float32 weights; *n_launches is increased by the
-// kernel launches made (1).
-int tpuslam_blur(const float* img, float* out, int H, int W, const float* taps, int ntaps,
-                 int* n_launches, void* stream) {
+// One (H, W) image: the batch of one.
+int tpuslam_gradients_xy(const float* img, float* gx, float* gy, int H, int W, float scale,
+                         void* stream) {
+  return tpuslam_gradients_xy_batch(img, gx, gy, 1, H, W, scale, stream);
+}
+
+// Separable blur of B (H, W) images `img` into `out` in one launch (grid z
+// over the images). `taps` is a host array of `ntaps` (odd, <= 32) float32
+// weights; *n_launches is increased by the kernel launches made (1).
+int tpuslam_blur_batch(const float* img, float* out, int B, int H, int W, const float* taps, int ntaps,
+                       int* n_launches, void* stream) {
   Taps t;
-  if (!make_taps(taps, ntaps, &t)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!make_taps(taps, ntaps, &t) || !batch_ok(B)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool ok = tpuslam::with_radius(
-      ntaps / 2, [&](auto r) { launch_blur<decltype(r)::value>(img, out, H, W, t, s); });
+      ntaps / 2, [&](auto r) { launch_blur<decltype(r)::value>(img, out, B, H, W, t, s); });
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess) ++*n_launches;
   return static_cast<int>(err);
+}
+
+// One (H, W) image: the batch of one.
+int tpuslam_blur(const float* img, float* out, int H, int W, const float* taps, int ntaps,
+                 int* n_launches, void* stream) {
+  return tpuslam_blur_batch(img, out, 1, H, W, taps, ntaps, n_launches, stream);
 }
 
 // The two-pass form: rows of `img` into `tmp`, then columns of `tmp` into `out`,

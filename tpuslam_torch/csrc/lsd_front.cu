@@ -31,6 +31,11 @@
 // It writes mag (f32), support (bool), labels0, maxlab0 and compat (int32):
 // what detect_lines reads, and no gx, gy or angle plane.
 //
+// A batch of B images of one shape runs in one launch (grid z over the
+// images, tpuslam_lsd_front_batch): each block offsets its planes by its
+// image's and does what it does for one image, so each image is bit for bit
+// its single-image launch (the single-image entry point is the batch of one).
+//
 // The compat plane of the plain version reads neighbours through torch.roll,
 // so the image's first row sees its last. That wrap is never observable:
 // every image-border pixel has mag 0, so with rho >= 0 (the wrapper refuses
@@ -110,6 +115,14 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.y * kTile + threadIdx.x;
   const int y0 = blockIdx.y * kTile;
   const int x0 = blockIdx.x * kTile;
+  // image blockIdx.z of the batch: its planes, its own pixel indices
+  const long plane = static_cast<long>(blockIdx.z) * H * W;
+  img += plane;
+  mag_out += plane;
+  support_out += plane;
+  labels0 += plane;
+  maxlab0 += plane;
+  compat += plane;
 
   // 1. window cell (i, c) holds pixel (y0 - HALO + i, x0 - HALO + c), clamped
   for (int e = tid; e < WN * WN; e += kThreads) {
@@ -189,20 +202,21 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" {
 
-// (H, W) float32 level image -> mag (f32), support (bool), labels0, maxlab0
-// and compat bits (int32), each (H, W), in one launch. `taps` is a host
-// array of `ntaps` float32 prefilter weights (radius 1..15); `tile` and
-// `halo` must be the built tile and ntaps / 2 + 2 (the wrapper passes
+// (B, H, W) float32 level images -> mag (f32), support (bool), labels0,
+// maxlab0 and compat bits (int32), each (B, H, W), in one launch (grid z
+// over the images; labels are pixel indices within each image). `taps` is
+// a host array of `ntaps` float32 prefilter weights (radius 1..15); `tile`
+// and `halo` must be the built tile and ntaps / 2 + 2 (the wrapper passes
 // kernels/lsd.py FRONT_TILE and front_halo). *n_launches is increased by the
 // kernel launches made (1).
-int tpuslam_lsd_front(const float* img, float* mag, bool* support, int* labels0, int* maxlab0,
-                      int* compat, int H, int W, const float* taps, int ntaps, float rho,
-                      float cos_tol, int tile, int halo, int* n_launches, void* stream) {
+int tpuslam_lsd_front_batch(const float* img, float* mag, bool* support, int* labels0, int* maxlab0,
+                            int* compat, int B, int H, int W, const float* taps, int ntaps, float rho,
+                            float cos_tol, int tile, int halo, int* n_launches, void* stream) {
   Taps t;
-  if (!make_taps(taps, ntaps, &t) || tile != kTile || halo != ntaps / 2 + 2)
+  if (!make_taps(taps, ntaps, &t) || tile != kTile || halo != ntaps / 2 + 2 || B < 1 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 block(kTile, kThreadsY);
-  const dim3 grid((W + kTile - 1) / kTile, (H + kTile - 1) / kTile);
+  const dim3 grid((W + kTile - 1) / kTile, (H + kTile - 1) / kTile, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool ok = tpuslam::with_radius(ntaps / 2, [&](auto r) {
     lsd_front_kernel<decltype(r)::value><<<grid, block, 0, s>>>(
@@ -212,6 +226,14 @@ int tpuslam_lsd_front(const float* img, float* mag, bool* support, int* labels0,
   const cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess) ++*n_launches;
   return static_cast<int>(err);
+}
+
+// One (H, W) image: the batch of one.
+int tpuslam_lsd_front(const float* img, float* mag, bool* support, int* labels0, int* maxlab0,
+                      int* compat, int H, int W, const float* taps, int ntaps, float rho,
+                      float cos_tol, int tile, int halo, int* n_launches, void* stream) {
+  return tpuslam_lsd_front_batch(img, mag, support, labels0, maxlab0, compat, 1, H, W, taps, ntaps, rho,
+                                 cos_tol, tile, halo, n_launches, stream);
 }
 
 }  // extern "C"

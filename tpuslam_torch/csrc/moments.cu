@@ -62,6 +62,14 @@
 // CPU (the first in item order is kept), bit for bit. Inputs are finite (the
 // detector's are).
 //
+// Batches: the _batch entry points take B images of one shape in one launch,
+// grid (blocks, B) for the component kernels (blockIdx.y the image) and B
+// blocks for the merge's. Each image has its own roots, scratch rows,
+// output and set of 17 ticket counters, so one image's last-block combine
+// counts only its own blocks, and every image is summed in the order of its
+// single-image call: bit for bit the same result. The single-image entry
+// points are the batch of one.
+//
 // One launch per call. Each block writes its row (every entry); the last
 // block of each group of 8 to draw a ticket (__threadfence(), atomicAdd on a
 // device counter) sums the group's rows in block order into a group row,
@@ -108,6 +116,7 @@ constexpr int kMaxRoots = 1024;
 constexpr int kMaxShared = 226 * 1024;  // dynamic shared memory, below the 227 KB a block may opt in to
 constexpr int kEmpty = -1;
 constexpr int kMomentColumns = 7;
+constexpr int kCounters = 1 + kMaxBlocks / kGroup;  // ticket counters per image: the groups', then each group's
 
 // log2 of the hash table's cells: the least power of two >= 4 K (at least 32)
 __host__ __device__ inline int table_bits(int K) {
@@ -310,6 +319,8 @@ __device__ void combine_keys(const unsigned long long* __restrict__ rows, int co
 // ticket, counters[1 + g] group g's.
 __device__ inline int group_size(int g) { return min(kGroup, static_cast<int>(gridDim.x) - g * kGroup); }
 __device__ inline int group_count() { return (gridDim.x + kGroup - 1) / kGroup; }
+// An image's (blocks + groups) scratch rows: blockIdx.y picks the image of a batch.
+__device__ inline long image_rows() { return static_cast<long>(gridDim.x) + group_count(); }
 
 // order-preserving 32 bits of a finite float, -0.0 taken as +0.0
 __device__ inline unsigned long long order_bits(float t) {
@@ -372,6 +383,15 @@ component_moments_kernel(const int* __restrict__ labels, const float* __restrict
                          int ipw) {
   constexpr int C = kMomentColumns;
   extern __shared__ __align__(16) int smem[];
+  // image blockIdx.y of the batch: its planes, roots, scratch rows, counters and output
+  const long z = blockIdx.y;
+  labels += z * N;
+  mag += z * N;
+  support += z * N;
+  roots += z * K;
+  partial += z * image_rows() * C * K;
+  counters += z * kCounters;
+  out += z * C * K;
   sum_items<C, false>(labels, mag, support, roots, smem, N, K, ipw, [W](int i, int, float m, bool sp, float (&v)[C], Keys&) {
     const float x = static_cast<float>(i % W), y = static_cast<float>(i / W);
     const float w = sp ? m : 0.0f;
@@ -401,6 +421,19 @@ component_extents_kernel(const int* __restrict__ labels, const float* __restrict
                          float* __restrict__ partial, unsigned long long* __restrict__ keys, unsigned* counters,
                          float* __restrict__ out, int N, int W, int K, int ipw) {
   extern __shared__ __align__(16) int smem[];
+  // image blockIdx.y of the batch, as in component_moments_kernel
+  const long z = blockIdx.y;
+  labels += z * N;
+  mag += z * N;
+  support += z * N;
+  roots += z * K;
+  cx += z * K;
+  cy += z * K;
+  ev += z * 2 * K;
+  partial += z * image_rows() * K;
+  keys += z * image_rows() * 2 * K;
+  counters += z * kCounters;
+  out += z * 3 * K;
   // 8-byte arrays first: the block's min and max keys (K each), then the
   // components' cx, cy, ev.x, ev.y (K each), then the common layout
   unsigned long long* kmin = reinterpret_cast<unsigned long long*>(smem);
@@ -466,6 +499,10 @@ __global__ void segment_sums_kernel(const float* __restrict__ values, const int*
                                     float* __restrict__ out, int N, int S) {
   __shared__ float vals[V * kChunk];
   __shared__ int slots[kChunk];
+  // one block per image of the batch
+  values += static_cast<long>(blockIdx.x) * V * N;
+  slot += static_cast<long>(blockIdx.x) * N;
+  out += static_cast<long>(blockIdx.x) * V * S;
   const int lane = threadIdx.x % kWarp;
   const int warp = threadIdx.x / kWarp;
   for (int s0 = 0; s0 < S; s0 += blockDim.x) {
@@ -601,70 +638,101 @@ bool two_launch_shape(int N, int V, int S, int* wpb, int* ipw, int* blocks) {
 
 extern "C" {
 
-// labels (H, W) int32, mag (H, W) float32, support (H, W) uint8 (bool), roots
-// (K,) int64 (distinct, in [0, H W)) -> out (7, K) float32. partial holds
-// (blocks + groups) * 7 * K floats, groups = ceil(blocks / 8); counters are
-// the device's 17 ticket counters (0 between calls). blocks and ipw come
-// from kernels/lsd.py sum_partition; the function refuses any partition
-// that does not cover the plane in whole steps with at most 128 blocks, and
-// K outside [1, 1024] or whose shared memory exceeds 226 KB (K > 480 here).
-// *n_launches is increased by the launches made (1).
-int tpuslam_component_moments(const int* labels, const float* mag, const unsigned char* support,
-                              const long long* roots, float* partial, unsigned* counters, float* out, int H, int W,
-                              int K, int blocks, int ipw, int* n_launches, void* stream) {
+// labels (B, H, W) int32, mag (B, H, W) float32, support (B, H, W) uint8
+// (bool), roots (B, K) int64 (distinct within an image, in [0, H W)) -> out
+// (B, 7, K) float32, in one launch: grid (blocks, B), blockIdx.y the image,
+// each image summed in its single-image order (bit for bit its call alone).
+// partial holds B (blocks + groups) * 7 * K floats, groups = ceil(blocks /
+// 8); counters are B sets of 17 ticket counters (0 between calls; each
+// image's blocks draw their own set). blocks and ipw come from
+// kernels/lsd.py sum_partition; the function refuses any partition that
+// does not cover the plane in whole steps with at most 128 blocks, K outside
+// [1, 1024] or whose shared memory exceeds 226 KB (K > 480 here), and B
+// outside [1, 65535]. *n_launches is increased by the launches made (1).
+int tpuslam_component_moments_batch(const int* labels, const float* mag, const unsigned char* support,
+                                    const long long* roots, float* partial, unsigned* counters, float* out, int B,
+                                    int H, int W, int K, int blocks, int ipw, int* n_launches, void* stream) {
   const size_t shared = static_cast<size_t>(shared_words(K, kMomentColumns)) * 4;
-  if (!component_shape(H, W, K, blocks, ipw, shared)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!component_shape(H, W, K, blocks, ipw, shared) || B < 1 || B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(component_moments_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(shared));
   if (err != cudaSuccess) return static_cast<int>(err);
-  component_moments_kernel<<<blocks, kSumThreads, shared, static_cast<cudaStream_t>(stream)>>>(
+  component_moments_kernel<<<dim3(blocks, B), kSumThreads, shared, static_cast<cudaStream_t>(stream)>>>(
       labels, mag, support, roots, partial, counters, out, H * W, W, K, ipw);
   err = cudaGetLastError();
   if (err == cudaSuccess) ++*n_launches;
   return static_cast<int>(err);
 }
 
-// The same planes and roots, cx (K,), cy (K,), ev (K, 2) float32 -> out
-// (3, K): t_min, t_max, sn2. partial holds (blocks + groups) * K floats,
-// keys (blocks + groups) * 2 * K 64-bit words; the rest as
-// tpuslam_component_moments.
-int tpuslam_component_extents(const int* labels, const float* mag, const unsigned char* support,
-                              const long long* roots, const float* cx, const float* cy, const float* ev,
-                              float* partial, unsigned long long* keys, unsigned* counters, float* out, int H, int W,
+// One image: the batch of one.
+int tpuslam_component_moments(const int* labels, const float* mag, const unsigned char* support,
+                              const long long* roots, float* partial, unsigned* counters, float* out, int H, int W,
                               int K, int blocks, int ipw, int* n_launches, void* stream) {
+  return tpuslam_component_moments_batch(labels, mag, support, roots, partial, counters, out, 1, H, W, K, blocks,
+                                         ipw, n_launches, stream);
+}
+
+// The same planes and roots, cx (B, K), cy (B, K), ev (B, K, 2) float32 ->
+// out (B, 3, K): t_min, t_max, sn2. partial holds B (blocks + groups) * K
+// floats, keys B (blocks + groups) * 2 * K 64-bit words; the rest as
+// tpuslam_component_moments_batch.
+int tpuslam_component_extents_batch(const int* labels, const float* mag, const unsigned char* support,
+                                    const long long* roots, const float* cx, const float* cy, const float* ev,
+                                    float* partial, unsigned long long* keys, unsigned* counters, float* out, int B,
+                                    int H, int W, int K, int blocks, int ipw, int* n_launches, void* stream) {
   const size_t shared = static_cast<size_t>(K) * (2 * 8 + 4 * 4) + static_cast<size_t>(shared_words(K, 1)) * 4;
-  if (!component_shape(H, W, K, blocks, ipw, shared)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!component_shape(H, W, K, blocks, ipw, shared) || B < 1 || B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(component_extents_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(shared));
   if (err != cudaSuccess) return static_cast<int>(err);
-  component_extents_kernel<<<blocks, kSumThreads, shared, static_cast<cudaStream_t>(stream)>>>(
+  component_extents_kernel<<<dim3(blocks, B), kSumThreads, shared, static_cast<cudaStream_t>(stream)>>>(
       labels, mag, support, roots, cx, cy, ev, partial, keys, counters, out, H * W, W, K, ipw);
   err = cudaGetLastError();
   if (err == cudaSuccess) ++*n_launches;
   return static_cast<int>(err);
 }
 
-// values (V, N) float32, slot (N,) int32 -> out (V, S) float32 (every entry
-// written; items whose slot lies outside [0, S) are skipped), in one block.
-// Refuses V outside [1, 8]. *n_launches is increased by the launches made (1).
-int tpuslam_segment_sums(const float* values, const int* slot, float* out, int N, int V, int S, int* n_launches,
-                         void* stream) {
-  if (N < 1 || V < 1 || V > kMaxColumns || S < 1) return static_cast<int>(cudaErrorInvalidValue);
+// One image: the batch of one.
+int tpuslam_component_extents(const int* labels, const float* mag, const unsigned char* support,
+                              const long long* roots, const float* cx, const float* cy, const float* ev,
+                              float* partial, unsigned long long* keys, unsigned* counters, float* out, int H, int W,
+                              int K, int blocks, int ipw, int* n_launches, void* stream) {
+  return tpuslam_component_extents_batch(labels, mag, support, roots, cx, cy, ev, partial, keys, counters, out, 1,
+                                         H, W, K, blocks, ipw, n_launches, stream);
+}
+
+// values (B, V, N) float32, slot (B, N) int32 -> out (B, V, S) float32
+// (every entry written; items whose slot lies outside [0, S) are skipped),
+// in one launch of B blocks, one per batch entry, each summing as the
+// single call's one block does. Refuses V outside [1, 8] and B outside
+// [1, 65535]. *n_launches is increased by the launches made (1).
+int tpuslam_segment_sums_batch(const float* values, const int* slot, float* out, int B, int N, int V, int S,
+                               int* n_launches, void* stream) {
+  if (N < 1 || V < 1 || V > kMaxColumns || S < 1 || B < 1 || B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int threads = S < 1024 ? (S + kWarp - 1) / kWarp * kWarp : 1024;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (V) {  // the columns as a template argument: the sums stay in registers
-    case 1: segment_sums_kernel<1><<<1, threads, 0, st>>>(values, slot, out, N, S); break;
-    case 2: segment_sums_kernel<2><<<1, threads, 0, st>>>(values, slot, out, N, S); break;
-    case 3: segment_sums_kernel<3><<<1, threads, 0, st>>>(values, slot, out, N, S); break;
-    case 4: segment_sums_kernel<4><<<1, threads, 0, st>>>(values, slot, out, N, S); break;
-    case 5: segment_sums_kernel<5><<<1, threads, 0, st>>>(values, slot, out, N, S); break;
-    case 6: segment_sums_kernel<6><<<1, threads, 0, st>>>(values, slot, out, N, S); break;
-    case 7: segment_sums_kernel<7><<<1, threads, 0, st>>>(values, slot, out, N, S); break;
-    default: segment_sums_kernel<8><<<1, threads, 0, st>>>(values, slot, out, N, S); break;
+    case 1: segment_sums_kernel<1><<<B, threads, 0, st>>>(values, slot, out, N, S); break;
+    case 2: segment_sums_kernel<2><<<B, threads, 0, st>>>(values, slot, out, N, S); break;
+    case 3: segment_sums_kernel<3><<<B, threads, 0, st>>>(values, slot, out, N, S); break;
+    case 4: segment_sums_kernel<4><<<B, threads, 0, st>>>(values, slot, out, N, S); break;
+    case 5: segment_sums_kernel<5><<<B, threads, 0, st>>>(values, slot, out, N, S); break;
+    case 6: segment_sums_kernel<6><<<B, threads, 0, st>>>(values, slot, out, N, S); break;
+    case 7: segment_sums_kernel<7><<<B, threads, 0, st>>>(values, slot, out, N, S); break;
+    default: segment_sums_kernel<8><<<B, threads, 0, st>>>(values, slot, out, N, S); break;
   }
   const cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess) ++*n_launches;
   return static_cast<int>(err);
+}
+
+// values (V, N) float32, slot (N,) int32 -> out (V, S): the batch of one.
+int tpuslam_segment_sums(const float* values, const int* slot, float* out, int N, int V, int S, int* n_launches,
+                         void* stream) {
+  return tpuslam_segment_sums_batch(values, slot, out, 1, N, V, S, n_launches, stream);
 }
 
 // The replaced form: values (V, N) float32, slot (N,) int32 -> out (V, S)

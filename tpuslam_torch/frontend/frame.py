@@ -10,6 +10,17 @@ goes to the device) or from the device (the in-program resize: a mild
 Gaussian, then the antialiased linear resize of ``jax.image.resize``).
 With radtan distortion (``dist`` and ``cam``) detection runs on the
 distorted image and the segment geometry is undistorted afterwards.
+
+:func:`extract_features` also takes a (B, H, W) batch of images of one
+shape (``tpuslam/parallel/multi_seq.py`` batched_extract vmaps the JAX
+extractor over them): the kernels run batched, one set of launches for the
+batch, and the eager steps between them carry the leading axis (the
+detector and the LBD pooling written for it, the level merge through
+``torch.func.vmap``, which cannot pass through the ctypes kernels but needs
+none inside it). The pyramid's resize and the LBD's band sums are matrix
+products, which run per image (cuBLAS rounds a batched product unlike its
+single ones). Every field of the result then carries the B axis, each
+image's equal to its own call's, on the CPU and on the card.
 """
 
 from __future__ import annotations
@@ -21,7 +32,15 @@ import numpy as np
 import torch
 
 from tpuslam_torch.geometry.camera import Distortion, Intrinsics, undistort_pixels
-from tpuslam_torch.kernels.image import build_pyramid, gaussian_blur, gradients_xy, resize_linear, sqrt_rn
+from tpuslam_torch.kernels.image import (
+    build_pyramid,
+    gaussian_blur,
+    gaussian_blur_batch,
+    gradients_xy,
+    gradients_xy_batch,
+    resize_linear,
+    sqrt_rn,
+)
 from tpuslam_torch.kernels.lbd import LBDParams, lbd_descriptors
 from tpuslam_torch.kernels.lsd import DetectedLines, LSDParams, detect_lines, topk_stable
 from tpuslam_torch.kernels.match import (
@@ -159,30 +178,39 @@ def _undistort_feature_geometry(feats: FrameFeatures, cam: Intrinsics, dist: Dis
 def resize_to_base_scale(img: torch.Tensor, params: FrontendParams) -> torch.Tensor:
     """The in-program resize: a Gaussian of sigma 0.5 (1 / s - 1) (a mild
     antialias: at s = 0.5 the blur kernel at radius 2), then the antialiased
-    linear resize to (max(16, round(H s)), max(16, round(W s)))."""
-    H, W = img.shape
+    linear resize to (max(16, round(H s)), max(16, round(W s))). An (H, W)
+    image or a (B, H, W) batch."""
+    H, W = img.shape[-2:]
     s = params.base_scale
     bh, bw = max(16, int(round(H * s))), max(16, int(round(W * s)))
-    return resize_linear(gaussian_blur(img, 0.5 * (1.0 / s - 1.0)), (bh, bw))
+    blur = gaussian_blur_batch if img.dim() == 3 else gaussian_blur
+    return resize_linear(blur(img, 0.5 * (1.0 / s - 1.0)), (bh, bw))
 
 
 def extract_features(img: torch.Tensor, params: FrontendParams = FrontendParams()) -> FrameFeatures:
-    """(H, W) float32 image in [0, 1] -> FrameFeatures, on the image's device.
-    With ``prescaled`` the image is already at ``base_scale`` of the frame;
+    """(H, W) float32 image in [0, 1] -> FrameFeatures, on the image's device;
+    a (B, H, W) batch -> FrameFeatures whose fields lead with B. With
+    ``prescaled`` the image is already at ``base_scale`` of the frame;
     without it a ``base_scale`` below 1 resizes it here."""
     if not params.dist.is_zero and params.cam is None:
         raise ValueError("FrontendParams.cam required when distortion is set")
+    batched = img.dim() == 3
     if params.base_scale != 1.0 and not params.prescaled:
         img = resize_to_base_scale(img, params)
+    grads = gradients_xy_batch if batched else gradients_xy
     per_level = []
     for lim in build_pyramid(img, params.n_levels, params.scale):
         det: DetectedLines = detect_lines(lim, params.max_lines, params.lsd)
-        gx, gy = gradients_xy(lim, 255.0)
+        gx, gy = grads(lim, 255.0)
         desc, bits = lbd_descriptors(gx, gy, det.endpoints, params.lbd)
         per_level.append((det, desc, bits))
-    feats = _merge_levels(per_level, params)
+    if batched:
+        feats = torch.func.vmap(lambda pl: _merge_levels(pl, params))(per_level)
+    else:
+        feats = _merge_levels(per_level, params)
     if not params.dist.is_zero:
-        feats = _undistort_feature_geometry(feats, params.cam, params.dist)
+        undistort = lambda f: _undistort_feature_geometry(f, params.cam, params.dist)  # noqa: E731
+        feats = torch.func.vmap(undistort)(feats) if batched else undistort(feats)
     return feats
 
 
@@ -231,5 +259,8 @@ def stereo_line_depths(
     min_ang = float(np.float32(near_horizontal_deg) * np.float32(np.pi / 180))
     steepf = (ang > min_ang).to(torch.float32)
     okf = m.valid * disp_okf * steepf
-    depth = okf[:, None] * float(np.float32(fx_baseline)) / torch.clamp(disp, min=1e-6)
+    # fx_baseline: a number, or a sequence's entry of a batch's (N,) tensor
+    # under vmap (parallel.multi_seq.batched_stereo)
+    fxb = fx_baseline if isinstance(fx_baseline, torch.Tensor) else float(np.float32(fx_baseline))
+    depth = okf[:, None] * fxb / torch.clamp(disp, min=1e-6)
     return left._replace(depth=depth, has_depth=okf)

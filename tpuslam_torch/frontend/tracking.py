@@ -21,7 +21,13 @@ point landmarks made at keyframes). Every form of the JAX tracker runs:
   as it stood after frame k - 3's resolve, as in the JAX package. A chunk
   (full detection on every frame, or semi-direct with ``semidirect``: full
   frame on the anchor, template alignment on the followers, keyframes from
-  anchors only) is dispatched when it fills and resolves the previous chunk.
+  anchors only) is dispatched when it fills and resolves the previous chunk
+  (the JAX tracker dispatches it when the next one fills, after the same
+  resolves: the same map). At the final flush the JAX tracker resolves the
+  previous chunk before it dispatches the last full one; where that
+  resolve changed the map or dropped the pose chain, the port dispatches
+  the last full chunk again against the map the JAX package gives it
+  (``flush_frames``).
   A resolve reads the frame's packed row once, keeps the host's pose and
   velocity, falls back where a frame was rejected, and begins a keyframe
   that the next dispatch or resolve finishes. Results lag; ``flush_all``
@@ -291,8 +297,6 @@ class Tracker:
         self._plocal_dev = None
         self.on_new_keyframe = None  # callback(kf), installed by System
         self.mono_init: Optional[MonoInitializer] = None  # the two-view bootstrap (mono), made at first use
-        # the synchronous path's pose LM settings (set per frame by _track)
-        self._pose_opt = self.cfg.pose_opt
         self.kf_db = None  # KeyFrameDatabase for relocalization (System)
         self.n_relocalizations = 0
         # pipelined state
@@ -316,6 +320,11 @@ class Tracker:
         self.n_sync_extractions = 0
         self.lagged_frames: List[int] = []
         self.fallback_frames: List[int] = []
+        # the program frames (as anchor_frames counts them) of a last full
+        # chunk dispatched again at the final flush, against the map after
+        # the previous chunk's resolve
+        self.flush_frames: List[int] = []
+        self._last_chunk = None  # (entries, seed chain) of the newest chunk dispatched
 
     # ---- public API ----------------------------------------------------
     def track_stereo(self, img_left: np.ndarray, img_right: np.ndarray, timestamp: float) -> Optional[FrameResult]:
@@ -430,15 +439,6 @@ class Tracker:
     def _use_semidirect(self) -> bool:
         return self.cfg.semidirect is not None and self._chunk_size() > 1
 
-    def _fused_pose_opt(self) -> PoseOptConfig:
-        """The pose LM settings of the single-frame and full-detection chunk
-        programs: the JAX package's IRLS formula (one Huber weight per
-        residual family, ``PoseOptConfig.family_weights``), which its fused
-        programs share with the rest of its pose LMs. The synchronous stereo
-        path and the semi-direct anchor keep one weight per observation
-        (ROADMAP.md section 3)."""
-        return self.cfg.pose_opt._replace(family_weights=True)
-
     def _align_params(self) -> DirectAlignParams:
         fe = self.cfg.frontend
         return inject_coord_scale_align(self.cfg.semidirect, fe.base_scale, fe.prescaled)
@@ -510,12 +510,15 @@ class Tracker:
         if self.state != TrackingState.OK:
             self._relocalize_inflight()
 
-    def _chunk_compute(self, buf: list):
+    def _chunk_compute(self, buf: list, again: bool = False):
         """Dispatch the chunk program for ``buf`` (C entries; frame index -1
         marks flush padding, which the device tracks and the host discards),
         queue one view per real frame, then resolve everything older than
         this chunk. Semi-direct chunks go to the device as [L0, R0, L1, ...,
-        L_{C-1}], full-detection chunks as (C, 2, H, W) pairs."""
+        L_{C-1}], full-detection chunks as (C, 2, H, W) pairs. ``again``: the
+        final flush dispatches the last full chunk a second time
+        (:meth:`_flush_last_chunk`); its program frames go to
+        ``flush_frames``."""
         self._finish_pending_kf()  # the newest map before the snapshot
         c = self.cfg
         semi = self._use_semidirect()
@@ -525,15 +528,17 @@ class Tracker:
             frames = np.stack([np.stack([b[2], b[3]]) for b in buf])
         frames_dev = self._to_device(frames)
         T0, T1 = self._seed_chain()
+        self._last_chunk = (buf, (T0, T1))
+        program_frames = self.flush_frames if again else self.anchor_frames
         local = self._local_map_arrays()
         lids, lvalid = self._local_ids.copy(), self._local_valid.copy()
         plids = plvalid = None
         if not semi:
             out = fused_stereo_chunk(
                 frames_dev, T0, T1, local, self._fxb, self.cam, c.frontend, c.search_coarse, c.search_fine,
-                self._fused_pose_opt(), c.min_track_inliers, self._direct_lines(),
+                c.pose_opt, c.min_track_inliers, self._direct_lines(),
             )
-            self.anchor_frames.extend(b[0] for b in buf)
+            program_frames.extend(b[0] for b in buf)
         elif c.points is not None:
             plocal = self._point_local_arrays()
             plids, plvalid = self._plocal_ids.copy(), self._plocal_valid.copy()
@@ -542,13 +547,13 @@ class Tracker:
                 c.search_coarse, c.search_fine, c.pose_opt, c.min_track_inliers, self._direct_lines(),
                 self._direct_points(), c.points, self._align_params(),
             )
-            self.anchor_frames.append(buf[0][0])
+            program_frames.append(buf[0][0])
         else:
             out = fused_stereo_semidirect(
                 frames_dev, T0, T1, local, self._fxb, self.cam, c.frontend,
                 c.search_coarse, c.search_fine, c.pose_opt, c.min_track_inliers, self._direct_lines(), self._align_params(),
             )
-            self.anchor_frames.append(buf[0][0])
+            program_frames.append(buf[0][0])
         self._dev_chain = (out.T_last, out.T_prevlast)
         cache: dict = {}
         for i, (fidx, fts, il, ir) in enumerate(buf):
@@ -582,7 +587,7 @@ class Tracker:
         else:
             out = fused_stereo_frame(
                 pair_dev, T0, T1, local, self._fxb, self.cam, c.frontend, c.stereo, c.search_coarse, c.search_fine,
-                self._fused_pose_opt(), c.min_track_inliers, sd=self._direct_lines(),
+                c.pose_opt, c.min_track_inliers, sd=self._direct_lines(),
             )
         self.anchor_frames.append(fidx)
         self._dev_chain = (out.T_last, out.T_prevlast)
@@ -667,10 +672,40 @@ class Tracker:
         if self._fuse_queue:
             self._relocalize_inflight()
 
+    def _flush_last_chunk(self):
+        """The final flush's order for the last full chunk (ROADMAP.md
+        section 3, fault 3.3). The JAX tracker dispatches a full chunk when
+        the next one fills, so at the flush the last full chunk is still
+        waiting: it resolves the previous chunk first (finishing its
+        keyframe) and dispatches the last one after, against that map. The
+        port dispatched it when it filled, before that resolve. Where the
+        resolve changed the map (a keyframe, a mapper update, the fallback)
+        or dropped the device pose chain, the chunk is dispatched again here,
+        seeded from the chain the previous chunk left (or from the host's
+        pose, as the JAX tracker seeds it once the chain is dropped)."""
+        last, self._last_chunk = self._last_chunk, None
+        if last is None or self._chunk_size() < 2:
+            return
+        buf, seed = last
+        mine = {b[0] for b in buf if b[0] >= 0}
+        while self._fuse_queue and self._fuse_queue[0][0] not in mine and self.state == TrackingState.OK:
+            self._resolve_fused_one()
+        self._finish_pending_kf()
+        if self.state != TrackingState.OK or not self._fuse_queue:
+            return
+        point_map_changed = self.cfg.points is not None and self._plocal_dirty
+        if not (self._local_dirty or point_map_changed or self._dev_chain is None):
+            return  # the map and the chain are the ones the chunk was dispatched with
+        self._fuse_queue.clear()  # its views of the first dispatch
+        if self._dev_chain is not None:
+            self._dev_chain = seed
+        self._chunk_compute(buf, again=True)
+
     def _drain_fused(self):
         """Complete every buffered and in-flight frame (a pipeline transition
         or the final flush)."""
         self._finish_pending_kf()
+        self._flush_last_chunk()
         self._resolve_fused()
         if self._up_pending is not None:
             up, self._up_pending = self._up_pending, None
@@ -709,17 +744,10 @@ class Tracker:
         self._finish_pending_kf()  # nothing stays in flight past a drain
 
     # ---- core ----------------------------------------------------------
-    def _pose_opt_for(self, stereo: bool):
-        """The pose LM settings of a frame: mono takes the JAX package's IRLS
-        formula for lines too (``PoseOptConfig.family_weights``,
-        backend/pose_opt.py)."""
-        return self.cfg.pose_opt if stereo else self.cfg.pose_opt._replace(family_weights=True)
-
     def _track(self, feats: FrameFeatures, timestamp: float, stereo: bool = True) -> Optional[FrameResult]:
         """Track one frame's features; ``stereo`` False for a monocular frame
         (features without depth). The classic pipeline returns the previous
         frame's result (None on its first frame)."""
-        self._pose_opt = self._pose_opt_for(stereo)
         if self.state == TrackingState.NOT_INITIALIZED:
             self.sync_frames.append(self.frame_idx)
             ok = self._initialize(feats, timestamp) if stereo else self._initialize_mono(feats, timestamp)
@@ -749,11 +777,11 @@ class Tracker:
         local = self._local_map_arrays()
         coarse = tracked_pose_step(
             self._pose_tensor(T_pred), local["plucker"], local["ep3d"], local["bits"], local["valid"],
-            feats, self.cam, self.cfg.search_coarse, self._pose_opt,
+            feats, self.cam, self.cfg.search_coarse, self.cfg.pose_opt,
         )
         fine = tracked_pose_step(
             coarse.pose, local["plucker"], local["ep3d"], local["bits"], local["valid"],
-            feats, self.cam, self.cfg.search_fine, self._pose_opt,
+            feats, self.cam, self.cfg.search_fine, self.cfg.pose_opt,
         )
         # what the resolve reads, in one row it reads once: pose (16),
         # n_matched, n_inliers and the frame's depth count
@@ -767,9 +795,10 @@ class Tracker:
         return prev_result
 
     def _resolve_pending(self, fidx, timestamp, feats, fine, stereo, lids, lvalid, packed) -> FrameResult:
-        """The classic pipeline's resolve: accept the frame and make its
-        keyframe, or go LOST (the pose and the map stay; no fallback)."""
-        packed = packed.cpu().numpy()
+        """The classic pipeline's resolve (and ``MultiTracker``'s, with a
+        numpy row of the batch it read at once): accept the frame and make
+        its keyframe, or go LOST (the pose and the map stay; no fallback)."""
+        packed = _np(packed)
         n_matches, n_inliers, n_depth = int(packed[16]), int(packed[17]), int(packed[18])
         made_kf = False
         if n_inliers >= self.cfg.min_track_inliers:
@@ -806,11 +835,11 @@ class Tracker:
         else:
             coarse = tracked_pose_step(
                 self._pose_tensor(T_pred), local["plucker"], local["ep3d"], local["bits"], local["valid"],
-                feats, self.cam, self.cfg.search_coarse, self._pose_opt,
+                feats, self.cam, self.cfg.search_coarse, self.cfg.pose_opt,
             )
             fine = tracked_pose_step(
                 coarse.pose, local["plucker"], local["ep3d"], local["bits"], local["valid"],
-                feats, self.cam, self.cfg.search_fine, self._pose_opt,
+                feats, self.cam, self.cfg.search_fine, self.cfg.pose_opt,
             )
         n_matches = int(fine.num_matched)
         n_inliers = int(fine.num_inliers)
@@ -1104,7 +1133,7 @@ class Tracker:
         T0 = self.last_T_cw if self.last_T_cw is not None else self.T_cw
         res = tracked_pose_step(
             self._pose_tensor(T0), arrays["plucker"], arrays["ep3d"], arrays["bits"], arrays["valid"],
-            feats, self.cam, self.cfg.search_coarse._replace(radius=1e6), self._pose_opt,
+            feats, self.cam, self.cfg.search_coarse._replace(radius=1e6), self.cfg.pose_opt,
         )
         if int(res.num_inliers) < self.cfg.min_track_inliers:
             return None
@@ -1146,12 +1175,12 @@ class Tracker:
             if use_hybrid:
                 # corners carry the pose where lines are sparse
                 res = tracked_pose_step_hybrid(
-                    T0, arrays, plocal, feats, pf, self.cam, wide, self.cfg.points._replace(radius=1e6), self._pose_opt
+                    T0, arrays, plocal, feats, pf, self.cam, wide, self.cfg.points._replace(radius=1e6), self.cfg.pose_opt
                 )
             else:
                 res = tracked_pose_step(
                     T0, arrays["plucker"], arrays["ep3d"], arrays["bits"], arrays["valid"], feats, self.cam, wide,
-                    self._pose_opt,
+                    self.cfg.pose_opt,
                 )
             if int(res.num_inliers) < self.cfg.min_track_inliers:
                 # the matches do not depend on the pose, but LM from a distant
@@ -1180,7 +1209,7 @@ class Tracker:
             return None
         return tracked_pose_step(
             T_dlt, arrays["plucker"], arrays["ep3d"], arrays["bits"], arrays["valid"],
-            feats, self.cam, self.cfg.search_coarse, self._pose_opt,
+            feats, self.cam, self.cfg.search_coarse, self.cfg.pose_opt,
         )
 
     # ---- local map ------------------------------------------------------

@@ -59,7 +59,20 @@ def _line_projection_matrix(cam: Intrinsics, device: str) -> torch.Tensor:
 def line_projection_matrix(cam: Intrinsics, device=None) -> torch.Tensor:
     """K_L such that l = K_L @ n_c projects the line moment to image-line
     coeffs (one copy per camera and device, built once: the tracking loop
-    asks for it every LM iteration). Do not modify the returned tensor."""
+    asks for it every LM iteration). Do not modify the returned tensor.
+
+    A camera whose fields are tensors (one sequence's row of a batch of
+    calibrations, ``parallel.multi_seq.cam_batch``, under ``torch.func.vmap``)
+    gets its matrix built from them, the products in float32 as the JAX
+    package forms them under its vmap."""
+    if isinstance(cam.fx, torch.Tensor):
+        fx, fy, cx, cy = cam.fx, cam.fy, cam.cx, cam.cy
+        zero = torch.zeros_like(fx)
+        return torch.stack([
+            torch.stack([fy, zero, zero]),
+            torch.stack([zero, fx, zero]),
+            torch.stack([-fy * cx, -fx * cy, fx * fy]),
+        ])
     return _line_projection_matrix(cam, str(torch.device("cpu") if device is None else torch.device(device)))
 
 

@@ -182,8 +182,12 @@ class FrameObservations(NamedTuple):
     pt_visible: np.ndarray  # (Q,) bool — in front & in image
 
 
-def observe_frame(scene: SyntheticScene, frame: int, min_z: float = 0.2, margin: float = 0.0) -> FrameObservations:
-    """Projected segments and points of one frame (no noise)."""
+def observe_frame(
+    scene: SyntheticScene, frame: int, min_z: float = 0.2, margin: float = 0.0, *, noise_px: float = 0.0,
+    rng: np.random.Generator | None = None,
+) -> FrameObservations:
+    """Projected segments and points of one frame, with Gaussian pixel noise
+    of ``noise_px`` from ``rng`` (the JAX package's draws, in its order)."""
     cam = scene.cam
     T = scene.poses[frame]
     R, t = T[:3, :3], T[:3, 3]
@@ -209,12 +213,78 @@ def observe_frame(scene: SyntheticScene, frame: int, min_z: float = 0.2, margin:
         )
 
     pt_uv, pt_z = project(scene.points)
+    seg_uv = np.stack([p_uv, q_uv], axis=1)
+    seg_visible = (p_z > min_z) & (q_z > min_z) & in_image(p_uv) & in_image(q_uv)
+    pt_visible = (pt_z > min_z) & in_image(pt_uv)
+    if noise_px > 0:
+        seg_uv = seg_uv + rng.normal(size=seg_uv.shape) * noise_px
+        pt_uv = pt_uv + rng.normal(size=pt_uv.shape) * noise_px
     return FrameObservations(
-        seg_uv=np.stack([p_uv, q_uv], axis=1).astype(np.float32),
-        seg_visible=(p_z > min_z) & (q_z > min_z) & in_image(p_uv) & in_image(q_uv),
+        seg_uv=seg_uv.astype(np.float32),
+        seg_visible=seg_visible,
         pt_uv=pt_uv.astype(np.float32),
-        pt_visible=(pt_z > min_z) & in_image(pt_uv),
+        pt_visible=pt_visible,
     )
+
+
+def synthetic_frame_features(
+    scene: SyntheticScene,
+    frame: int,
+    capacity: int = 256,
+    noise_px: float = 0.0,
+    rng: np.random.Generator | None = None,
+    with_depth: bool = False,
+    desc_seed: int = 1234,
+    device="cuda",
+):
+    """Detector-bypassing FrameFeatures (the JAX package's, draw for draw):
+    the projected ground-truth segments with identity-stable binary
+    descriptors (segment s always hashes to the same 256 bits), so matching
+    is exact and the tracking stages can run on their own. Returns
+    (FrameFeatures on ``device``, the visible segment ids)."""
+    import torch
+
+    from tpuslam_torch.device import resolve_device
+    from tpuslam_torch.frontend.frame import FrameFeatures
+
+    dev = resolve_device(device)
+    obs = observe_frame(scene, frame, noise_px=noise_px, rng=rng)
+    S = scene.segments.shape[0]
+    drs = np.random.RandomState(desc_seed)
+    all_bits = drs.randint(0, 2**32, size=(S, 8), dtype=np.uint64).astype(np.uint32)
+    all_desc = drs.standard_normal((S, 72)).astype(np.float32)
+    vis = np.nonzero(obs.seg_visible)[0][:capacity]
+    n = len(vis)
+    K = capacity
+    ep = np.zeros((K, 2, 2), np.float32)
+    valid = np.zeros(K, np.float32)
+    angle = np.zeros(K, np.float32)
+    length = np.zeros(K, np.float32)
+    mid = np.zeros((K, 2), np.float32)
+    desc = np.zeros((K, 72), np.float32)
+    bits = np.zeros((K, 8), np.int64)
+    depth = np.zeros((K, 2), np.float32)
+    has_depth = np.zeros(K, np.float32)
+    ep[:n] = obs.seg_uv[vis]
+    valid[:n] = 1.0
+    d = ep[:n, 1] - ep[:n, 0]
+    angle[:n] = np.arctan2(d[:, 1], d[:, 0])
+    length[:n] = np.linalg.norm(d, axis=-1)
+    mid[:n] = ep[:n].mean(axis=1)
+    desc[:n] = all_desc[vis]
+    bits[:n] = all_bits[vis]
+    if with_depth:
+        T = scene.poses[frame]
+        seg_c = scene.segments @ T[:3, :3].T + T[:3, 3]
+        depth[:n] = seg_c[vis][:, :, 2]
+        has_depth[:n] = np.all(depth[:n] > 0.1, axis=-1).astype(np.float32)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    feats = FrameFeatures(
+        endpoints=t(ep), valid=t(valid), angle=t(angle), length=t(length), midpoint=t(mid), response=t(length.copy()),
+        level=t(np.zeros(K, np.int32)), sigma=t(np.ones(K, np.float32)), desc=t(desc), desc_bits=t(bits),
+        depth=t(depth), has_depth=t(has_depth),
+    )
+    return feats, vis
 
 
 def _draw_line_aa(img: np.ndarray, p, q, color: float, thickness: int) -> None:

@@ -125,6 +125,16 @@ def library() -> ctypes.CDLL:
     lib.tpuslam_component_extents.restype = I
     lib.tpuslam_segment_sums.argtypes = [P, P, P, I, I, I, IP, P]
     lib.tpuslam_segment_sums.restype = I
+    # the batched forms: B images of one shape per launch (a B after the pointers)
+    lib.tpuslam_gradients_xy_batch.argtypes = [P, P, P, I, I, I, F, P]
+    lib.tpuslam_blur_batch.argtypes = [P, P, I, I, I, P, I, IP, P]
+    lib.tpuslam_lsd_front_batch.argtypes = [P, P, P, P, P, P, I, I, I, P, I, F, F, I, I, IP, P]
+    lib.tpuslam_ccl_batch.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, I, IP, P]
+    lib.tpuslam_component_moments_batch.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, IP, P]
+    lib.tpuslam_component_extents_batch.argtypes = [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, IP, P]
+    lib.tpuslam_segment_sums_batch.argtypes = [P, P, P, I, I, I, I, IP, P]
+    for name in BATCH_ENTRY_POINTS:
+        getattr(lib, name).restype = I
     lib.tpuslam_error_string.argtypes = [I]
     lib.tpuslam_error_string.restype = ctypes.c_char_p
     return lib
@@ -141,6 +151,12 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+BATCH_ENTRY_POINTS = (
+    "tpuslam_gradients_xy_batch", "tpuslam_blur_batch", "tpuslam_lsd_front_batch", "tpuslam_ccl_batch",
+    "tpuslam_component_moments_batch", "tpuslam_component_extents_batch", "tpuslam_segment_sums_batch",
+)
+
+
 def require_plane(t: torch.Tensor, dtype: torch.dtype, name: str) -> None:
     """Raise unless ``t`` is a contiguous 2-D CUDA tensor of ``dtype``."""
     if t.device.type != "cuda":
@@ -151,6 +167,30 @@ def require_plane(t: torch.Tensor, dtype: torch.dtype, name: str) -> None:
         raise ValueError(f"{name}: expected a contiguous (H, W) tensor, got {tuple(t.shape)}")
     if t.numel() >= 2**31:
         raise ValueError(f"{name}: {t.numel()} elements exceed the kernels' int32 sizes")
+
+
+def require_batch(t: torch.Tensor, dtype: torch.dtype, name: str) -> None:
+    """Raise unless ``t`` is a contiguous (B, H, W) CUDA tensor of ``dtype``
+    with B >= 1 (the batched kernels' grid holds B images) whose B H W
+    elements fit the kernels' int32 sizes."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.dim() != 3 or not t.is_contiguous() or not 1 <= t.shape[0] <= 65535:
+        raise ValueError(f"{name}: expected a contiguous (B, H, W) tensor, 1 <= B <= 65535, got {tuple(t.shape)}")
+    if t.numel() >= 2**31:
+        raise ValueError(f"{name}: {t.numel()} elements exceed the kernels' int32 sizes")
+
+
+def image_batch(t: torch.Tensor, dtype: torch.dtype, name: str, batched: bool):
+    """(B, H, W) of a kernel's input after :func:`require_batch` (``batched``)
+    or :func:`require_plane` (an (H, W) plane is the batch of one)."""
+    if batched:
+        require_batch(t, dtype, name)
+        return tuple(t.shape)
+    require_plane(t, dtype, name)
+    return (1, *t.shape)
 
 
 def on_card(t: torch.Tensor) -> bool:

@@ -5,9 +5,14 @@ wrappers: :func:`gaussian_blur`, :func:`image_gradients` and
 :func:`gradients_xy` launch the CUDA kernels of ``csrc/image.cu`` on a CUDA
 tensor and run their plain PyTorch versions (:func:`gaussian_blur_torch`,
 :func:`image_gradients_torch`, :func:`gradients_xy_torch`) on a CPU tensor.
-``LAUNCHES`` counts the kernel calls made on the card, ``KERNEL_LAUNCHES``
-the device launches of those calls (one per call); both gradient forms
-count under "gradients". The ``_*_cuda`` functions launch without counting.
+:func:`gaussian_blur_batch` and :func:`gradients_xy_batch` take a batch of
+images of one shape, (B, H, W), in one launch of the same kernels (each
+image bit for bit its single call); their plain versions run the single
+plain version per image. ``LAUNCHES`` counts the kernel calls made on the
+card, ``KERNEL_LAUNCHES`` the device launches of those calls (one per
+call); both gradient forms count under "gradients", the batched forms under
+"blur_batch" and "gradients_batch". The ``_*_cuda`` functions launch
+without counting.
 """
 
 from __future__ import annotations
@@ -23,8 +28,8 @@ import torch.nn.functional as F
 from tpuslam_torch.kernels import cuda_lib
 
 # kernel calls made on the card, by kernel, and their device launches
-LAUNCHES = {"blur": 0, "gradients": 0}
-KERNEL_LAUNCHES = {"blur": 0, "gradients": 0}
+LAUNCHES = {"blur": 0, "gradients": 0, "blur_batch": 0, "gradients_batch": 0}
+KERNEL_LAUNCHES = dict(LAUNCHES)
 
 
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
@@ -63,14 +68,15 @@ def _blur_host_taps(img: torch.Tensor, sigma: float) -> np.ndarray:
     return np.ascontiguousarray(_blur_taps(sigma).numpy())
 
 
-def _blur_cuda(img: torch.Tensor, sigma: float):
-    """(blurred plane, device launches made)."""
-    taps = _blur_host_taps(img, sigma)
-    H, W = img.shape
+def _blur_cuda(img: torch.Tensor, sigma: float, batched: bool = False):
+    """(blurred plane, device launches made) of an (H, W) image; ``batched``,
+    of each image of a (B, H, W) batch in the same launch."""
+    B, H, W = cuda_lib.image_batch(img, torch.float32, "gaussian_blur", batched)
+    taps = np.ascontiguousarray(_blur_taps(sigma).numpy())
     out = torch.empty_like(img)
     n = ctypes.c_int(0)
-    code = cuda_lib.library().tpuslam_blur(
-        img.data_ptr(), out.data_ptr(), H, W, taps.ctypes.data, taps.size, ctypes.byref(n), cuda_lib.stream_of(img)
+    code = cuda_lib.library().tpuslam_blur_batch(
+        img.data_ptr(), out.data_ptr(), B, H, W, taps.ctypes.data, taps.size, ctypes.byref(n), cuda_lib.stream_of(img)
     )
     cuda_lib.check(code, "gaussian_blur")
     return out, n.value
@@ -101,6 +107,23 @@ def gaussian_blur(img: torch.Tensor, sigma: float) -> torch.Tensor:
         KERNEL_LAUNCHES["blur"] += n
         return out
     return gaussian_blur_torch(img, sigma)
+
+
+def gaussian_blur_batch_torch(imgs: torch.Tensor, sigma: float) -> torch.Tensor:
+    """Plain version of :func:`gaussian_blur_batch`: each image's plain blur."""
+    return torch.stack([gaussian_blur_torch(im, sigma) for im in imgs])
+
+
+def gaussian_blur_batch(imgs: torch.Tensor, sigma: float) -> torch.Tensor:
+    """:func:`gaussian_blur` of each image of a (B, H, W) float32 batch, in
+    one kernel launch on a CUDA tensor (each image bit for bit its single
+    call), the plain version on a CPU tensor."""
+    if cuda_lib.on_card(imgs):
+        out, n = _blur_cuda(imgs, sigma, batched=True)
+        LAUNCHES["blur_batch"] += 1
+        KERNEL_LAUNCHES["blur_batch"] += n
+        return out
+    return gaussian_blur_batch_torch(imgs, sigma)
 
 
 def _central_differences(img: torch.Tensor):
@@ -153,12 +176,11 @@ def gradients_xy_torch(img: torch.Tensor, scale: float):
     return _central_differences(img * scale)
 
 
-def _gradients_xy_cuda(img: torch.Tensor, scale: float):
-    cuda_lib.require_plane(img, torch.float32, "gradients_xy")
-    H, W = img.shape
+def _gradients_xy_cuda(img: torch.Tensor, scale: float, batched: bool = False):
+    B, H, W = cuda_lib.image_batch(img, torch.float32, "gradients_xy", batched)
     gx, gy = torch.empty_like(img), torch.empty_like(img)
-    code = cuda_lib.library().tpuslam_gradients_xy(
-        img.data_ptr(), gx.data_ptr(), gy.data_ptr(), H, W, scale, cuda_lib.stream_of(img)
+    code = cuda_lib.library().tpuslam_gradients_xy_batch(
+        img.data_ptr(), gx.data_ptr(), gy.data_ptr(), B, H, W, scale, cuda_lib.stream_of(img)
     )
     cuda_lib.check(code, "gradients_xy")
     return gx, gy
@@ -176,6 +198,24 @@ def gradients_xy(img: torch.Tensor, scale: float):
         KERNEL_LAUNCHES["gradients"] += 1
         return out
     return gradients_xy_torch(img, scale)
+
+
+def gradients_xy_batch_torch(imgs: torch.Tensor, scale: float):
+    """Plain version of :func:`gradients_xy_batch`: each image's plain form."""
+    gx, gy = zip(*(gradients_xy_torch(im, scale) for im in imgs))
+    return torch.stack(gx), torch.stack(gy)
+
+
+def gradients_xy_batch(imgs: torch.Tensor, scale: float):
+    """:func:`gradients_xy` of each image of a (B, H, W) float32 batch ->
+    (gx, gy), each (B, H, W), in one kernel launch on a CUDA tensor (each
+    image bit for bit its single call), the plain version on a CPU tensor."""
+    if cuda_lib.on_card(imgs):
+        out = _gradients_xy_cuda(imgs, scale, batched=True)
+        LAUNCHES["gradients_batch"] += 1
+        KERNEL_LAUNCHES["gradients_batch"] += 1
+        return out
+    return gradients_xy_batch_torch(imgs, scale)
 
 
 def pyramid_shapes(height: int, width: int, n_levels: int, scale: float = 0.8):
@@ -211,25 +251,33 @@ def _resize_weights(in_size: int, out_size: int, device: str) -> torch.Tensor:
 
 
 def resize_linear(img: torch.Tensor, shape) -> torch.Tensor:
-    """Antialiased linear resize of an (H, W) image, equal to
+    """Antialiased linear resize of an (H, W) image (or a (B, H, W) batch of
+    them, each image through its own two products), equal to
     ``jax.image.resize(img, shape, "linear")`` up to float rounding: two small
     matmuls with the weight matrices of :func:`_resize_weights_np`. The rows
     are contracted first, as XLA:CPU orders JAX's einsum (the lowered program
     holds ``dot_general(w_rows, img)`` and then the product with the column
     weights)."""
-    H, W = img.shape
+    H, W = img.shape[-2:]
     wh = _resize_weights(H, int(shape[0]), str(img.device))
     ww = _resize_weights(W, int(shape[1]), str(img.device))
+    if img.dim() == 3:
+        # one pair of products per image: cuBLAS picks its algorithm (and so
+        # its summation order) by the whole product's shape, so a product
+        # over the batch would round each image unlike its own call
+        return torch.stack([wh.T @ im @ ww for im in img])
     return wh.T @ img @ ww
 
 
 def build_pyramid(img: torch.Tensor, n_levels: int = 2, scale: float = 0.8, blur_sigma: float = 0.6):
     """(H, W) float32 image in [0, 1] -> list of per-level images: a Gaussian
-    of sigma = blur_sigma / scale before each x``scale`` resample."""
-    shapes = pyramid_shapes(img.shape[0], img.shape[1], n_levels, scale)
+    of sigma = blur_sigma / scale before each x``scale`` resample. A (B, H,
+    W) batch gives (B, h, w) levels through the batched blur."""
+    blur = gaussian_blur_batch if img.dim() == 3 else gaussian_blur
+    shapes = pyramid_shapes(img.shape[-2], img.shape[-1], n_levels, scale)
     levels = [img]
     cur = img
     for lvl in range(1, n_levels):
-        cur = resize_linear(gaussian_blur(cur, blur_sigma / scale), shapes[lvl])
+        cur = resize_linear(blur(cur, blur_sigma / scale), shapes[lvl])
         levels.append(cur)
     return levels

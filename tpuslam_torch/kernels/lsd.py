@@ -26,9 +26,19 @@ running its plain PyTorch version on a CPU tensor:
   :func:`segment_moments_torch`. The JAX package has no Pallas kernel for
   these three: XLA fuses them into its reductions.
 
+Each wrapper has a batched form (``*_batch``) that takes B images of one
+shape, (B, H, W) planes and (B, K) roots, in the same launches as one image
+(the kernels' grid spans the batch; each image bit for bit its single
+call); their plain versions run the single plain version per image.
+:func:`detect_lines` and :func:`merge_collinear` take a (B, H, W) batch too:
+the eager steps between the kernels carry the leading axis, so a batch of
+sequences costs one set of launches (tpuslam/parallel/multi_seq.py vmaps
+the JAX detector the same way).
+
 ``LAUNCHES`` counts the kernel calls made on the card, ``KERNEL_LAUNCHES``
 the device launches of those calls, under "lsd_front", "ccl",
-"component_moments", "component_extents" and "segment_moments".
+"component_moments", "component_extents" and "segment_moments", and the
+batched forms under the same names with "_batch".
 
 Three places differ in form from the JAX code, not in result:
 
@@ -54,13 +64,15 @@ import ctypes
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from tpuslam_torch.kernels import cuda_lib, image
 
 SUMS = ("component_moments", "component_extents", "segment_moments")
-LAUNCHES = dict.fromkeys(("lsd_front", "ccl", *SUMS), 0)
-KERNEL_LAUNCHES = dict.fromkeys(("lsd_front", "ccl", *SUMS), 0)
+_NAMES = ("lsd_front", "ccl", *SUMS)
+LAUNCHES = dict.fromkeys((*_NAMES, *(f"{n}_batch" for n in _NAMES)), 0)
+KERNEL_LAUNCHES = dict(LAUNCHES)
 
 # Output tile side of the fused front kernel (csrc/lsd_front.cu): each block
 # reads the edge-clamped (T + 2h) x (T + 2h) window around its T x T tile,
@@ -135,8 +147,9 @@ _OFFSETS = [(-1, -1), (-1, 0), (-1, 1), (0, -1), (0, 1), (1, -1), (1, 0), (1, 1)
 
 
 def _shift(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
-    """Shift a 2-D tensor by (dy, dx) with wrap-around, as ``jnp.roll``."""
-    return torch.roll(x, (dy, dx), dims=(0, 1))
+    """Shift the last two axes of a tensor by (dy, dx) with wrap-around, as
+    ``jnp.roll``."""
+    return torch.roll(x, (dy, dx), dims=(-2, -1))
 
 
 def _compat_masks(compat_bits: torch.Tensor):
@@ -160,28 +173,32 @@ def _ccl_torch(labels: torch.Tensor, maxlab: torch.Tensor, compat_bits: torch.Te
     return lab, mx
 
 
-def _check_ccl_planes(labels, maxlab, compat_bits):
+def _check_ccl_planes(labels, maxlab, compat_bits, batched: bool = False):
+    """(B, H, W) of the planes (B = 1 for (H, W) planes) after the checks."""
     for t, name in ((labels, "labels"), (maxlab, "maxlab"), (compat_bits, "compat_bits")):
-        cuda_lib.require_plane(t, torch.int32, f"ccl_propagate {name}")
+        shape = cuda_lib.image_batch(t, torch.int32, f"ccl_propagate {name}", batched)
     if not (labels.shape == maxlab.shape == compat_bits.shape):
         raise ValueError("ccl_propagate: planes differ in shape")
     if not (labels.device == maxlab.device == compat_bits.device):
         raise ValueError("ccl_propagate: planes on different devices")
+    return shape
 
 
-def _ccl_cuda(labels, maxlab, compat_bits, rounds: int):
-    _check_ccl_planes(labels, maxlab, compat_bits)
-    H, W = labels.shape
+def _ccl_cuda(labels, maxlab, compat_bits, rounds: int, batched: bool = False):
+    """ccl_propagate on the card (``batched``: a (B, H, W) batch of planes in
+    the same launches), counted under "ccl" or "ccl_batch"."""
+    B, H, W = _check_ccl_planes(labels, maxlab, compat_bits, batched)
     lab_out, mx_out, lab_tmp, mx_tmp = (torch.empty_like(labels) for _ in range(4))
     n = ctypes.c_int(0)
-    code = cuda_lib.library().tpuslam_ccl(
+    code = cuda_lib.library().tpuslam_ccl_batch(
         labels.data_ptr(), maxlab.data_ptr(), compat_bits.data_ptr(),
         lab_out.data_ptr(), mx_out.data_ptr(), lab_tmp.data_ptr(), mx_tmp.data_ptr(),
-        H, W, int(rounds), *CCL_TILE, ctypes.byref(n), cuda_lib.stream_of(labels),
+        B, H, W, int(rounds), *CCL_TILE, ctypes.byref(n), cuda_lib.stream_of(labels),
     )
     cuda_lib.check(code, "ccl_propagate")
-    LAUNCHES["ccl"] += 1
-    KERNEL_LAUNCHES["ccl"] += n.value
+    key = "ccl_batch" if batched else "ccl"
+    LAUNCHES[key] += 1
+    KERNEL_LAUNCHES[key] += n.value
     return lab_out, mx_out
 
 
@@ -210,6 +227,21 @@ def ccl_propagate(labels: torch.Tensor, maxlab: torch.Tensor, compat_bits: torch
     return _ccl_torch(labels, maxlab, compat_bits, rounds)
 
 
+def _ccl_batch_torch(labels, maxlab, compat_bits, rounds: int):
+    """Plain version of :func:`ccl_propagate_batch`: each image's plain form."""
+    lab, mx = zip(*(_ccl_torch(*p, rounds) for p in zip(labels, maxlab, compat_bits)))
+    return torch.stack(lab), torch.stack(mx)
+
+
+def ccl_propagate_batch(labels: torch.Tensor, maxlab: torch.Tensor, compat_bits: torch.Tensor, rounds: int):
+    """:func:`ccl_propagate` of a (B, H, W) batch of planes: on CUDA tensors
+    ceil(rounds / k) launches for the whole batch, each image bit for bit
+    its single call; the plain version on CPU tensors."""
+    if cuda_lib.on_card(labels):
+        return _ccl_cuda(labels, maxlab, compat_bits, rounds, batched=True)
+    return _ccl_batch_torch(labels, maxlab, compat_bits, rounds)
+
+
 def segment_moments_torch(values: torch.Tensor, slot: torch.Tensor, S: int) -> torch.Tensor:
     """Plain version of :func:`segment_moments`: ``index_add_`` over the
     items in item order (the CPU adds them in that order)."""
@@ -217,12 +249,15 @@ def segment_moments_torch(values: torch.Tensor, slot: torch.Tensor, S: int) -> t
     return acc.index_add_(0, slot.long(), values.t().contiguous()).t()
 
 
-def _check_sum_inputs(values, slot, what):
-    cuda_lib.require_plane(values, torch.float32, f"{what} values")
-    if slot.device != values.device or slot.dtype != torch.int32 or slot.dim() != 1 or not slot.is_contiguous():
-        raise ValueError(f"{what}: slot must be a contiguous (N,) int32 tensor on the values' device")
-    if slot.numel() != values.shape[1]:
-        raise ValueError(f"{what}: {slot.numel()} slots for {values.shape[1]} items")
+def _check_sum_inputs(values, slot, what, batched: bool = False):
+    """(B, V, N) of the value columns (B = 1 for (V, N) ones) after the checks."""
+    B, V, N = cuda_lib.image_batch(values, torch.float32, f"{what} values", batched)
+    want = (B, N) if batched else (N,)
+    if slot.device != values.device or slot.dtype != torch.int32 or not slot.is_contiguous():
+        raise ValueError(f"{what}: slot must be a contiguous int32 tensor on the values' device")
+    if tuple(slot.shape) != want:
+        raise ValueError(f"{what}: slot of shape {tuple(slot.shape)} for values of shape {tuple(values.shape)}")
+    return B, V, N
 
 
 def _moments_two_launch_cuda(values: torch.Tensor, slot: torch.Tensor, S: int) -> torch.Tensor:
@@ -243,14 +278,14 @@ def _moments_two_launch_cuda(values: torch.Tensor, slot: torch.Tensor, S: int) -
     return out
 
 
-def _segment_sums_cuda(values: torch.Tensor, slot: torch.Tensor, S: int):
-    """((V, S) sums, device launches made)."""
-    _check_sum_inputs(values, slot, "segment_moments")
-    V, N = values.shape
-    out = torch.empty((V, S), dtype=torch.float32, device=values.device)
+def _segment_sums_cuda(values: torch.Tensor, slot: torch.Tensor, S: int, batched: bool = False):
+    """((V, S) sums, device launches made); ``batched``, (B, V, S) sums of a
+    (B, V, N) batch in the same launch."""
+    B, V, N = _check_sum_inputs(values, slot, "segment_moments", batched)
+    out = torch.empty((*values.shape[:-2], V, S), dtype=torch.float32, device=values.device)
     n = ctypes.c_int(0)
-    code = cuda_lib.library().tpuslam_segment_sums(
-        values.data_ptr(), slot.data_ptr(), out.data_ptr(), N, V, S, ctypes.byref(n), cuda_lib.stream_of(values)
+    code = cuda_lib.library().tpuslam_segment_sums_batch(
+        values.data_ptr(), slot.data_ptr(), out.data_ptr(), B, N, V, S, ctypes.byref(n), cuda_lib.stream_of(values)
     )
     cuda_lib.check(code, "segment_moments")
     return out, n.value
@@ -268,6 +303,23 @@ def segment_moments(values: torch.Tensor, slot: torch.Tensor, S: int) -> torch.T
         KERNEL_LAUNCHES["segment_moments"] += n
         return out
     return segment_moments_torch(values, slot, S)
+
+
+def segment_moments_batch_torch(values: torch.Tensor, slot: torch.Tensor, S: int) -> torch.Tensor:
+    """Plain version of :func:`segment_moments_batch`: each entry's plain sum."""
+    return torch.stack([segment_moments_torch(v, sl, S) for v, sl in zip(values, slot)])
+
+
+def segment_moments_batch(values: torch.Tensor, slot: torch.Tensor, S: int) -> torch.Tensor:
+    """:func:`segment_moments` of a batch: ``values`` (B, V, N), ``slot`` (B,
+    N) -> (B, V, S), one launch of B blocks on CUDA tensors (each entry bit
+    for bit its single call), the plain version on CPU tensors."""
+    if cuda_lib.on_card(values):
+        out, n = _segment_sums_cuda(values, slot, S, batched=True)
+        LAUNCHES["segment_moments_batch"] += 1
+        KERNEL_LAUNCHES["segment_moments_batch"] += n
+        return out
+    return segment_moments_batch_torch(values, slot, S)
 
 
 def _member_slots(labels: torch.Tensor, roots: torch.Tensor) -> torch.Tensor:
@@ -348,73 +400,107 @@ def _component_extents_replaced_cuda(labels, mag, support, roots, cx, cy, ev) ->
 
 
 _COUNTERS: dict = {}
+COUNTERS_PER_IMAGE = 1 + SUM_MAX_BLOCKS // SUM_GROUP
 
 
-def _ticket_counters(dev: torch.device) -> torch.Tensor:
-    """The device's counters of finished blocks (the groups', then each
-    group's), which the component kernels set back to 0 as they finish."""
+def _ticket_counters(dev: torch.device, images: int = 1) -> torch.Tensor:
+    """The device's counters of finished blocks, one set per image of a
+    batch (the groups', then each group's), which the component kernels set
+    back to 0 as they finish: every image's last-block combine counts its
+    own blocks only. Calls on one stream run one after another, so every
+    call may start from the same buffer (grown, zeroed, for a larger batch)."""
     key = (dev.type, dev.index if dev.index is not None else torch.cuda.current_device())
-    if key not in _COUNTERS:
-        _COUNTERS[key] = torch.zeros(1 + SUM_MAX_BLOCKS // SUM_GROUP, dtype=torch.int32, device=dev)
+    if key not in _COUNTERS or _COUNTERS[key].numel() < images * COUNTERS_PER_IMAGE:
+        _COUNTERS[key] = torch.zeros(images * COUNTERS_PER_IMAGE, dtype=torch.int32, device=dev)
     return _COUNTERS[key]
 
 
-def _check_component_inputs(labels, mag, support, roots, what):
-    cuda_lib.require_plane(labels, torch.int32, f"{what} labels")
-    cuda_lib.require_plane(mag, torch.float32, f"{what} mag")
-    cuda_lib.require_plane(support, torch.bool, f"{what} support")
+def _check_component_inputs(labels, mag, support, roots, what, batched: bool = False):
+    """(B, H, W, K) of the planes and roots (B = 1 for (H, W) planes and (K,)
+    roots) after the checks."""
+    B, H, W = cuda_lib.image_batch(labels, torch.int32, f"{what} labels", batched)
+    cuda_lib.image_batch(mag, torch.float32, f"{what} mag", batched)
+    cuda_lib.image_batch(support, torch.bool, f"{what} support", batched)
     if not (labels.shape == mag.shape == support.shape):
         raise ValueError(f"{what}: planes differ in shape")
     if not (labels.device == mag.device == support.device == roots.device):
         raise ValueError(f"{what}: inputs on different devices")
-    if roots.dtype != torch.int64 or roots.dim() != 1 or not roots.is_contiguous() or roots.numel() < 1:
-        raise ValueError(f"{what}: roots must be a contiguous non-empty (K,) int64 tensor")
+    lead = labels.shape[:-2]
+    if roots.dtype != torch.int64 or roots.shape[:-1] != lead or roots.dim() != len(lead) + 1 or roots.shape[-1] < 1 or not roots.is_contiguous():
+        raise ValueError(f"{what}: roots must be a contiguous non-empty {'(B, K)' if batched else '(K,)'} int64 tensor")
+    return B, H, W, roots.shape[-1]
 
 
 def _component_scratch(labels, K, C):
-    """(blocks, ipw, rows): the partition and the blocks' and then the
-    groups' (C, K) rows."""
-    blocks, ipw = sum_partition(labels.numel())
+    """(blocks, ipw, rows): the partition of one image and its blocks' and
+    then its groups' (C, K) rows, (B, rows, C, K) for a (B, H, W) batch."""
+    H, W = labels.shape[-2:]
+    blocks, ipw = sum_partition(H * W)
     rows = blocks + -(-blocks // SUM_GROUP)
-    return blocks, ipw, torch.empty((rows, C, K), dtype=torch.float32, device=labels.device)
+    return blocks, ipw, torch.empty((*labels.shape[:-2], rows, C, K), dtype=torch.float32, device=labels.device)
 
 
-def _component_moments_cuda(labels, mag, support, roots):
-    """((7, K) sums, device launches made)."""
-    _check_component_inputs(labels, mag, support, roots, "component_moments")
-    H, W = labels.shape
-    K = roots.numel()
+def _component_moments_cuda(labels, mag, support, roots, batched: bool = False):
+    """((7, K) sums, device launches made); ``batched``, (B, 7, K) of a (B, H,
+    W) batch with (B, K) roots in the same launch (grid y over the images,
+    one set of ticket counters and scratch rows each)."""
+    B, H, W, K = _check_component_inputs(labels, mag, support, roots, "component_moments", batched)
     blocks, ipw, partial = _component_scratch(labels, K, 7)
-    out = torch.empty((7, K), dtype=torch.float32, device=labels.device)
+    out = torch.empty((*labels.shape[:-2], 7, K), dtype=torch.float32, device=labels.device)
     n = ctypes.c_int(0)
-    code = cuda_lib.library().tpuslam_component_moments(
+    code = cuda_lib.library().tpuslam_component_moments_batch(
         labels.data_ptr(), mag.data_ptr(), support.data_ptr(), roots.data_ptr(), partial.data_ptr(),
-        _ticket_counters(labels.device).data_ptr(), out.data_ptr(), H, W, K, blocks, ipw, ctypes.byref(n),
+        _ticket_counters(labels.device, B).data_ptr(), out.data_ptr(), B, H, W, K, blocks, ipw, ctypes.byref(n),
         cuda_lib.stream_of(labels),
     )
     cuda_lib.check(code, "component_moments")
     return out, n.value
 
 
-def _component_extents_cuda(labels, mag, support, roots, cx, cy, ev):
-    """((3, K) t_min, t_max, sn2, device launches made)."""
-    _check_component_inputs(labels, mag, support, roots, "component_extents")
-    H, W = labels.shape
-    K = roots.numel()
-    for t, shape, name in ((cx, (K,), "cx"), (cy, (K,), "cy"), (ev, (K, 2), "ev")):
+def _component_extents_cuda(labels, mag, support, roots, cx, cy, ev, batched: bool = False):
+    """((3, K) t_min, t_max, sn2, device launches made); ``batched``, (B, 3,
+    K) as :func:`_component_moments_cuda` batches."""
+    B, H, W, K = _check_component_inputs(labels, mag, support, roots, "component_extents", batched)
+    lead = labels.shape[:-2]
+    for t, shape, name in ((cx, (*lead, K), "cx"), (cy, (*lead, K), "cy"), (ev, (*lead, K, 2), "ev")):
         if t.device != labels.device or t.dtype != torch.float32 or tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"component_extents: {name} must be a contiguous {shape} float32 tensor on the planes' device")
     blocks, ipw, partial = _component_scratch(labels, K, 1)
-    keys = torch.empty((partial.shape[0], 2, K), dtype=torch.int64, device=labels.device)
-    out = torch.empty((3, K), dtype=torch.float32, device=labels.device)
+    keys = torch.empty((*partial.shape[:-2], 2, K), dtype=torch.int64, device=labels.device)
+    out = torch.empty((*lead, 3, K), dtype=torch.float32, device=labels.device)
     n = ctypes.c_int(0)
-    code = cuda_lib.library().tpuslam_component_extents(
+    code = cuda_lib.library().tpuslam_component_extents_batch(
         labels.data_ptr(), mag.data_ptr(), support.data_ptr(), roots.data_ptr(), cx.data_ptr(), cy.data_ptr(),
-        ev.data_ptr(), partial.data_ptr(), keys.data_ptr(), _ticket_counters(labels.device).data_ptr(), out.data_ptr(),
-        H, W, K, blocks, ipw, ctypes.byref(n), cuda_lib.stream_of(labels),
+        ev.data_ptr(), partial.data_ptr(), keys.data_ptr(), _ticket_counters(labels.device, B).data_ptr(),
+        out.data_ptr(), B, H, W, K, blocks, ipw, ctypes.byref(n), cuda_lib.stream_of(labels),
     )
     cuda_lib.check(code, "component_extents")
     return out, n.value
+
+
+def component_moments_batch(labels, mag, support, roots) -> torch.Tensor:
+    """:func:`component_moments` of a batch: (B, H, W) planes and (B, K)
+    roots -> (B, 7, K), one launch on CUDA tensors (each image summed in its
+    single call's order, its own ticket counters), the plain version per
+    image on CPU tensors."""
+    if cuda_lib.on_card(labels):
+        out, n = _component_moments_cuda(labels, mag, support, roots, batched=True)
+        LAUNCHES["component_moments_batch"] += 1
+        KERNEL_LAUNCHES["component_moments_batch"] += n
+        return out
+    return torch.stack([component_moments_torch(*a) for a in zip(labels, mag, support, roots)])
+
+
+def component_extents_batch(labels, mag, support, roots, cx, cy, ev) -> torch.Tensor:
+    """:func:`component_extents` of a batch: (B, H, W) planes, (B, K) roots,
+    cx, cy and (B, K, 2) ev -> (B, 3, K), one launch on CUDA tensors, the
+    plain version per image on CPU tensors."""
+    if cuda_lib.on_card(labels):
+        out, n = _component_extents_cuda(labels, mag, support, roots, cx, cy, ev, batched=True)
+        LAUNCHES["component_extents_batch"] += 1
+        KERNEL_LAUNCHES["component_extents_batch"] += n
+        return out
+    return torch.stack([component_extents_torch(*a) for a in zip(labels, mag, support, roots, cx, cy, ev)])
 
 
 def component_moments(labels: torch.Tensor, mag: torch.Tensor, support: torch.Tensor, roots: torch.Tensor) -> torch.Tensor:
@@ -451,9 +537,10 @@ def component_extents(labels, mag, support, roots, cx, cy, ev) -> torch.Tensor:
 
 
 def topk_stable(x: torch.Tensor, k: int) -> torch.Tensor:
-    """Indices of the k largest entries of a 1-D tensor, ties broken towards
-    the lower index — the order ``jax.lax.top_k`` gives."""
-    return torch.sort(x, descending=True, stable=True).indices[:k]
+    """Indices of the k largest entries of each row (the last axis) of a
+    tensor, ties broken towards the lower index — the order
+    ``jax.lax.top_k`` gives."""
+    return torch.sort(x, descending=True, stable=True).indices[..., :k]
 
 
 def _hypot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -472,7 +559,7 @@ def _principal_direction(mxx, myy, mxy):
     e1 = torch.stack([mxy, lam1 - mxx], dim=-1)
     e2 = torch.stack([lam1 - myy, mxy], dim=-1)
     use_e1 = torch.linalg.norm(e1, dim=-1) > torch.linalg.norm(e2, dim=-1)
-    ev = torch.where(use_e1[:, None], e1, e2)
+    ev = torch.where(use_e1[..., None], e1, e2)
     return ev / torch.clamp(torch.linalg.norm(ev, dim=-1, keepdim=True), min=1e-9)
 
 
@@ -524,20 +611,20 @@ def _front_radius(params: LSDParams) -> int:
     return r
 
 
-def _lsd_front_cuda(img: torch.Tensor, params: LSDParams):
-    """(planes of :func:`ccl_inputs`, device launches made)."""
-    cuda_lib.require_plane(img, torch.float32, "ccl_inputs")
+def _lsd_front_cuda(img: torch.Tensor, params: LSDParams, batched: bool = False):
+    """(planes of :func:`ccl_inputs`, device launches made); ``batched``, the
+    (B, H, W) planes of a (B, H, W) batch in the same launch."""
+    B, H, W = cuda_lib.image_batch(img, torch.float32, "ccl_inputs", batched)
     r = _front_radius(params)
-    taps = image._blur_host_taps(img, params.prefilter_sigma)
+    taps = np.ascontiguousarray(image._blur_taps(params.prefilter_sigma).numpy())
     rho, cos_tol = _thresholds(params)
-    H, W = img.shape
     mag = torch.empty_like(img)
-    support = torch.empty((H, W), dtype=torch.bool, device=img.device)
-    labels0, maxlab0, compat_bits = (torch.empty((H, W), dtype=torch.int32, device=img.device) for _ in range(3))
+    support = torch.empty(img.shape, dtype=torch.bool, device=img.device)
+    labels0, maxlab0, compat_bits = (torch.empty(img.shape, dtype=torch.int32, device=img.device) for _ in range(3))
     n = ctypes.c_int(0)
-    code = cuda_lib.library().tpuslam_lsd_front(
+    code = cuda_lib.library().tpuslam_lsd_front_batch(
         img.data_ptr(), mag.data_ptr(), support.data_ptr(), labels0.data_ptr(), maxlab0.data_ptr(),
-        compat_bits.data_ptr(), H, W, taps.ctypes.data, taps.size, rho, cos_tol,
+        compat_bits.data_ptr(), B, H, W, taps.ctypes.data, taps.size, rho, cos_tol,
         FRONT_TILE, front_halo(r), ctypes.byref(n), cuda_lib.stream_of(img),
     )
     cuda_lib.check(code, "ccl_inputs")
@@ -572,6 +659,19 @@ def ccl_inputs(img: torch.Tensor, params: LSDParams = LSDParams()):
     return ccl_inputs_torch(img, params)
 
 
+def ccl_inputs_batch(imgs: torch.Tensor, params: LSDParams = LSDParams()):
+    """:func:`ccl_inputs` of each image of a (B, H, W) float32 batch -> the
+    five planes, each (B, H, W) (labels are pixel indices within each
+    image). One launch on a CUDA tensor (each image bit for bit its single
+    call), the plain version per image on a CPU tensor."""
+    if cuda_lib.on_card(imgs):
+        out, n = _lsd_front_cuda(imgs, params, batched=True)
+        LAUNCHES["lsd_front_batch"] += 1
+        KERNEL_LAUNCHES["lsd_front_batch"] += n
+        return out
+    return tuple(torch.stack(p) for p in zip(*(ccl_inputs_torch(im, params) for im in imgs)))
+
+
 def front_disagreements(got, ref, gx, gy, params: LSDParams = LSDParams(), tol: float = 1e-3):
     """Compare two results of :func:`ccl_inputs` for one image whose blur
     was rounded differently (the kernel's tap order against cuDNN's or
@@ -598,44 +698,53 @@ def front_disagreements(got, ref, gx, gy, params: LSDParams = LSDParams(), tol: 
 
 
 def detect_lines(img: torch.Tensor, max_lines: int = 256, params: LSDParams = LSDParams()) -> DetectedLines:
-    """Detect line segments in an (H, W) float32 image in [0, 1].
+    """Detect line segments in an (H, W) float32 image in [0, 1], or in each
+    image of a (B, H, W) batch (the batched kernels, one set of launches for
+    the batch; every field then carries the leading B axis, each image's
+    equal to its own call's).
 
     Returns DetectedLines with capacity ``max_lines`` (mask-padded)."""
-    H, W = img.shape
+    batched = img.dim() == 3
+    lead = img.shape[:-2]
+    H, W = img.shape[-2:]
     N = H * W
     K = max_lines
     dev = img.device
-    mag, support, labels0, maxlab0, compat_bits = ccl_inputs(img, params)
+    front, propagate, moments, extents = (
+        (ccl_inputs_batch, ccl_propagate_batch, component_moments_batch, component_extents_batch)
+        if batched else (ccl_inputs, ccl_propagate, component_moments, component_extents)
+    )
+    mag, support, labels0, maxlab0, compat_bits = front(img, params)
 
     # connected components: min/max-label propagation + pointer jumps
     jumps = params.ccl_jumps if W <= 768 else max(params.ccl_jumps, 3)
-    labels, maxlab = ccl_propagate(labels0, maxlab0, compat_bits, params.ccl_rounds)
+    labels, maxlab = propagate(labels0, maxlab0, compat_bits, params.ccl_rounds)
     if jumps:
         oks = _compat_masks(compat_bits)
         big = torch.full_like(labels, N)
     for _ in range(jumps):
-        lf = labels.reshape(-1)
-        lut = torch.cat([lf, lf.new_full((1,), N)])
-        labels = torch.minimum(lut[torch.clamp(lf, max=N).long()], lf).view(H, W)
+        lf = labels.reshape(*lead, N)
+        lut = torch.cat([lf, lf.new_full((*lead, 1), N)], dim=-1)
+        labels = torch.minimum(torch.gather(lut, -1, torch.clamp(lf, max=N).long()), lf).view(*lead, H, W)
         m = labels
         for ok, (dy, dx) in zip(oks, _OFFSETS):
             m = torch.minimum(m, torch.where(ok, _shift(labels, dy, dx), big))
         labels = m
 
-    flat_labels = labels.reshape(-1)  # N marks non-support
-    flat_support = support.reshape(-1)
+    flat_labels = labels.reshape(*lead, N)  # N marks non-support
+    flat_support = support.reshape(*lead, N)
 
-    # top-K roots by spanned diagonal
+    # top-K roots by spanned diagonal, per image
     pix = torch.arange(N, dtype=torch.int32, device=dev)
     ys_i, xs_i = pix // W, pix % W
-    far = torch.clamp(maxlab.reshape(-1), min=0)
+    far = torch.clamp(maxlab.reshape(*lead, N), min=0)
     span = _hypot((far % W - xs_i).to(torch.float32), (far // W - ys_i).to(torch.float32))
     is_root = (flat_labels == pix) & flat_support
     key = torch.where(is_root, span + 1.0, torch.zeros_like(span))
-    comp_ids = topk_stable(key, K)  # (K,) root pixel indices
+    comp_ids = topk_stable(key, K).contiguous()  # (..., K) root pixel indices (a batch's rows are strided views)
 
     # per-component moments of the pixels labelled with each chosen root
-    count, sw, swx, swy, swxx, swyy, swxy = component_moments(labels, mag, support, comp_ids).unbind(0)
+    count, sw, swx, swy, swxx, swyy, swxy = moments(labels, mag, support, comp_ids).unbind(-2)
     csw = torch.clamp(sw, min=1e-6)
     cx = swx / csw
     cy = swy / csw
@@ -646,15 +755,15 @@ def detect_lines(img: torch.Tensor, max_lines: int = 256, params: LSDParams = LS
     ev = _principal_direction(mxx, myy, mxy)
 
     # extents along the principal direction, normal second moment
-    t_min, t_max, sn2 = component_extents(labels, mag, support, comp_ids, cx, cy, ev).unbind(0)
+    t_min, t_max, sn2 = extents(labels, mag, support, comp_ids, cx, cy, ev).unbind(-2)
     width = 2.0 * torch.sqrt(3.0 * torch.clamp(sn2 / csw, min=1e-9))
 
     empty = count < 0.5
     t_min = torch.where(empty, torch.zeros_like(t_min), t_min)
     t_max = torch.where(empty, torch.zeros_like(t_max), t_max)
     length = t_max - t_min
-    p0 = torch.stack([cx + t_min * ev[:, 0], cy + t_min * ev[:, 1]], dim=-1)
-    p1 = torch.stack([cx + t_max * ev[:, 0], cy + t_max * ev[:, 1]], dim=-1)
+    p0 = torch.stack([cx + t_min * ev[..., 0], cy + t_min * ev[..., 1]], dim=-1)
+    p1 = torch.stack([cx + t_max * ev[..., 0], cy + t_max * ev[..., 1]], dim=-1)
 
     density = resp / torch.clamp(length * torch.clamp(width, min=1.0), min=1e-6)
     valid = (
@@ -664,10 +773,10 @@ def detect_lines(img: torch.Tensor, max_lines: int = 256, params: LSDParams = LS
         & (width <= params.max_width)
     )
     det = DetectedLines(
-        endpoints=torch.stack([p0, p1], dim=1),
+        endpoints=torch.stack([p0, p1], dim=-2),
         valid=valid.to(torch.float32),
         response=resp,
-        angle=torch.atan2(ev[:, 1], ev[:, 0]),
+        angle=torch.atan2(ev[..., 1], ev[..., 0]),
         width=width,
         midpoint=torch.stack([cx, cy], dim=-1),
         length=length,
@@ -685,66 +794,70 @@ def merge_collinear(
     n_rounds: int = 6,
 ) -> DetectedLines:
     """Merge collinear, nearly-touching segments (junction/stair fragments):
-    a K x K adjacency, min-label propagation over it, per-group moments."""
-    K = det.endpoints.shape[0]
+    a K x K adjacency, min-label propagation over it, per-group moments.
+    Fields may carry a leading batch axis: (B, K, K) adjacencies and the
+    batched sum kernel, each entry equal to its own call's."""
+    K = det.endpoints.shape[-3]
+    batched = det.endpoints.dim() == 4
     dev = det.endpoints.device
     validb = det.valid > 0.5
-    p0, p1 = det.endpoints[:, 0], det.endpoints[:, 1]
+    p0, p1 = det.endpoints[..., 0, :], det.endpoints[..., 1, :]
     d = p1 - p0
     dn = d / torch.clamp(torch.linalg.norm(d, dim=-1, keepdim=True), min=1e-6)
 
     def rel_to_i(p):  # (K, 2) points -> (K, K, 2): p[j] relative to midpoint i
-        return p[None, :, :] - det.midpoint[:, None, :]
+        return p[..., None, :, :] - det.midpoint[..., :, None, :]
 
     def perp_to_i(p):  # (K, K): distance of p[j] to line i
         rel = rel_to_i(p)
-        return torch.abs(rel[..., 0] * (-dn[:, None, 1]) + rel[..., 1] * dn[:, None, 0])
+        return torch.abs(rel[..., 0] * (-dn[..., :, None, 1]) + rel[..., 1] * dn[..., :, None, 0])
 
     def proj_to_i(p):  # (K, K): coordinate of p[j] along line i
         rel = rel_to_i(p)
-        return rel[..., 0] * dn[:, None, 0] + rel[..., 1] * dn[:, None, 1]
+        return rel[..., 0] * dn[..., :, None, 0] + rel[..., 1] * dn[..., :, None, 1]
 
     perp_ok = (perp_to_i(p0) < tol_perp) & (perp_to_i(p1) < tol_perp)
-    da = torch.fmod(torch.abs(det.angle[:, None] - det.angle[None, :]), math.pi)
+    da = torch.fmod(torch.abs(det.angle[..., :, None] - det.angle[..., None, :]), math.pi)
     da = torch.minimum(da, math.pi - da)
     ang_ok = da < tol_angle
 
     tj0, tj1 = proj_to_i(p0), proj_to_i(p1)
     j_lo = torch.minimum(tj0, tj1)
     j_hi = torch.maximum(tj0, tj1)
-    ti = torch.sum((det.endpoints - det.midpoint[:, None, :]) * dn[:, None, :], dim=-1)
-    i_lo = torch.min(ti, dim=1).values[:, None]
-    i_hi = torch.max(ti, dim=1).values[:, None]
+    ti = torch.sum((det.endpoints - det.midpoint[..., :, None, :]) * dn[..., :, None, :], dim=-1)
+    i_lo = torch.min(ti, dim=-1).values[..., :, None]
+    i_hi = torch.max(ti, dim=-1).values[..., :, None]
     gap = torch.maximum(j_lo - i_hi, i_lo - j_hi)
     gap_ok = gap < max_gap
 
-    vv = validb[:, None] & validb[None, :]
+    vv = validb[..., :, None] & validb[..., None, :]
     adj = perp_ok & ang_ok & gap_ok & vv
-    adj = adj & adj.T
+    adj = adj & adj.transpose(-1, -2)
     adj = adj | torch.eye(K, dtype=torch.bool, device=dev)
 
     ar = torch.arange(K, device=dev)
-    labels = ar
+    labels = ar.expand(validb.shape)
     for _ in range(n_rounds):
-        labels = torch.min(torch.where(adj, labels[None, :], K), dim=1).values
-        labels = labels[labels]  # pointer jump
+        labels = torch.min(torch.where(adj, labels[..., None, :], K), dim=-1).values
+        labels = torch.gather(labels, -1, labels)  # pointer jump
 
     is_rep = (labels == ar) & validb
     w = det.response * det.valid
 
-    epw = 0.5 * w[:, None]
+    epw = 0.5 * w[..., None]
     ep = det.endpoints
     # per-group sums of the weights and the endpoint moments, in one call
     cols = torch.stack([
         w,
-        torch.sum(ep[..., 0] * epw, dim=1),
-        torch.sum(ep[..., 1] * epw, dim=1),
-        torch.sum(ep[..., 0] ** 2 * epw, dim=1),
-        torch.sum(ep[..., 1] ** 2 * epw, dim=1),
-        torch.sum(ep[..., 0] * ep[..., 1] * epw, dim=1),
+        torch.sum(ep[..., 0] * epw, dim=-1),
+        torch.sum(ep[..., 1] * epw, dim=-1),
+        torch.sum(ep[..., 0] ** 2 * epw, dim=-1),
+        torch.sum(ep[..., 1] ** 2 * epw, dim=-1),
+        torch.sum(ep[..., 0] * ep[..., 1] * epw, dim=-1),
         w * det.width,
-    ])
-    new_resp, s_x, s_y, s_xx, s_yy, s_xy, s_wwidth = segment_moments(cols, labels.to(torch.int32), K).unbind(0)
+    ], dim=-2)
+    sums = segment_moments_batch if batched else segment_moments
+    new_resp, s_x, s_y, s_xx, s_yy, s_xy, s_wwidth = sums(cols, labels.to(torch.int32), K).unbind(-2)
     sw = torch.clamp(new_resp, min=1e-6)
     ex = s_x / sw
     ey = s_y / sw
@@ -753,25 +866,26 @@ def merge_collinear(
     exy = s_xy / sw - ex * ey
     ev = _principal_direction(exx, eyy, exy)
 
-    gd = ev[labels]
-    gc = torch.stack([ex, ey], dim=-1)[labels]
-    t_ep = torch.sum((ep - gc[:, None, :]) * gd[:, None, :], dim=-1)  # (K, 2)
+    at_label = labels[..., None].expand(*labels.shape, 2)
+    gd = torch.gather(ev, -2, at_label)
+    gc = torch.gather(torch.stack([ex, ey], dim=-1), -2, at_label)
+    t_ep = torch.sum((ep - gc[..., :, None, :]) * gd[..., :, None, :], dim=-1)  # (K, 2)
     inf = torch.full_like(t_ep, math.inf)
-    t_lo = torch.min(torch.where(validb[:, None], t_ep, inf), dim=1).values
-    t_hi = torch.max(torch.where(validb[:, None], t_ep, -inf), dim=1).values
-    kinf = torch.full((K,), math.inf, dtype=t_lo.dtype, device=dev)
-    g_lo = kinf.scatter_reduce(0, labels, t_lo, "amin", include_self=False)
-    g_hi = (-kinf).scatter_reduce(0, labels, t_hi, "amax", include_self=False)
+    t_lo = torch.min(torch.where(validb[..., None], t_ep, inf), dim=-1).values
+    t_hi = torch.max(torch.where(validb[..., None], t_ep, -inf), dim=-1).values
+    kinf = torch.full(labels.shape, math.inf, dtype=t_lo.dtype, device=dev)
+    g_lo = kinf.scatter_reduce(-1, labels, t_lo, "amin", include_self=False)
+    g_hi = (-kinf).scatter_reduce(-1, labels, t_hi, "amax", include_self=False)
     g_lo = torch.where(torch.isfinite(g_lo), g_lo, torch.zeros_like(g_lo))
     g_hi = torch.where(torch.isfinite(g_hi), g_hi, torch.zeros_like(g_hi))
 
     c = torch.stack([ex, ey], dim=-1)
     return DetectedLines(
-        endpoints=torch.stack([c + g_lo[:, None] * ev, c + g_hi[:, None] * ev], dim=1),
+        endpoints=torch.stack([c + g_lo[..., None] * ev, c + g_hi[..., None] * ev], dim=-2),
         valid=is_rep.to(torch.float32),
         response=new_resp,
-        angle=torch.atan2(ev[:, 1], ev[:, 0]),
+        angle=torch.atan2(ev[..., 1], ev[..., 0]),
         width=s_wwidth / sw,
-        midpoint=c + 0.5 * (g_lo + g_hi)[:, None] * ev,
+        midpoint=c + 0.5 * (g_lo + g_hi)[..., None] * ev,
         length=g_hi - g_lo,
     )
