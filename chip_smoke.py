@@ -159,13 +159,25 @@ first failure and catches nothing):
    poses within 5e-3), their ms, device busy ms and launches; (d) host ms,
    device busy ms and launches per sequence-frame at N = 1, 2 and 8
    (tracking alone), and the host syncs of one steady batched frame.
+21. the host surface: a 40-frame VGA stereo dataset written by the CLI's
+   make-synthetic (seed 0, 140 segments) and a settings YAML with its
+   Camera.* keys (load_settings' camera equal to the dataset's); the CLI's
+   `run` with its defaults (synchronous descriptor stereo, mapping, loop
+   closing; --out, --save-map, --log) with the launch counts set to 0 just
+   before and read just after: every frame after the first OK, the ATE
+   within the JAX CLI's + 0.01 m, each kernel's calls frames x its
+   per-frame count; `run --fast` within the JAX CLI's x 1.05 + 0.01 m;
+   `eval` of the run's trajectory equal to its ATE (1e-6), its RPE (delta
+   1); System(settings, loop_closing=False).load_map of the saved file (the
+   saved live lines, a database row per keyframe) relocalizing a LOST frame
+   20 within 5 cm; each run's frames/s and the phase's wall time.
 
 Output: a {"kernels": [...]} JSON line (calls per path and launches per
 call from the mono phase's hybrid run, the main path; times, bounds,
 errors and profiled launches per call at 480x640 from phase 3, device us
 at every shape timed; "blur.resize", the blur kernel at the resize's
 sigma, with its calls from phase 15; "<name>.batch", each kernel's batched
-form, from phase 20),
+form, from phase 20; "cli" in launches_by_path from phase 21),
 the card line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -304,6 +316,19 @@ JAX_MULTI_ATE_M = (
     0.015105178520964208, 0.009269905592480133, 0.008823428466979828, 0.009899952828617309,
 )
 RADTAN_LINE_ERR_PX = 2.0  # the median endpoint-to-true-line bound
+# phase 21, the host surface: the CLI's `run` on the dataset `make-synthetic`
+# writes with these arguments (VGA stereo, fx 458, baseline 0.11 m, motion
+# 0.03, image noise 1, .npy frames). The JAX CLI's ATE on the same files, run on
+# the CPU (XLA:CPU) with cv2 hidden, TPUSLAM_KF_DEFER_MS=0 and
+# TPUSLAM_NATIVE_MAP=0: `python tests/test_torch_cli.py default fast` prints
+# them (the CLI's defaults: synchronous descriptor stereo, mapping, loop
+# closing; keyframes at frames 0, 4, 10, 16, 33; --fast: semi-direct chunks of
+# 6 on host-halved frames, direct stereo, the default mapper; keyframes at
+# frames 0, 7, 13, 19, 25)
+CLI_FRAMES, CLI_SEGMENTS, CLI_SEED = 40, 140, 0
+JAX_CLI_ATE_M = 0.01557428979140405
+JAX_CLI_FAST_ATE_M = 0.04356155547790103
+CLI_FAST_ATE_FACTOR = 1.05  # --fast is a pipelined form: JAX x 1.05 + ATE_MARGIN_M
 # benchmarks/ladder.py's mono tracker settings
 MONO_TRACKER = dict(min_init_lines=8, min_track_matches=6, min_track_inliers=6, max_frames_between_kf=4)
 RELOC_FRAME = 20
@@ -2709,6 +2734,147 @@ def multi_phase(card):
     return kres, launches
 
 
+# ---- the host surface: settings, the CLI, eval and RPE, map files (phase 21) ----
+def write_cli_dataset(root: str) -> None:
+    """The phase's dataset, through the CLI's make-synthetic."""
+    from tpuslam_torch import cli
+
+    cli.main(["make-synthetic", "--root", root, "--frames", str(CLI_FRAMES), "--seed", str(CLI_SEED),
+              "--segments", str(CLI_SEGMENTS)])
+
+
+def cli_main(argv) -> dict:
+    """tpuslam_torch.cli.main(argv); its printed JSON summary, echoed."""
+    import contextlib
+    import io
+
+    from tpuslam_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(argv)
+    text = out.getvalue().strip()
+    print(f"cli {' '.join(argv[:1])}: {text[:400]}", flush=True)
+    return json.loads(text.splitlines()[-1])
+
+
+def cli_phase(card):
+    """Phase 21: a settings file, the CLI's run (its defaults, then --fast)
+    on a dataset written by its make-synthetic, eval and RPE of the run, and
+    a map saved by the run loaded into a System(settings) that relocalizes
+    a LOST frame against it. Returns the default run's (calls, device
+    launches)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tpuslam_torch.eval.rpe import relative_pose_error
+    from tpuslam_torch.frontend.tracking import TrackingState
+    from tpuslam_torch.io.config import load_settings
+    from tpuslam_torch.io.datasets import load_image_gray, load_synthetic
+    from tpuslam_torch.slammap.serialize import load_map
+    from tpuslam_torch.system import System
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as d:
+        root = os.path.join(d, "ds")
+        write_cli_dataset(root)
+        seq = load_synthetic(root)
+        fx, fy, cx, cy, w, h, b = open(os.path.join(root, "calib.txt")).read().split()
+        yaml = os.path.join(d, "settings.yaml")
+        with open(yaml, "w") as f:
+            f.write(f"%YAML:1.0\nCamera.fx: {fx}\nCamera.fy: {fy}\nCamera.cx: {cx}\nCamera.cy: {cy}\n"
+                    f"Camera.width: {int(float(w))}\nCamera.height: {int(float(h))}\nCamera.bf: {float(fx) * float(b)!r}\n")
+        settings = load_settings(yaml)
+        print(f"cli: dataset {len(seq)} frames {seq.cam.width}x{seq.cam.height}; settings camera {tuple(settings.cam)}", flush=True)
+        for name, got, want in zip(settings.cam._fields, settings.cam, seq.cam):
+            if isinstance(want, int) and not (isinstance(got, int) and got == want):
+                fail(f"cli: settings camera {name} {got!r}, the dataset's {want!r}")
+            if not abs(got - want) <= 1e-6:
+                fail(f"cli: settings camera {name} {got!r}, the dataset's {want!r}")
+
+        out, mp, log = (os.path.join(d, n) for n in ("traj.txt", "map.npz", "log.jsonl"))
+        run = ["run", "--dataset", "synthetic", "--root", root]
+        reset_launches()
+        summary = cli_main([*run, "--out", out, "--save-map", mp, "--log", log])
+        torch.cuda.synchronize()
+        launches = read_launches()
+        rows = [json.loads(line) for line in open(log)]
+        frames = [r for r in rows if "frame" in r]
+        states = [r["state"] for r in frames]
+        kfs = [r["frame"] for r in frames if r["kf"]]
+        ate = summary["ate_rmse"]
+        bound = JAX_CLI_ATE_M + ATE_MARGIN_M
+        print(f"cli run: {summary['frames']} frames, keyframes at frames {kfs}, {summary['lines']} lines, "
+              f"{summary['loops']} loops, ATE {ate:.5f} m (bound {bound:.5f}: the JAX CLI's {JAX_CLI_ATE_M} + "
+              f"{ATE_MARGIN_M}); {summary['fps']:.2f} frames/s ({summary['wall_s'] * 1e3 / summary['frames']:.2f} "
+              f"ms/frame, file decode included) on {card}", flush=True)
+        track_ms = [r["track_ms"] for r in frames]
+        print(f"cli run: track_frame ms (host clock, the log's): first frame {track_ms[0]:.2f}, frames 1-{CLI_FRAMES - 1} "
+              f"median {statistics.median(track_ms[1:]):.2f}; keyframe frames median "
+              f"{statistics.median([r['track_ms'] for r in frames[1:] if r['kf']] or [float('nan')]):.2f} on {card}",
+              flush=True)
+        if len(frames) != CLI_FRAMES or any(st != "OK" for st in states[1:]):
+            fail(f"cli run: a frame after the first did not track OK: {states}")
+        if not ate <= bound:
+            fail(f"cli run: ATE {ate} m above {bound} m")
+        check_launches("cli", launches, CLI_FRAMES)
+
+        fast = cli_main([*run, "--fast", "--out", os.path.join(d, "fast.txt")])
+        fbound = JAX_CLI_FAST_ATE_M * CLI_FAST_ATE_FACTOR + ATE_MARGIN_M
+        print(f"cli run --fast: {fast['keyframes']} keyframes, ATE {fast['ate_rmse']:.5f} m (bound {fbound:.5f}: the JAX "
+              f"CLI's {JAX_CLI_FAST_ATE_M} x {CLI_FAST_ATE_FACTOR} + {ATE_MARGIN_M}); {fast['fps']:.2f} frames/s "
+              f"({fast['wall_s'] * 1e3 / fast['frames']:.2f} ms/frame, file decode included, the flush not) on {card}",
+              flush=True)
+        if fast["frames"] != CLI_FRAMES or fast["ate_n"] != CLI_FRAMES or not fast["ate_rmse"] <= fbound:
+            fail(f"cli run --fast: ATE {fast['ate_rmse']} m over {fast['ate_n']} frames, bound {fbound} m")
+
+        ev = cli_main(["eval", "--est", out, "--gt", os.path.join(root, "groundtruth.txt")])
+        print(f"cli eval: rmse {ev['rmse']!r} against the run's {ate!r}", flush=True)
+        if not abs(ev["rmse"] - ate) <= 1e-6 or ev["n"] != summary["ate_n"]:
+            fail(f"cli eval: rmse {ev['rmse']} over {ev['n']}, the run's {ate} over {summary['ate_n']}")
+        est = np.stack([np.linalg.inv(np.asarray(r["pose"], np.float64).reshape(4, 4)) for r in frames])
+        rpe = relative_pose_error(est, seq.gt_poses.astype(np.float64), delta=1)
+        print(f"cli RPE (delta 1): translation {rpe.trans_rmse:.5f} m, rotation {rpe.rot_rmse_deg:.5f} deg over {rpe.n} "
+              f"steps", flush=True)
+        if not (rpe.n == CLI_FRAMES - 1 and np.isfinite(rpe.trans_rmse) and np.isfinite(rpe.rot_rmse_deg)):
+            fail(f"cli RPE: {rpe}")
+
+        saved = load_map(mp)
+        sys_ = System(settings, loop_closing=False)
+        sys_.load_map(mp)
+        live, want = sys_.map_lines(), saved.lines.live_ids()
+        n_kf = len(sys_.map.keyframes)
+        print(f"cli load_map: {n_kf} keyframes, {len(live['ids'])} live lines, database {len(sys_.kf_db)} rows", flush=True)
+        if not (np.array_equal(live["ids"], want) and np.array_equal(live["plucker"], saved.lines.plucker[want])
+                and len(want) == summary["lines"]):
+            fail("cli load_map: the live lines differ from the saved map's")
+        if n_kf != summary["keyframes"] or len(sys_.kf_db) != n_kf:
+            fail(f"cli load_map: {n_kf} keyframes and {len(sys_.kf_db)} database rows, the run saved {summary['keyframes']}")
+        sys_.tracker.state = TrackingState.LOST
+        it = seq.items[RELOC_FRAME]
+        reset_launches()
+        t = time.perf_counter()
+        sys_.track_stereo(load_image_gray(it.left), load_image_gray(it.right), 100.0)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        reloc_launches = read_launches()
+        r = sys_.trajectory[-1]
+        gp = seq.gt_poses.astype(np.float64)  # T_wc; the map's world is frame 0's camera
+        gt = (np.linalg.inv(gp[0]) @ gp[RELOC_FRAME])[:3, 3]
+        err = float(np.linalg.norm(np.linalg.inv(np.asarray(r.T_cw, np.float64))[:3, 3] - gt))
+        n = sys_.tracker.n_relocalizations
+        print(f"cli reloc on the loaded map: state {r.state.name}, relocalizations {n}, centre error {err:.4f} m vs frame "
+              f"{RELOC_FRAME}'s ground truth, {dt * 1e3:.1f} ms", flush=True)
+        if r.state != TrackingState.OK or n != 1 or not err < 0.05:
+            fail("cli reloc: the LOST tracker did not relocalize within 5 cm on the loaded map")
+        check_launches("cli reloc", reloc_launches, 1)
+        sys_.shutdown()
+    print(f"cli: phase {time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2753,8 +2919,9 @@ def main() -> int:
     pmono_launches = pipelined_mono_phase(card)
     radtan_launches = radtan_phase(card)
     multi_kres, multi_launches = multi_phase(card)
+    cli_launches = cli_phase(card)
     new_paths = {tag.replace(" ", "_"): launches[0] for tag, (launches, _) in forms.items()}
-    new_paths.update(pipelined_mono=pmono_launches[0], radtan=radtan_launches[0])
+    new_paths.update(pipelined_mono=pmono_launches[0], radtan=radtan_launches[0], cli=cli_launches[0])
 
     calls, device = mono_launches  # this slice's path: mono (hybrid, the mode BASELINE.md recommends)
     kernels = [
@@ -2784,7 +2951,7 @@ def main() -> int:
     kernels.append(
         dict(
             name="blur.resize", route="cuda", source=KERNELS["blur"][0], replaces=KERNELS["blur"][1], launches=n_resize,
-            launches_per_call=hs_launches[1]["blur"] // hs_launches[0]["blur"], launches_by_path={"hostscale": n_resize},
+            launches_per_call=hs_launches[1]["blur"] // hs_launches[0]["blur"], launches_by_path={"hostscale": n_resize, "cli": cli_launches[0]["blur"] - PER_FRAME["blur"] * CLI_FRAMES},
             **kres["blur.resize"],
         )
     )
@@ -2796,7 +2963,8 @@ def main() -> int:
                 name=f"{name}.batch", route="cuda", source=KERNELS[name][0], replaces=KERNELS[name][1],
                 launches=multi_launches[0][f"{name}_batch"],
                 launches_per_call=multi_launches[1][f"{name}_batch"] // multi_launches[0][f"{name}_batch"],
-                launches_by_path={"multi": multi_launches[0][f"{name}_batch"]}, **multi_kres[name],
+                launches_by_path={"multi": multi_launches[0][f"{name}_batch"], "cli": cli_launches[0][f"{name}_batch"]},
+                **multi_kres[name],
             )
         )
     print(

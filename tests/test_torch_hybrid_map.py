@@ -211,28 +211,41 @@ def _pipelined_hybrid_mono():
     assert [r.frame_idx for r in out] == [0, 1] and tr.sync_frames == [0, 1] and tr.lagged_frames == []
 
 
+def _hybrid_map_round_trip(runs, tmp_path):
+    """The hybrid System's map saved and loaded into a fresh hybrid System:
+    the same map state, corners and point landmarks included, the
+    relocalization database rebuilt with the corners' words; the JAX
+    load_map reads the same file to the same state."""
+    from test_torch_serialize import assert_same_state
+    from tpuslam.slammap.serialize import load_map as j_load_map
+
+    _, _, _, ts = runs
+    assert len(ts.map_points()["ids"]) >= 100
+    p = str(tmp_path / "map.npz")
+    ts.save_map(p)
+    fresh = System(DOTS, loop_closing=False, tracker_cfg=TrackerConfig(points=PointFrontendParams()), device="cpu")
+    fresh.load_map(p)
+    assert_same_state(map_state(fresh.map), map_state(ts.map))
+    assert_same_state(map_state(j_load_map(p)), map_state(ts.map))
+    assert len(fresh.kf_db) == len(fresh.map.keyframes) and fresh.kf_db.point_slots == 256
+
+
 def _unported():
-    """name -> (run, raises): the hybrid paths that raised until the
-    single-frame fused programs and the classic pipeline were ported, and
-    map serialization, which still raises."""
-    hybrid = TrackerConfig(points=PointFrontendParams())
+    """name -> run(request): the hybrid paths that raised until they were
+    ported (the single-frame fused programs, the classic pipeline, map
+    serialization)."""
     return {
-        "single-frame fused hybrid program": (_fused_hybrid_program, False),
-        "single-frame hybrid pipeline": (_single_frame_hybrid_pipeline, False),
-        "map serialization": (
-            lambda: System(DOTS, loop_closing=False, tracker_cfg=hybrid, device="cpu").save_map("map.npz"), True,
+        "single-frame fused hybrid program": lambda request: _fused_hybrid_program(),
+        "single-frame hybrid pipeline": lambda request: _single_frame_hybrid_pipeline(),
+        "map serialization": lambda request: _hybrid_map_round_trip(
+            request.getfixturevalue("runs"), request.getfixturevalue("tmp_path")
         ),
-        "pipelined mono tracking": (_pipelined_hybrid_mono, False),
+        "pipelined mono tracking": lambda request: _pipelined_hybrid_mono(),
     }
 
 
 @pytest.mark.parametrize("name", list(_unported()))
-def test_unported_hybrid_paths_raise(name):
-    """Map serialization raises; the other paths build and track two QVGA
-    frames on the CPU."""
-    run, raises = _unported()[name]
-    if raises:
-        with pytest.raises(NotImplementedError):
-            run()
-    else:
-        run()
+def test_unported_hybrid_paths_raise(name, request):
+    """The hybrid paths that used to raise: each builds and tracks two QVGA
+    frames on the CPU, and the hybrid map saves and loads."""
+    _unported()[name](request)

@@ -18,7 +18,11 @@ a two-view bootstrap, synchronous tracking, two-view triangulation of new
 lines and points in the mapper, and loop closing on the Sim(3) branch.
 ``parallel/``: N stereo sequences tracked concurrently (``MultiTracker``,
 one set of kernel launches per stage for all N) and batched local BA
-(``batched_ba``), BASELINE config #5.
+(``batched_ba``), BASELINE config #5. The host surface: settings files
+(``io/config.py``, ``System(settings)``), map files in the JAX package's
+format (``System.save_map`` / ``load_map``), dataset readers
+(``io/datasets.py``), RPE, ``viz.py`` and the command line
+(``python -m tpuslam_torch.cli``).
 """
 
 __version__ = "0.1.0"

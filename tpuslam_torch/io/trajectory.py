@@ -3,7 +3,7 @@
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Tuple
 
 import numpy as np
 
@@ -53,3 +53,9 @@ def save_trajectory_kitti(path: str, poses_T_cw: List[np.ndarray]):
             p = -R @ T[:3, 3]
             M = np.concatenate([R, p[:, None]], axis=1)
             f.write(" ".join(f"{v:.9e}" for v in M.reshape(-1)) + "\n")
+
+
+def load_trajectory_tum(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """Returns (timestamps (N,), positions (N, 3))."""
+    data = np.loadtxt(path)
+    return data[:, 0], data[:, 1:4]

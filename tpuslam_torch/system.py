@@ -1,10 +1,14 @@
 """System facade: the public API (torch).
 
-    sys = System(cam, sensor="stereo", mapping=True, loop_closing=True, device="cuda")
+    sys = System(settings, sensor="stereo", mapping=True, loop_closing=True, device="cuda")
     T_cw = sys.track_stereo(imL, imR, t)     # per-frame pose (numpy 4x4)
     # or System(cam, sensor="mono") and sys.track_monocular(img, t)
     sys.map_lines(); sys.keyframe_graph()
-    sys.save_trajectory_tum(path); sys.shutdown()
+    sys.save_trajectory_tum(path); sys.save_map(path); sys.shutdown()
+    # later: System(settings).load_map(path) relocalizes against that map
+
+``settings`` is a ``Settings`` (``io.config.load_settings`` of a
+reference-style YAML) or an ``Intrinsics``.
 
 Same signature as ``tpuslam.system.System`` plus ``device``, the card
 unless ``device="cpu"`` is passed (without a card the default raises). This port runs
@@ -35,8 +39,10 @@ from tpuslam_torch.backend.mapping import LocalMapper, MapperConfig
 from tpuslam_torch.device import resolve_device
 from tpuslam_torch.frontend.tracking import FrameResult, Tracker, TrackerConfig, TrackingState
 from tpuslam_torch.geometry.camera import Intrinsics
+from tpuslam_torch.io.config import Settings
 from tpuslam_torch.io.trajectory import save_trajectory_kitti, save_trajectory_tum
 from tpuslam_torch.slammap.map import SlamMap
+from tpuslam_torch.slammap.serialize import load_map, save_map
 
 
 @dataclass
@@ -112,7 +118,7 @@ class System:
 
     def __init__(
         self,
-        settings: Intrinsics,
+        settings: Settings | Intrinsics,
         sensor: str = "stereo",
         mapping: bool = True,
         loop_closing: bool = True,
@@ -121,23 +127,26 @@ class System:
         mapper_cfg: Optional[MapperConfig] = None,
         device="cuda",
     ):
-        if not isinstance(settings, Intrinsics):
-            raise TypeError("settings: pass tpuslam_torch.Intrinsics (settings files are not ported yet)")
+        if isinstance(settings, Intrinsics):
+            cam = settings
+            tcfg = tracker_cfg or TrackerConfig()
+        else:
+            cam = settings.cam
+            tcfg = tracker_cfg or settings.tracker or TrackerConfig()
         if sensor not in ("stereo", "mono"):
             raise ValueError(f"unknown sensor mode {sensor!r}")
         device = resolve_device(device)
         self.sensor = sensor
-        self.cam = settings
+        self.cam = cam
         self.map = SlamMap()
-        tcfg = tracker_cfg or TrackerConfig()
-        self.tracker = Tracker(settings, self.map, tcfg, device=device)
+        self.tracker = Tracker(cam, self.map, tcfg, device=device)
         self.mapper: Optional[LocalMapper] = None
         self.timer = StageTimer()
         if mapping:
             # synchronous, in this process: the JAX package's subprocess BA
             # worker exists for the TPU's compile costs and is not carried over
             self.mapper = LocalMapper(
-                self.map, settings, mapper_cfg or MapperConfig(), mono=(sensor == "mono"), device=device
+                self.map, cam, mapper_cfg or MapperConfig(), mono=(sensor == "mono"), device=device
             )
             self.mapper.timer = self.timer  # KF-event wall split (mp.* stages)
             self.tracker.on_new_keyframe = self._on_new_keyframe
@@ -149,7 +158,7 @@ class System:
         self.loop_closer: Optional[LoopCloser] = None
         if loop_closing:
             # on the System's own database, which relocalization queries too
-            self.loop_closer = LoopCloser(self.map, settings, db=self.kf_db, mono=(sensor == "mono"), device=device)
+            self.loop_closer = LoopCloser(self.map, cam, db=self.kf_db, mono=(sensor == "mono"), device=device)
         self.trajectory: List[FrameResult] = []
         self._log_f = open(log_path, "w") if log_path else None
 
@@ -263,10 +272,23 @@ class System:
         save_trajectory_kitti(path, [r.T_cw for r in self.trajectory])
 
     def save_map(self, path: str):
-        raise NotImplementedError("map serialization (lines and points) is not ported yet (ROADMAP.md, item 6)")
+        save_map(self.map, path)
 
     def load_map(self, path: str):
-        raise NotImplementedError("map serialization (lines and points) is not ported yet (ROADMAP.md, item 6)")
+        """Replace the map with the one saved at ``path`` (by either
+        package), for localization-only reuse or continued mapping."""
+        self.map = load_map(path)
+        self.tracker.map = self.map
+        if self.mapper is not None:
+            self.mapper.map = self.map
+        if self.loop_closer is not None:
+            self.loop_closer.map = self.map
+        # relocalization (and loop detection) query the loaded keyframes
+        self.kf_db.clear()
+        for kid in sorted(self.map.keyframes):
+            self.kf_db.add(self.map.keyframes[kid])
+        self.map.on_keyframe_erased = self.kf_db.remove
+        self.tracker.invalidate_local_map()
 
     def timing_summary(self):
         return self.timer.summary()
