@@ -42,7 +42,10 @@ first failure and catches nothing):
    over a plane padded once; each kernel's bound from its shape and this
    run's data (bytes at 3.35 TB/s, operations at 67 T/s). Device launches
    per call of each form, counted by torch.profiler over one call: 1 for
-   lsd_front, gradients and each sum kernel (and the sums' wrapper count);
+   lsd_front, gradients and each sum kernel (and the sums' wrapper count).
+   Every trace of the script is read from its raw records; the first with
+   100 or more kernel launches is also read through key_averages, and the
+   two reads must agree;
 4. the tracking slice: System(cam, sensor="stereo", mapping=False,
    loop_closing=False, device="cuda") over 40 rendered VGA stereo frames.
    Every frame after initialisation must track OK, at least 2 keyframes,
@@ -131,9 +134,10 @@ first failure and catches nothing):
    flush, and on a fresh System one steady frame's or chunk's host syncs,
    device busy ms and launches;
 18. pipelined lines-only mono (the classic pipeline) over the mono
-   sequence: every frame after initialization OK and through the
-   pipeline, the kernel calls per frame, the median Sim(3) ATE over 11
-   RANSAC draws within the JAX package's pipelined median x 1.05 + 0.01 m;
+   sequence, the first RANSAC draws: every frame after initialization OK
+   and through the pipeline, the kernel calls per frame, states, poses and
+   keyframes bit-equal to phase 10's synchronous lines-only run up to its
+   first fallback (phase 10 holds the ATE by its median over 11 draws);
 19. radtan: the bench scene through TUM fr1's distortion (a numpy
    inverse-map bilinear remap): extract_features on the card, its
    undistortion within 1e-3 px of the CPU's on the same detections, its
@@ -171,14 +175,36 @@ first failure and catches nothing):
    1); System(settings, loop_closing=False).load_map of the saved file (the
    saved live lines, a database row per keyframe) relocalizing a LOST frame
    20 within 5 cm; each run's frames/s and the phase's wall time.
+22. the bench (tpuslam_torch.bench), with the native map mirror on (phases
+   4-21 run with TPUSLAM_NATIVE_MAP=0, as their JAX references were taken):
+   `cli bench --frames 100 --warmup 6` in process (106 VGA frames, lines
+   only), then run_benchmark(100, 6) over image-noise seeds 0-4, lines only
+   and with hybrid points (TPUSLAM_BENCH_POINTS=1, the scene's points drawn
+   as dots), each with the launch counts set to 0 just before and read just
+   after: a JSON line per stage, the last naming the card and its power limit,
+   every frame OK in frame order, the mirror in use, each kernel's calls its
+   count per extraction times the detector's runs (chunk anchors, anchors
+   dispatched again at the flush, synchronous frames, device-feed
+   programs; the device feed runs in the CLI run and the hybrid seed-0
+   run); fps_wall, fps_median, track_ms_median, fps_device_feed,
+   local_ba_ms and its rungs', pretouch_s, wire_mbps and the keyframe
+   frames printed. The CLI run and the hybrid seed-0 run run alone in this
+   process and give the rates; the other nine seed runs run four at a time,
+   each in a process of its own with the same checks (a run's result does
+   not depend on its timing). Each row's median ATE over the seeds within
+   the JAX package's median x 1.05 + 0.01 m; then run_ba_benchmark: each rung's
+   ms per solve and launches per solve, its initial cost equal to the
+   CPU's (1e-5) and the card's and the CPU's final cost at the float32
+   floor (at most 1e-8 of the initial cost).
 
 Output: a {"kernels": [...]} JSON line (calls per path and launches per
 call from the mono phase's hybrid run, the main path; times, bounds,
 errors and profiled launches per call at 480x640 from phase 3, device us
 at every shape timed; "blur.resize", the blur kernel at the resize's
 sigma, with its calls from phase 15; "<name>.batch", each kernel's batched
-form, from phase 20; "cli" in launches_by_path from phase 21),
-the card line, and as the last line
+form, from phase 20; "cli" in launches_by_path from phase 21, "bench100"
+(the CLI run) and "bench100_hybrid" (seed 0) from phase 22), the script's
+own wall time, the card line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -285,16 +311,6 @@ JAX_DESCRIPTOR_FRAME_ATE_M = 0.028262284993123426
 JAX_HOSTSCALE_ATE_M = 0.015130935636825193
 JAX_CLASSIC_MAPPING_ATE_M = 0.009802508959604729
 PIPELINED_ATE_FACTOR = 1.05
-# pipelined lines-only mono (the mono phase's settings with pipelined=True)
-# over the RANSAC draws PRNGKey(frame_idx + 1000 k), k = 0..10: `python
-# tests/test_torch_pipelined.py mono 0 11` prints them (every frame after
-# initialization OK in every draw; all but k = 2 equal the synchronous draws
-# above to the last digit, and so does the median)
-JAX_PIPELINED_MONO_DRAW_ATES_M = (
-    0.22372437381713334, 0.090788042155714, 0.4204503319701225, 0.16759669018952306, 0.1412654692079062,
-    0.1531556027260977, 0.2867959017854134, 0.2774904866119114, 0.27804777105496004, 0.3138127518700231,
-    0.1760691221047711,
-)
 # the synchronous descriptor-stereo tracker (mapping off) over
 # `make_radtan_frames()`, the JAX package's undistortion patched to leave the
 # padding slots alone (it undistorts them to NaN there, which poisons
@@ -329,6 +345,33 @@ CLI_FRAMES, CLI_SEGMENTS, CLI_SEED = 40, 140, 0
 JAX_CLI_ATE_M = 0.01557428979140405
 JAX_CLI_FAST_ATE_M = 0.04356155547790103
 CLI_FAST_ATE_FACTOR = 1.05  # --fast is a pipelined form: JAX x 1.05 + ATE_MARGIN_M
+# phase 22, the bench: run_benchmark(100, 6) renders the bench's 106 VGA
+# frames (make_frames(106) for lines only, make_frames(106, draw_points=True)
+# with hybrid points; with noise_seed k their image noise from seed k). The
+# JAX System in the bench configuration (lines only or hybrid points) on the
+# same frames, XLA:CPU, cv2 hidden, TPUSLAM_KF_DEFER_MS=0 and, unlike the
+# constants above, the JAX map's native mirror on (the JAX bench's default,
+# and the port's in this phase): `python tests/test_torch_bench.py lines`
+# prints JAX_BENCH100_ATE_M (keyframes at frames 0, 13, 19, 43, 67, 91) and
+# `... lines seeds 0 5` / `... hybrid seeds 0 5` the seeds' ATEs. A single
+# run is inside both packages' chaos there (the JAX package's ATE spreads
+# over the five seeds by more than ATE_MARGIN_M), so each row is held by its
+# median over seeds 0-4: JAX median x 1.05 + 0.01 m
+BENCH100_FRAMES, BENCH100_WARMUP = 100, 6
+BENCH100_SEEDS = range(5)
+JAX_BENCH100_ATE_M = 0.02134548378221491
+JAX_BENCH100_SEED_ATES_M = (
+    0.022601111670697838, 0.0249310796125024, 0.04719287287527833, 0.024404004414758824, 0.02705449171901201,
+)
+# (hybrid, the default noise stream: 0.05387035123901514 m, `python
+# tests/test_torch_bench.py hybrid`)
+JAX_HYBRID_BENCH100_SEED_ATES_M = (
+    0.03298659928069139, 0.03697441411411868, 0.03405683614820747, 0.04427447610599114, 0.05176447325293941,
+)
+BENCH100_ATE_FACTOR = 1.05
+# phase 22's seed runs at once, each in a process of its own, and the most
+# seconds one may take
+BENCH100_SLOTS, BENCH100_CHILD_S = 4, 600
 # benchmarks/ladder.py's mono tracker settings
 MONO_TRACKER = dict(min_init_lines=8, min_track_matches=6, min_track_inliers=6, max_frames_between_kf=4)
 RELOC_FRAME = 20
@@ -741,23 +784,63 @@ PROFILE_MARKERS = 4
 LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchCooperativeKernel")
 
 
+def trace_records(prof):
+    """({kernel or copy name: [records, us]}, host kernel launch calls) of a
+    torch.profiler run, without `profiled`'s marker kernels, read from its
+    raw Kineto records (key_averages first builds an event object for
+    every record and a tree of them, which takes seconds for one traced
+    chunk)."""
+    from torch.autograd import DeviceType
+
+    dev, n_calls = {}, 0
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == DeviceType.CUDA:
+            if PROFILE_MARKER not in name:
+                rec = dev.setdefault(name, [0, 0.0])
+                rec[0] += 1
+                rec[1] += (e.end_ns() - e.start_ns()) / 1e3
+        elif name.startswith(LAUNCH_CALLS):
+            n_calls += 1
+    return dev, n_calls - PROFILE_MARKERS
+
+
 def device_events(prof):
     """(device busy us, kernel launches, memcpy/memset events, launch calls)
     of a torch.profiler run, without `profiled`'s marker kernels: the first
     three from its device-side records (host ops repeat their kernels'
     time), the last from the host's kernel launch calls, which the device
     records should match one for one."""
+    dev, n_calls = trace_records(prof)
+    n_copies = sum(n for name, (n, _) in dev.items() if name.startswith(("Memcpy", "Memset")))
+    return sum(us for _, us in dev.values()), sum(n for n, _ in dev.values()) - n_copies, n_copies, n_calls
+
+
+def check_trace_records(prof) -> None:
+    """device_events' numbers from the raw records against the same read
+    through key_averages (the form it replaced) on one trace: the counts
+    equal, the busy us within 1e-6 relative; both reads timed."""
     from torch.autograd import DeviceType
 
+    t = time.perf_counter()
+    raw = device_events(prof)
+    t_raw = time.perf_counter() - t
+    t = time.perf_counter()
     avg = prof.key_averages()
     dev = [e for e in avg if e.device_type == DeviceType.CUDA and PROFILE_MARKER not in e.key]
     n_copies = sum(e.count for e in dev if e.key.startswith(("Memcpy", "Memset")))
     n_calls = sum(e.count for e in avg if e.device_type == DeviceType.CPU and e.key.startswith(LAUNCH_CALLS))
-    return sum(e.self_device_time_total for e in dev), sum(e.count for e in dev) - n_copies, n_copies, n_calls - PROFILE_MARKERS
+    ref = (sum(e.self_device_time_total for e in dev), sum(e.count for e in dev) - n_copies, n_copies, n_calls - PROFILE_MARKERS)
+    t_avg = time.perf_counter() - t
+    print(f"torch.profiler: the first trace read from its raw records {raw} in {t_raw * 1e3:.1f} ms, through key_averages "
+          f"{ref} in {t_avg * 1e3:.1f} ms", flush=True)
+    if raw[1:] != ref[1:] or not abs(raw[0] - ref[0]) <= 1e-6 * max(ref[0], 1.0):
+        fail("torch.profiler: the raw records and key_averages disagree")
 
 
-# traces taken; traces taken again; kernel launches whose device record the returned traces lack
-TRACES = {"taken": 0, "again": 0, "records_lost": 0}
+# traces taken; traces taken again; kernel launches whose device record the
+# returned traces lack; whether a trace was read both ways (check_trace_records)
+TRACES = {"taken": 0, "again": 0, "records_lost": 0, "checked": False}
 
 
 def profiled(run, tries: int = 6, whole: bool = True):
@@ -780,6 +863,9 @@ def profiled(run, tries: int = 6, whole: bool = True):
             run()
             torch.cuda.synchronize()
         *events, n_calls = device_events(prof)
+        if not TRACES["checked"] and n_calls >= 100:
+            TRACES["checked"] = True
+            check_trace_records(prof)
         TRACES["taken"] += 1
         if events[0] > 0 and (events[1] >= n_calls or not whole):
             TRACES["records_lost"] += max(0, n_calls - events[1])
@@ -1091,7 +1177,6 @@ def profile_phase(cam, frames, card) -> None:
     steady frames under torch.profiler: device busy ms and device launches
     per frame, and the largest device items."""
     import torch
-    from torch.autograd import DeviceType
 
     from tpuslam_torch.system import System
 
@@ -1120,10 +1205,8 @@ def profile_phase(cam, frames, card) -> None:
         f"{wall * 1e3 / n:.2f} ms/frame under the profiler (device idle {1 - busy_us / 1e6 / wall:.1%}) on {card}",
         flush=True,
     )
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and PROFILE_MARKER not in e.key]
-    dev.sort(key=lambda e: -e.self_device_time_total)
-    for e in dev[:10]:
-        print(f"profile: {e.self_device_time_total / 1e3 / n:8.3f} ms/frame {e.count / n:7.1f} calls/frame  {e.key[:90]}", flush=True)
+    for name, (count, us) in sorted(trace_records(prof)[0].items(), key=lambda kv: -kv[1][1])[:10]:
+        print(f"profile: {us / 1e3 / n:8.3f} ms/frame {count / n:7.1f} calls/frame  {name[:90]}", flush=True)
 
 
 def reset_launches() -> None:
@@ -1865,7 +1948,8 @@ def mono_run(cam, frames, points: bool, sampler=None, pipelined: bool = False):
 def mono_phase(card):
     """Phase 10: the mono sequence at VGA through System(cam, sensor="mono"),
     hybrid and lines only, and the hybrid run again (bit-equal). Returns the
-    launches of the hybrid run and of the lines-only run."""
+    launches of the hybrid run and of the lines-only run, and the lines-only
+    System of the first draws."""
     import numpy as np
     import torch
 
@@ -2004,7 +2088,7 @@ def mono_phase(card):
         flush=True,
     )
     sys_.shutdown()
-    return out[True][1], out[False][1]
+    return out[True][1], out[False][1], out[False][0]
 
 
 def mono_loop_phase(card):
@@ -2297,53 +2381,57 @@ def pipelined_phases(card, cam, scene, frames, slice_sys):
     return out
 
 
-def pipelined_mono_phase(card):
+def pipelined_mono_phase(card, sync_sys):
     """Phase 18: pipelined lines-only mono (the classic pipeline) over the
-    mono sequence: every frame after initialization OK, the median Sim(3)
-    ATE over MONO_DRAWS RANSAC draws within the JAX package's pipelined
-    median x 1.05 + 0.01 m. Returns the launches of the k = 0 run."""
+    mono sequence with the first RANSAC draws: every frame after
+    initialization OK and through the pipeline, the kernel calls per frame,
+    and its poses and keyframes bit-equal to phase 10's synchronous
+    lines-only run (``sync_sys``, the same draws) up to that run's first
+    fallback: the classic pipeline computes what the synchronous path
+    computes until then, and phase 10 holds the Sim(3) ATE by its median
+    over the draws. Returns the launches."""
+    import numpy as np
+
     cam, scene, frames = make_mono_frames()
     tag = "pipelined mono lines"
-    ates, keep = [], None
-    for k in range(MONO_DRAWS):
-        sys_, launches = mono_run(cam, frames, False, sampler=None if k == 0 else seeded_draws(k), pipelined=True)
-        traj = sys_.trajectory
-        states = [r.state.name for r in traj]
-        first = states.index("OK") if "OK" in states else len(states)
-        ates.append(sim3_ate(traj, scene) if first < len(states) else float("inf"))
-        if k:
-            continue
-        keep = launches
-        tr = sys_.tracker
-        print(
-            f"{tag}: states {states}; keyframes {[r.frame_idx for r in traj if r.made_keyframe]}; lagged frames "
-            f"{tr.lagged_frames}; Sim(3) ATE {ates[0]:.5f} m",
-            flush=True,
-        )
-        if [r.frame_idx for r in traj] != list(range(len(frames))):
-            fail(f"{tag}: trajectory frames {[r.frame_idx for r in traj]}, expected one entry per frame in order")
-        if first == len(states) or any(st != "OK" for st in states[first:]):
-            fail(f"{tag}: not every frame after initialization tracked OK")
-        if tr.lagged_frames != list(range(first + 1, len(frames))):
-            fail(f"{tag}: the frames after initialization did not all go through the classic pipeline")
-        check_mono_launches(tag, launches, PER_EXTRACTION, len(frames))
-        fs = sys_.frame_s[first + 1:]
-        print(
-            f"{tag}: frames after initialization: median {statistics.median(fs) * 1e3:.2f} ms/frame = "
-            f"{len(fs) / sum(fs):.2f} frames/s on {card}",
-            flush=True,
-        )
-        form_profile(tag, lambda: mono_system(cam, False, pipelined=True), frames, card, first + 3, 1, "frame")
-    ate, jax_ate = statistics.median(ates), statistics.median(JAX_PIPELINED_MONO_DRAW_ATES_M)
-    bound = jax_ate * MONO_ATE_FACTOR + ATE_MARGIN_M
+    sys_, launches = mono_run(cam, frames, False, pipelined=True)
+    traj = sys_.trajectory
+    states = [r.state.name for r in traj]
+    first = states.index("OK") if "OK" in states else len(states)
+    tr = sys_.tracker
+    ate = sim3_ate(traj, scene) if first < len(states) else float("inf")
     print(
-        f"{tag}: Sim(3) ATE over {MONO_DRAWS} RANSAC draws {', '.join(f'{a:.5f}' for a in ates)} m: median {ate:.5f} m, bound "
-        f"{bound:.5f} m (the JAX package's pipelined median {jax_ate} m x {MONO_ATE_FACTOR} + {ATE_MARGIN_M} m) on {card}",
+        f"{tag}: states {states}; keyframes {[r.frame_idx for r in traj if r.made_keyframe]}; lagged frames "
+        f"{tr.lagged_frames}; Sim(3) ATE {ate:.5f} m (phase 10's synchronous run: {sim3_ate(sync_sys.trajectory, scene):.5f} m)",
         flush=True,
     )
-    if not ate <= bound:
-        fail(f"{tag}: median Sim(3) ATE {ate} m above {bound} m")
-    return keep
+    if [r.frame_idx for r in traj] != list(range(len(frames))):
+        fail(f"{tag}: trajectory frames {[r.frame_idx for r in traj]}, expected one entry per frame in order")
+    if first == len(states) or any(st != "OK" for st in states[first:]):
+        fail(f"{tag}: not every frame after initialization tracked OK")
+    if tr.lagged_frames != list(range(first + 1, len(frames))):
+        fail(f"{tag}: the frames after initialization did not all go through the classic pipeline")
+    upto = min(sync_sys.tracker.fallback_frames, default=len(frames))
+    a, b = sync_sys.trajectory[:upto], traj[:upto]
+    same = len(a) == upto and all(
+        np.array_equal(x.T_cw, y.T_cw) and x.made_keyframe == y.made_keyframe and x.state == y.state for x, y in zip(a, b)
+    )
+    print(
+        f"{tag}: phase 10's first fallback at frame {upto if upto < len(frames) else 'none'}; states, poses and keyframes of "
+        f"frames 0-{upto - 1} bit-equal to its synchronous run's: {same}",
+        flush=True,
+    )
+    if not same:
+        fail(f"{tag}: the classic pipeline differs from the synchronous run before a fallback")
+    check_mono_launches(tag, launches, PER_EXTRACTION, len(frames))
+    fs = sys_.frame_s[first + 1:]
+    print(
+        f"{tag}: frames after initialization: median {statistics.median(fs) * 1e3:.2f} ms/frame = "
+        f"{len(fs) / sum(fs):.2f} frames/s on {card}",
+        flush=True,
+    )
+    form_profile(tag, lambda: mono_system(cam, False, pipelined=True), frames, card, first + 3, 1, "frame")
+    return launches
 
 
 def radtan_phase(card):
@@ -2875,7 +2963,195 @@ def cli_phase(card):
     return launches
 
 
+# ---- the bench: tpuslam_torch.bench and `cli bench` (phase 22) ----
+def bench100_run(tag, card, per_extraction, noise_seed=None, via_cli: bool = False, devfeed: bool = True):
+    """One run_benchmark(100, 6) (through `python -m tpuslam_torch.cli bench
+    --frames 100 --warmup 6`, in process, with ``via_cli``; the device feed
+    with ``devfeed``) with the launch counts set to 0 just before and read
+    just after; its result checked: a JSON line per stage, the card named,
+    one OK trajectory entry per frame, the native map mirror in use, each
+    kernel's calls its count per extraction times the detector's runs the
+    result reports. Returns (result, launches)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from tpuslam_torch import bench, cli
+
+    out = io.StringIO()
+    os.environ["TPUSLAM_BENCH_DEVFEED"] = "1" if devfeed else "0"
+    reset_launches()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        if via_cli:
+            cli.main(["bench", "--frames", str(BENCH100_FRAMES), "--warmup", str(BENCH100_WARMUP)])
+        else:
+            bench.run_benchmark(frames=BENCH100_FRAMES, warmup=BENCH100_WARMUP, noise_seed=noise_seed)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = read_launches()
+    rows = [json.loads(line) for line in out.getvalue().strip().splitlines()]
+    res = rows[-1]
+    n = BENCH100_FRAMES + BENCH100_WARMUP
+    print(
+        f"{tag}: fps_wall {res['fps_wall']:.2f}, fps_median {res['fps_median']:.2f}, track_ms_median "
+        f"{res['track_ms_median']:.3f} ms, fps_device_feed {res.get('fps_device_feed', 'not run')}, local_ba_ms {res['local_ba_ms']:.2f} "
+        f"(by rung {res.get('local_ba_ms_by_rung')}, {res['ba_submitted']} solves), pretouch_s {res['pretouch_s']}, "
+        f"wire_mbps {res['wire_mbps']:.1f}, flush_ms {res['flush_ms']:.1f}, keyframes at frames {res['keyframe_frames']}, "
+        f"lines {res['lines']}, ATE {res['ate_rmse']:.5f} m; {len(rows)} JSON lines, {wall:.1f} s in all; device "
+        f"{res['device']!r}, power limit {res['power_limit_w']} W ({card})",
+        flush=True,
+    )
+    limit = float(card.rsplit(",", 1)[1].split()[0])
+    if len(rows) != 2 + devfeed or "fps_device_feed" in rows[0] or res["device"] != torch.cuda.get_device_name(0):
+        fail(f"{tag}: {len(rows)} JSON lines, device {res['device']!r}")
+    if res["power_limit_w"] != limit:
+        fail(f"{tag}: power limit {res['power_limit_w']} W in the result, {limit} W from nvidia-smi")
+    if res["frames"] != BENCH100_FRAMES or res["tracked_ok"] != n:
+        fail(f"{tag}: {res['tracked_ok']} of {n} frames tracked OK in frame order")
+    if res["native_map"] is not True:
+        fail(f"{tag}: the map's native mirror was not in use")
+    calls, device = launches
+    want_lpc = launches_per_call()
+    ext = res["extractions"]
+    n_ext = sum(ext.values())
+    for name, per in per_extraction.items():
+        want = per * n_ext
+        if calls[name] != want or device[name] != want * want_lpc[name] or want == 0:
+            fail(f"{tag}: {name}: {calls[name]} calls and {device[name]} device launches, expected {want} calls ({per} x "
+                 f"{n_ext} extractions {ext}) of {want_lpc[name]} launches")
+    print(f"{tag}: kernel calls {({k: calls[k] for k in per_extraction})} = per extraction x {n_ext} extractions {ext}", flush=True)
+    return res, launches
+
+
+def bench100_child() -> int:
+    """One seed run of phase 22 in a process of its own (see
+    bench100_seeds): sys.argv[1] is the JSON [tag, points, seed]. Runs
+    bench100_run with its checks (a failed check exits 1) and prints the
+    ATE and fps_wall as the last line."""
+    tag, points, seed = json.loads(sys.argv[1])
+    os.environ["TPUSLAM_NATIVE_MAP"] = "1"
+    os.environ["TPUSLAM_BENCH_POINTS"] = "1" if points else "0"
+    res, _ = bench100_run(tag, card_line(), PER_EXTRACTION_HYBRID if points else PER_EXTRACTION, noise_seed=seed, devfeed=False)
+    print(json.dumps({"ate_rmse": res["ate_rmse"], "fps_wall": res["fps_wall"]}), flush=True)
+    return 0
+
+
+def bench100_seeds(jobs) -> dict:
+    """Phase 22's seed runs ``jobs`` ((tag, points, seed), ...), each in a
+    process of its own (bench100_child), BENCH100_SLOTS at a time on the
+    one card: a run's result does not depend on its timing, so they share
+    the host, and the rates they print are not the bench's (the solo runs
+    give those). Each child's output is printed; a child that fails, or
+    runs past BENCH100_CHILD_S, fails the phase once all have ended.
+    Returns {(points, seed): {"ate_rmse", "fps_wall"}}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    code = "import sys, chip_smoke; sys.exit(chip_smoke.bench100_child())"
+
+    def run(job):
+        try:
+            return subprocess.run([sys.executable, "-c", code, json.dumps(job)], cwd=REPO, capture_output=True, text=True,
+                                  timeout=BENCH100_CHILD_S)
+        except subprocess.TimeoutExpired as e:  # subprocess.run has killed the child
+            return subprocess.CompletedProcess(e.cmd, -9, e.stdout or "", f"stopped after {BENCH100_CHILD_S} s")
+
+    with ThreadPoolExecutor(BENCH100_SLOTS) as pool:
+        done = list(pool.map(run, jobs))
+    out = {}
+    for (tag, points, seed), proc in zip(jobs, done):
+        stdout = proc.stdout if isinstance(proc.stdout, str) else proc.stdout.decode()
+        for line in stdout.strip().splitlines()[:-1]:
+            print(line, flush=True)
+        if proc.returncode != 0:
+            print(stdout.strip().splitlines()[-1:], proc.stderr[-4000:], flush=True)
+            fail(f"{tag} seed {seed}: its process ended with code {proc.returncode}")
+        out[(points, seed)] = json.loads(stdout.strip().splitlines()[-1])
+    return out
+
+
+def bench100_phase(card):
+    """Phase 22: the bench, lines only (its CLI once, then noise seeds 0-4)
+    and with hybrid points over frames with dots (seeds 0-4), each seed
+    set's median ATE within the JAX package's median x 1.05 + 0.01 m; then
+    run_ba_benchmark. The CLI run and the hybrid run of seed 0 run alone,
+    with the device feed: their rates are the bench's; the other seed runs
+    share the host (bench100_seeds). Returns the launches of the CLI run
+    and of the hybrid run of seed 0."""
+    t0 = time.perf_counter()
+    os.environ.pop("TPUSLAM_BENCH_POINTS", None)
+    cli_res, cli_launches = bench100_run("bench100 cli", card, PER_EXTRACTION, via_cli=True)
+    print(f"bench100 cli: ATE {cli_res['ate_rmse']!r} m (the JAX package's on the same frames {JAX_BENCH100_ATE_M!r} m)", flush=True)
+    os.environ["TPUSLAM_BENCH_POINTS"] = "1"
+    hybrid_res, hybrid_launches = bench100_run("bench100 hybrid seed 0", card, PER_EXTRACTION_HYBRID, noise_seed=0)
+    os.environ.pop("TPUSLAM_BENCH_POINTS", None)
+    os.environ.pop("TPUSLAM_BENCH_DEVFEED", None)
+    t = time.perf_counter()
+    jobs = [(f"bench100 seed {k} ({BENCH100_SLOTS} runs at once)", False, k) for k in BENCH100_SEEDS]
+    jobs += [(f"bench100 hybrid seed {k} ({BENCH100_SLOTS} runs at once)", True, k) for k in BENCH100_SEEDS if k != 0]
+    got = bench100_seeds(jobs)
+    got[(True, 0)] = hybrid_res
+    print(f"bench100: {len(jobs)} seed runs, {BENCH100_SLOTS} at a time, {time.perf_counter() - t:.1f} s", flush=True)
+    for tag, points, jax_ates, solo in (
+        ("bench100", False, JAX_BENCH100_SEED_ATES_M, cli_res), ("bench100 hybrid", True, JAX_HYBRID_BENCH100_SEED_ATES_M, hybrid_res)
+    ):
+        ates = [got[(points, k)]["ate_rmse"] for k in BENCH100_SEEDS]
+        med, jmed = statistics.median(ates), statistics.median(jax_ates)
+        bound = jmed * BENCH100_ATE_FACTOR + ATE_MARGIN_M
+        print(f"{tag}: ATE over noise seeds {list(BENCH100_SEEDS)} {ates}, median {med:.5f} m; the JAX package's {list(jax_ates)}, "
+              f"median {jmed:.5f} m; bound {bound:.5f} m (x {BENCH100_ATE_FACTOR} + {ATE_MARGIN_M}); fps_wall of the run alone "
+              f"{solo['fps_wall']:.2f}, fps_device_feed {solo['fps_device_feed']:.2f} on {card}", flush=True)
+        if not med <= bound:
+            fail(f"{tag}: median ATE {med} m above {bound} m")
+    ba_bench_phase(card)
+    print(f"bench100: phase {time.perf_counter() - t0:.1f} s on {card}", flush=True)
+    return cli_launches, hybrid_launches
+
+
+def ba_bench_phase(card) -> None:
+    """run_ba_benchmark on the card: each rung's ms per solve and first
+    solve, its launches per solve (the host's launch calls under
+    torch.profiler), and its toy problem solved on the CPU
+    too: the same initial cost (1e-5 relative), and both final costs at
+    the float32 floor of these noiseless problems (at most 1e-8 of the
+    initial cost; the final costs are rounding, so not compared)."""
+    import numpy as np
+    import torch
+
+    from tpuslam_torch import bench
+    from tpuslam_torch.backend.lm import LMConfig, run_lm
+    from tpuslam_torch.parallel.sharded_ba import _toy_problem
+
+    res = bench.run_ba_benchmark(quiet=True)
+    rngs = {"cuda": np.random.default_rng(0), "cpu": np.random.default_rng(0)}
+    for P_, L_, OL_ in bench.BA_RUNGS:
+        probs = {d: _toy_problem(rng, P_=P_, L=L_, OL=OL_, cam=bench.VGA, device=d) for d, rng in rngs.items()}
+        cost0 = {d: float(run_lm(p, bench.VGA, LMConfig(max_iters=0)).cost) for d, p in probs.items()}
+        cpu = float(run_lm(probs["cpu"], bench.VGA, LMConfig(max_iters=8)).cost)
+        def solve():
+            return run_lm(probs["cuda"], bench.VGA, LMConfig(max_iters=8)).cost.item()
+
+        solve()
+        # the host's launch calls are always recorded; a trace here can lose
+        # some device records (PERF.md section 7), so it is not taken again
+        prof, (busy_us, n_records, _) = profiled(solve, whole=False)
+        n = device_events(prof)[-1]
+        key = f"P{P_}_L{L_}"
+        got = res[f"ba_cost_{key}"]
+        print(f"ba bench {(P_, L_, OL_)}: {res[f'ba_ms_{key}']:.2f} ms per solve (mean of 5), first solve "
+              f"{res[f'ba_first_s_{key}'] * 1e3:.2f} ms, {n} kernel launch calls per solve (8 LM iterations; the trace "
+              f"holds {n_records} device records, {busy_us / 1e3:.3f} ms device busy); cost "
+              f"{cost0['cuda']!r} -> {got!r} on the card, {cost0['cpu']!r} -> {cpu!r} on the CPU ({card})", flush=True)
+        if not abs(cost0["cuda"] - cost0["cpu"]) <= 1e-5 * cost0["cpu"]:
+            fail(f"ba bench {key}: initial cost {cost0['cuda']} on the card, {cost0['cpu']} on the CPU")
+        if not (got <= 1e-8 * cost0["cuda"] and cpu <= 1e-8 * cost0["cpu"]):
+            fail(f"ba bench {key}: final cost {got} on the card, {cpu} on the CPU, from {cost0['cuda']}")
+    torch.cuda.synchronize()
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
@@ -2898,28 +3174,60 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"ptxas: {line.strip()}", flush=True)
 
+    laps = [time.perf_counter()]
+
+    def lap(what: str) -> None:
+        laps.append(time.perf_counter())
+        print(f"wall: {what} {laps[-1] - laps[-2]:.1f} s, {laps[-1] - t_start:.1f} s since the start", flush=True)
+
     cam, scene, frames = make_frames()
     kres = kernel_phase(frames, card)
+    lap("phase 3 kernels")
+
+    # phases 4-21 hold the port to JAX references taken with the JAX map's
+    # native mirror off, so the port's mirror is off there too
+    os.environ["TPUSLAM_NATIVE_MAP"] = "0"
 
     slice_sys, slice_launches = run_slice("slice", cam, scene, frames, card, mapping=False, jax_ate=JAX_ATE_M)
+    lap("phase 4 slice")
     profile_phase(cam, frames, card)
+    lap("phase 4 profile")
     sys_, map_launches = run_slice("mapping", cam, scene, frames, card, mapping=True, jax_ate=JAX_MAPPING_ATE_M)
+    lap("phase 5 mapping")
     ba_phase(sys_, cam, card)
+    lap("phase 6 BA")
     reloc_phase(sys_, scene, frames)
+    lap("phase 7 relocalization")
     bench_launches, bench_traj = bench_phase(cam, scene, frames, card)
+    lap("phase 8 bench")
     repeat_phase(cam, frames, bench_traj)
+    lap("phase 8 repeat")
     bench_profile_phase(cam, frames, card)
+    lap("phase 8 profile")
     _, dot_scene_, dot_frames = make_frames(draw_points=True)
     hybrid_launches, _ = bench_phase(cam, dot_scene_, dot_frames, card, points=True)
+    lap("phase 9 hybrid bench")
     bench_profile_phase(cam, dot_frames, card, points=True)
+    lap("phase 9 profile")
     loop_launches = loop_phase(card)
-    mono_launches, mono_lines_launches = mono_phase(card)
+    lap("phase 9 loop")
+    mono_launches, mono_lines_launches, mono_lines_sys = mono_phase(card)
+    lap("phase 10 mono")
     mono_loop_launches = mono_loop_phase(card)
+    lap("phase 11 mono loop")
     forms = pipelined_phases(card, cam, scene, frames, slice_sys)
-    pmono_launches = pipelined_mono_phase(card)
+    lap("phase 12-17 pipelined forms")
+    pmono_launches = pipelined_mono_phase(card, mono_lines_sys)
+    lap("phase 18 pipelined mono")
     radtan_launches = radtan_phase(card)
+    lap("phase 19 radtan")
     multi_kres, multi_launches = multi_phase(card)
+    lap("phase 20 config #5")
     cli_launches = cli_phase(card)
+    lap("phase 21 host surface")
+    os.environ["TPUSLAM_NATIVE_MAP"] = "1"  # phase 22 runs with the mirror on, the JAX bench's default
+    bench100_launches, bench100_hybrid_launches = bench100_phase(card)
+    lap("phase 22 bench")
     new_paths = {tag.replace(" ", "_"): launches[0] for tag, (launches, _) in forms.items()}
     new_paths.update(pipelined_mono=pmono_launches[0], radtan=radtan_launches[0], cli=cli_launches[0])
 
@@ -2937,6 +3245,7 @@ def main() -> int:
                 "bench_hybrid": hybrid_launches[0][name], "loop": loop_launches[0][name], "mono": calls[name],
                 "mono_lines": mono_lines_launches[0][name], "mono_loop": mono_loop_launches[0][name],
                 **{path: calls_[name] for path, calls_ in new_paths.items()},
+                "bench100": bench100_launches[0][name], "bench100_hybrid": bench100_hybrid_launches[0][name],
             },
             **kres[name],
         )
@@ -2972,6 +3281,7 @@ def main() -> int:
         f"of {TRACES['records_lost']} kernel launches",
         flush=True,
     )
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all on {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(

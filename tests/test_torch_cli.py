@@ -1,7 +1,8 @@
 """The command line: tpuslam_torch.cli against tpuslam.cli on one synthetic
 QVGA dataset written once (by this package's writer; both CLIs read the
 same .npy frames). The JAX CLI runs with cv2 hidden, keyframes finished at
-once and its native map mirror off (torch_parity.JaxAsOnTheCard), each
+once and its native map mirror off (torch_parity.JaxAsOnTheCard), and this
+package's run with its mirror off too (torch_parity.python_graph), each
 with its defaults: synchronous descriptor stereo, mapping and loop closing.
 
 Run as a script, it prints chip_smoke.py's phase-21 references (the JAX
@@ -23,7 +24,7 @@ if __name__ == "__main__":
 import numpy as np
 import pytest
 
-from torch_parity import QVGA, JaxAsOnTheCard
+from torch_parity import QVGA, JaxAsOnTheCard, python_graph
 from tpuslam_torch import cli
 from tpuslam_torch.convert import map_state
 from tpuslam_torch.io.datasets import load_synthetic, write_synthetic_dataset
@@ -59,10 +60,11 @@ def runs(tmp_path_factory):
     root = str(d / "ds")
     write_synthetic_dataset(root, n_frames=N_FRAMES, seed=0, cam=QVGA, n_segments=140, motion_scale=0.02)
     paths = {k: str(d / k) for k in ("t_traj.txt", "j_traj.txt", "t_log.jsonl", "j_log.jsonl", "map.npz")}
-    t = _summary(_main(cli.main, [
-        "run", "--device", "cpu", "--dataset", "synthetic", "--root", root, "--out", paths["t_traj.txt"],
-        "--log", paths["t_log.jsonl"], "--save-map", paths["map.npz"],
-    ]))
+    with python_graph():
+        t = _summary(_main(cli.main, [
+            "run", "--device", "cpu", "--dataset", "synthetic", "--root", root, "--out", paths["t_traj.txt"],
+            "--log", paths["t_log.jsonl"], "--save-map", paths["map.npz"],
+        ]))
     with JaxAsOnTheCard():
         j = _summary(_main(jcli.main, [
             "--platform", "cpu", "run", "--dataset", "synthetic", "--root", root, "--out", paths["j_traj.txt"],
@@ -135,17 +137,29 @@ def test_profile_writes_a_trace(runs, tmp_path):
     assert len(trace["traceEvents"]) > 100
 
 
-def test_device_and_bench(runs):
+def test_device_and_bench(runs, monkeypatch):
     """--device defaults to cuda with no fallback (it raises without a
-    card); bench is not ported."""
+    card), for run and bench; `bench --device cpu` at QVGA (2 timed frames
+    after 6) prints the bench's JSON lines, the last with its three
+    metrics."""
     import torch
 
     root, _, _, _ = runs
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             _main(cli.main, ["run", "--dataset", "synthetic", "--root", root])
-    with pytest.raises(SystemExit, match="item 5"):
-        cli.main(["bench"])
+        with pytest.raises(RuntimeError, match="cuda"):
+            _main(cli.main, ["bench"])
+    for k in [k for k in os.environ if k.startswith("TPUSLAM_BENCH_")]:
+        monkeypatch.delenv(k)
+    monkeypatch.setenv("TPUSLAM_BENCH_CAM", "qvga")
+    monkeypatch.setenv("TPUSLAM_BENCH_DEVFEED", "0")
+    lines = _main(cli.main, ["bench", "--device", "cpu", "--frames", "2", "--warmup", "6"]).strip().splitlines()
+    rows = [json.loads(line) for line in lines]
+    assert len(rows) == 2 and rows[0]["frames"] == rows[1]["frames"] == 2
+    last = rows[-1]
+    assert last["device"] == "cpu" and last["fps_wall"] > 0 and last["ate_rmse"] < 0.05 and "local_ba_ms" in last
+    assert last["tracked_ok"] == 8 and last["native_map"] is True
 
 
 def test_make_synthetic(tmp_path):

@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 
 from test_torch_semidirect import ANCHOR_TOL_M, ANCHOR_TOL_RAD, VGA, _ate, _pose_gap, jax_bench_config
-from torch_parity import JaxAsOnTheCard, dot_scene, np_of
+from torch_parity import JaxAsOnTheCard, dot_scene, np_of, python_graph
 from tpuslam_torch.convert import chunk_inputs_from, point_local_from, tracker_config_from
 from tpuslam_torch.frontend import pipeline as tpipe
 from tpuslam_torch.frontend.frame import FrontendParams, host_prescale
@@ -103,7 +103,8 @@ def port_chunk(chunk_case):
 
     case = chunk_case
     frames, T_last, T_prev, local = chunk_inputs_from(case["stack"], case["T_last"], case["T_prev"], case["local"])
-    tr = Tracker(VGA, SlamMap(), tracker_config_from(case["jcfg"]), device="cpu")
+    with python_graph():
+        tr = Tracker(VGA, SlamMap(), tracker_config_from(case["jcfg"]), device="cpu")
     c = tr.cfg
     return tpipe.fused_stereo_semidirect_hybrid(
         frames, T_last, T_prev, local, point_local_from(case["plocal"]), tr._fxb, VGA, c.frontend, c.search_coarse,
@@ -187,7 +188,8 @@ def _bench_runs(seed: int):
     scene, frames = bench_dot_scene(N_FRAMES, seed=seed)
     js, jax_traj = run_jax(frames, *jax_hybrid_bench_config())
     tcfg, mcfg = bench_configs(points=True)
-    ts = System(VGA, sensor="stereo", mapping=True, loop_closing=False, tracker_cfg=tcfg, mapper_cfg=mcfg, device="cpu")
+    with python_graph():
+        ts = System(VGA, sensor="stereo", mapping=True, loop_closing=False, tracker_cfg=tcfg, mapper_cfg=mcfg, device="cpu")
     for f, (il, ir) in enumerate(frames):
         ts.track_stereo(il, ir, f * 0.05)
     ts.shutdown()

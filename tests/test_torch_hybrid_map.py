@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from test_torch_semidirect import _ate, _pose_gap
-from torch_parity import DOTS, JaxAsOnTheCard, dot_scene, np_of
+from torch_parity import DOTS, JaxAsOnTheCard, dot_scene, np_of, python_graph
 from tpuslam_torch.backend import local_ba as tlba
 from tpuslam_torch.backend.mapping import LocalMapper
 from tpuslam_torch.convert import map_state, mapper_config_from, slam_map_from, tracker_config_from
@@ -57,7 +57,8 @@ def runs():
         for f, (il, ir) in enumerate(frames):
             js.track_stereo(il, ir, f * 0.05)
         js.shutdown()
-    ts = System(DOTS, sensor="stereo", mapping=True, loop_closing=False, tracker_cfg=tracker_config_from(_jax_config()), device="cpu")
+    with python_graph():
+        ts = System(DOTS, sensor="stereo", mapping=True, loop_closing=False, tracker_cfg=tracker_config_from(_jax_config()), device="cpu")
     for f, (il, ir) in enumerate(frames):
         ts.track_stereo(il, ir, f * 0.05)
     ts.shutdown()

@@ -39,7 +39,7 @@ if __name__ == "__main__":
 import numpy as np
 import pytest
 
-from torch_parity import QVGA, JaxAsOnTheCard, stereo_scene
+from torch_parity import QVGA, JaxAsOnTheCard, python_graph, stereo_scene
 from tpuslam_torch import Intrinsics
 from tpuslam_torch.backend import loop_closing as tlc
 from tpuslam_torch.backend.global_ba import global_bundle_adjustment
@@ -423,7 +423,8 @@ def test_short_run_with_loop_closing():
     runs = []
     for loop in (True, False):
         tcfg = TrackerConfig(frontend=FrontendParams(max_lines=128, lsd=LSDParams(ccl_rounds=32)), max_frames_between_kf=2)
-        s = System(QVGA, tracker_cfg=tcfg, loop_closing=loop, device="cpu")
+        with python_graph():
+            s = System(QVGA, tracker_cfg=tcfg, loop_closing=loop, device="cpu")
         for f, (il, ir) in enumerate(frames):
             s.track_stereo(il, ir, 0.05 * f)
         s.shutdown()

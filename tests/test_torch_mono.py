@@ -47,7 +47,7 @@ import pytest
 
 from chip_smoke import kf_map_ate, sim3_ate
 from mono_parity import jax_e8_float64, jax_samples, synthetic_point_features
-from torch_parity import JaxAsOnTheCard
+from torch_parity import JaxAsOnTheCard, python_graph
 
 MONO_ENV = {**JaxAsOnTheCard.ENV, "TPUSLAM_WARM_LOOP": "0", "TPUSLAM_BA_SUBPROCESS": "0"}
 
@@ -197,7 +197,8 @@ def _torch_synthetic_run(points: bool):
     _, feats = _synthetic_sequence(points)
     tcfg, mcfg = _synthetic_cfgs(points)
     cam = Intrinsics(*CAM)
-    smap = SlamMap()
+    with python_graph():
+        smap = SlamMap()
     tracker = Tracker(cam, smap, tracker_config_from(tcfg), device="cpu")
     tracker.mono_init = MonoInitializer(cam, sampler=jax_samples)
     mapper = LocalMapper(smap, cam, mapper_config_from(mcfg), mono=True, device="cpu")
@@ -375,7 +376,8 @@ def system_runs():
     for points in (True, False):
         jcfg = mono_tracker_cfg(points, max_frames_between_kf=3)
         js, _ = run_jax_mono(cam, frames, jcfg, loop_closing=False)
-        ts = System(cam, sensor="mono", loop_closing=False, tracker_cfg=tracker_config_from(jcfg), device="cpu")
+        with python_graph():
+            ts = System(cam, sensor="mono", loop_closing=False, tracker_cfg=tracker_config_from(jcfg), device="cpu")
         for f, img in enumerate(frames):
             ts.track_monocular(img, f * 0.05)
         ts.shutdown()

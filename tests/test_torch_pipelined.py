@@ -35,7 +35,7 @@ if __name__ == "__main__":
 import numpy as np
 import pytest
 
-from torch_parity import DOTS, QVGA, JaxAsOnTheCard, dot_scene, np_of, stereo_scene
+from torch_parity import DOTS, QVGA, JaxAsOnTheCard, dot_scene, np_of, python_graph, stereo_scene
 from torch_pipelined_parity import ate, effective_dispatches, keyframe_split, pose_gap, run_jax_tracker, run_port_tracker
 from tpuslam_torch.convert import chunk_inputs_from, point_local_from, tracker_config_from
 from tpuslam_torch.frontend import pipeline as tpipe
@@ -190,7 +190,8 @@ def run_port_program(name, case, jcfg, device="cpu"):
 
     cam = case["cam"]
     pairs, T_last, T_prev, local = chunk_inputs_from(case["pairs"], case["T_last"], case["T_prev"], case["local"], device)
-    tr = Tracker(cam, SlamMap(), tracker_config_from(jcfg), device=device)
+    with python_graph():
+        tr = Tracker(cam, SlamMap(), tracker_config_from(jcfg), device=device)
     c = tr.cfg
     if name == "hybrid":
         return tpipe.fused_stereo_frame_hybrid(
@@ -440,7 +441,8 @@ if __name__ == "__main__":
                 from tpuslam_torch.system import System, bench_configs
 
                 tcfg, mcfg = bench_configs(**switches)
-                ts = System(cam, sensor="stereo", mapping=True, loop_closing=False, tracker_cfg=tcfg, mapper_cfg=mcfg, device="cpu")
+                with python_graph():
+                    ts = System(cam, sensor="stereo", mapping=True, loop_closing=False, tracker_cfg=tcfg, mapper_cfg=mcfg, device="cpu")
                 for f, (il, ir) in enumerate(frames):
                     ts.track_stereo(il, ir, f * 0.05)
                 ts.shutdown()

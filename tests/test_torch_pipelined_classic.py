@@ -32,7 +32,7 @@ import dataclasses
 import numpy as np
 import pytest
 
-from torch_parity import QVGA, stereo_scene
+from torch_parity import QVGA, python_graph, stereo_scene
 from torch_pipelined_parity import ate, pose_gap, run_jax_tracker, run_port_tracker
 
 N_FRAMES = 12
@@ -101,7 +101,8 @@ def _system_run(tcfg, frames, jax: bool):
     from tpuslam_torch.convert import tracker_config_from
     from tpuslam_torch.system import System
 
-    s = System(QVGA, mapping=True, loop_closing=False, tracker_cfg=tracker_config_from(tcfg), device="cpu")
+    with python_graph():  # held to the JAX System run with its mirror off
+        s = System(QVGA, mapping=True, loop_closing=False, tracker_cfg=tracker_config_from(tcfg), device="cpu")
     for f, (il, ir) in enumerate(frames):
         s.track_stereo(il, ir, f * 0.05)
     s.shutdown()
@@ -169,7 +170,8 @@ def _mono_runs():
     cam = Intrinsics(*CAM)
     runs = []
     for pipelined in (True, False):
-        tt = Tracker(cam, SlamMap(), tracker_config_from(dataclasses.replace(tcfg, pipelined=pipelined)), device="cpu")
+        with python_graph():
+            tt = Tracker(cam, SlamMap(), tracker_config_from(dataclasses.replace(tcfg, pipelined=pipelined)), device="cpu")
         tt.mono_init = MonoInitializer(cam, sampler=jax_samples)
         tm = LocalMapper(tt.map, cam, mapper_config_from(mcfg), mono=True, device="cpu")
         tt.on_new_keyframe, tm.on_map_changed = tm.process, tt.invalidate_local_map

@@ -19,7 +19,7 @@ if __name__ == "__main__":
 import numpy as np
 import pytest
 
-from torch_parity import QVGA, JaxAsOnTheCard, np_of, stereo_scene
+from torch_parity import QVGA, JaxAsOnTheCard, np_of, python_graph, stereo_scene
 from tpuslam_torch import Intrinsics
 from tpuslam_torch.convert import chunk_inputs_from, mapper_config_from, tracker_config_from
 from tpuslam_torch.eval.ate import absolute_trajectory_error
@@ -156,7 +156,8 @@ def run_port_chunk(case, device="cpu"):
     from tpuslam_torch.slammap.map import SlamMap
 
     frames, T_last, T_prev, local = chunk_inputs_from(case["stack"], case["T_last"], case["T_prev"], case["local"], device)
-    tr = Tracker(VGA, SlamMap(), tracker_config_from(case["jcfg"]), device=device)
+    with python_graph():
+        tr = Tracker(VGA, SlamMap(), tracker_config_from(case["jcfg"]), device=device)
     c = tr.cfg
     out = tpipe.fused_stereo_semidirect(
         frames, T_last, T_prev, local, tr._fxb, VGA, c.frontend, c.search_coarse, c.search_fine, c.pose_opt,
@@ -231,10 +232,11 @@ def system_runs(request):
     scene, frames = stereo_scene(n, cam)
     jcfg, jmcfg = config()
     jax_traj = run_jax(cam, frames, jcfg, jmcfg)
-    ts = System(
-        cam, sensor="stereo", mapping=True, loop_closing=False, tracker_cfg=tracker_config_from(jcfg),
-        mapper_cfg=None if jmcfg is None else mapper_config_from(jmcfg), device="cpu",
-    )
+    with python_graph():
+        ts = System(
+            cam, sensor="stereo", mapping=True, loop_closing=False, tracker_cfg=tracker_config_from(jcfg),
+            mapper_cfg=None if jmcfg is None else mapper_config_from(jmcfg), device="cpu",
+        )
     for f, (il, ir) in enumerate(frames):
         ts.track_stereo(il, ir, f * 0.05)
     ts.shutdown()

@@ -39,7 +39,8 @@ def _package(pkg):
     from tpuslam_torch.kernels.fast import PointFeatures
     from tpuslam_torch.slammap.map import SlamMap
 
-    return SlamMap, FrameFeatures, PointFeatures, serialize.save_map, serialize.load_map
+    # the python graph as on the JAX side: the native mirror orders covisibility ties its own way
+    return (lambda **kw: SlamMap(native=False, **kw)), FrameFeatures, PointFeatures, serialize.save_map, serialize.load_map
 
 
 def _words(rng, *shape):

@@ -4,6 +4,7 @@ Everything is made with numpy from a seed and handed to both packages as
 numpy arrays. Images are QVGA (320x240) or smaller.
 """
 
+import contextlib
 import os
 import sys
 
@@ -91,3 +92,43 @@ class JaxAsOnTheCard:
             sys.modules.pop("cv2", None)
         else:
             sys.modules["cv2"] = self._cv2
+
+
+class JaxWithMirror(JaxAsOnTheCard):
+    """JaxAsOnTheCard with the JAX map's native graph mirror on, the JAX
+    package's default (pair it with :func:`jax_native_library`)."""
+
+    ENV = {**JaxAsOnTheCard.ENV, "TPUSLAM_NATIVE_MAP": "1"}
+
+
+@contextlib.contextmanager
+def jax_native_library(build_dir):
+    """The JAX package's native map library loaded: where this process has
+    not loaded it yet, built into ``build_dir``, never into native/build
+    (the JAX tests' own build there races between workers)."""
+    from tpuslam.slammap import native as jn
+
+    saved = jn._OUT_DIR, jn._SO
+    if jn._LIB is None:
+        jn._OUT_DIR, jn._SO, jn._TRIED = str(build_dir), os.path.join(str(build_dir), "libmapstore.so"), False
+    try:
+        assert jn.load_native() is not None, "the JAX native map library did not load"
+        yield jn
+    finally:
+        jn._OUT_DIR, jn._SO = saved
+
+
+@contextlib.contextmanager
+def python_graph():
+    """TPUSLAM_NATIVE_MAP=0 for the port's SlamMaps built inside: a port run
+    held to a JaxAsOnTheCard run counts covisibility as that run does (the
+    python dicts, ties in insertion order)."""
+    old = os.environ.get("TPUSLAM_NATIVE_MAP")
+    os.environ["TPUSLAM_NATIVE_MAP"] = "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("TPUSLAM_NATIVE_MAP", None)
+        else:
+            os.environ["TPUSLAM_NATIVE_MAP"] = old

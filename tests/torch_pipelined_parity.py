@@ -12,7 +12,7 @@ the map exactly as the JAX package's frame k does.
 
 import numpy as np
 
-from torch_parity import JaxAsOnTheCard
+from torch_parity import JaxAsOnTheCard, python_graph
 
 PROGRAMS = ("fused_stereo_frame", "fused_stereo_frame_hybrid", "fused_stereo_chunk", "fused_stereo_semidirect")
 
@@ -97,7 +97,8 @@ def run_port_tracker(cam, frames, jcfg, mono: bool = False):
     from tpuslam_torch.frontend.tracking import Tracker
     from tpuslam_torch.slammap.map import SlamMap
 
-    tr = Tracker(cam, SlamMap(), tracker_config_from(jcfg), device="cpu")
+    with python_graph():
+        tr = Tracker(cam, SlamMap(), tracker_config_from(jcfg), device="cpu")
     order = SnapshotOrder(tr, ttracking)
     try:
         results = _drive(tr, frames, mono)

@@ -7,7 +7,7 @@
 
 ``run --device`` picks the torch device (it replaces the JAX CLI's
 ``--platform``), the card by default; without a card ``cuda`` raises and
-``cpu`` must be asked for. ``bench`` is registered but not ported yet.
+``cpu`` must be asked for.
 """
 
 from __future__ import annotations
@@ -153,9 +153,9 @@ def cmd_eval(args):
 
 
 def cmd_bench(args):
-    raise SystemExit(
-        "bench: the torch bench (tpuslam/bench.py) is not ported yet; it is ROADMAP.md section 1, item 5"
-    )
+    from tpuslam_torch.bench import run_benchmark
+
+    run_benchmark(frames=args.frames, warmup=args.warmup, device=args.device)
 
 
 def main(argv=None):
@@ -199,7 +199,8 @@ def main(argv=None):
     e.add_argument("--scale", action="store_true")
     e.set_defaults(fn=cmd_eval)
 
-    b = sub.add_parser("bench", help="tracking FPS benchmark (not ported yet)")
+    b = sub.add_parser("bench", help="tracking FPS benchmark")
+    b.add_argument("--device", choices=["cuda", "cpu"], default="cuda", help="torch device (the card unless cpu is asked for)")
     b.add_argument("--frames", type=int, default=100)
     b.add_argument("--warmup", type=int, default=5)
     b.set_defaults(fn=cmd_bench)

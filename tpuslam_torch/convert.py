@@ -329,9 +329,11 @@ def map_state(m) -> dict:
 
 
 def slam_map_from(state: Mapping) -> SlamMap:
-    """This package's SlamMap from a :func:`map_state` snapshot."""
+    """This package's SlamMap from a :func:`map_state` snapshot, on the
+    python covisibility graph (no native mirror: the stores are restored
+    array by array, as a loaded map is)."""
     ls, ps = state["lines"], state["points"]
-    m = SlamMap(line_capacity=len(ls["alive"]), point_capacity=len(ps["alive"]))
+    m = SlamMap(line_capacity=len(ls["alive"]), point_capacity=len(ps["alive"]), native=False)
     _restore_store(m.lines, ls, "plucker", "endpoints")
     _restore_store(m.points, ps, "xyz")
     for k in state["keyframes"]:

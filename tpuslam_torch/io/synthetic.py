@@ -11,6 +11,7 @@ and are copied here step for step.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -333,6 +334,14 @@ def _splat(img: np.ndarray, cx: float, cy: float, sigma: float, amp: float) -> N
     img[y0c:y1c, x0c:x1c] -= amp * g
 
 
+@functools.lru_cache(maxsize=None)
+def _satellites(q: int):
+    """Point q's satellite splat offsets (px): up to three draws in [-9, 9]^2
+    from RandomState(1000 + q), those at least 4 px off the centre."""
+    offs = np.random.RandomState(1000 + q).randint(-9, 10, (3, 2))
+    return tuple((float(o[0]), float(o[1])) for o in offs if np.max(np.abs(o)) >= 4)
+
+
 def render_wireframe_image(
     scene: SyntheticScene,
     frame: int,
@@ -364,10 +373,8 @@ def render_wireframe_image(
         for q_ in np.nonzero(obs.pt_visible)[0]:
             cx, cy = float(obs.pt_uv[q_, 0]), float(obs.pt_uv[q_, 1])
             _splat(img, cx, cy, 0.5 * dot_radius + 0.5, amp)
-            rsq = np.random.RandomState(1000 + int(q_))
-            for o in rsq.randint(-9, 10, (3, 2)):
-                if np.max(np.abs(o)) >= 4:  # keep satellites off the centre
-                    _splat(img, cx + float(o[0]), cy + float(o[1]), 0.8, amp)
+            for ox, oy in _satellites(int(q_)):
+                _splat(img, cx + ox, cy + oy, 0.8, amp)
         np.clip(img, 0, 255, out=img)
     if noise > 0 and rng is not None:
         img = img + rng.normal(size=img.shape) * noise

@@ -4,12 +4,16 @@ Counterpart of ``tpuslam.slammap.map``: fixed-capacity struct-of-arrays
 line and point stores in numpy (LIFO free lists, so landmark ids follow the
 JAX stores'), keyframes holding numpy copies of their line features and,
 with the hybrid front end, their corner features, and the covisibility
-graph as python dicts counting shared lines and points. The JAX map's native
-C++ graph mirror (a faster recount of the same dicts) is not ported.
+graph as python dicts counting shared lines and points. As in the JAX map, the
+line store keeps a native graph mirror (``slammap/native.py``) in lockstep
+unless ``TPUSLAM_NATIVE_MAP=0``: ``update_connections`` takes its line
+counts from it, sorted by count, so covisibility ties fall in its order,
+the JAX package's default.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -98,6 +102,9 @@ class MapLineStore:
 
     def __init__(self, capacity: int = 16384, desc_words: int = 8):
         self.capacity = capacity
+        # the native graph mirror (NativeMapStore) or None; every mutation
+        # below is mirrored, and both free lists are LIFO, so ids agree
+        self.mirror = None
         self.plucker = np.zeros((capacity, 6), np.float32)
         self.endpoints = np.zeros((capacity, 2, 3), np.float32)  # world 3D
         self.alive = np.zeros(capacity, bool)
@@ -123,6 +130,8 @@ class MapLineStore:
         self.n_obs[lid] = 0
         self.first_kf[lid] = first_kf
         self.obs[lid] = {}
+        if self.mirror is not None and self.mirror.allocate(first_kf) != lid:
+            self.mirror = None  # lockstep broken (a capacity mismatch): drop it, as the JAX store does
         return lid
 
     def add_observation(self, lid: int, kf: KeyFrame, slot: int):
@@ -131,6 +140,8 @@ class MapLineStore:
         self.obs[lid][kf.kid] = slot
         self.n_obs[lid] = len(self.obs[lid])
         kf.line_ids[slot] = lid
+        if self.mirror is not None:
+            self.mirror.add_observation(lid, kf.kid, slot)
 
     def erase_observation(self, lid: int, kf: KeyFrame):
         o = self.obs.get(lid)
@@ -140,6 +151,8 @@ class MapLineStore:
         if kf.line_ids[slot] == lid:
             kf.line_ids[slot] = -1
         self.n_obs[lid] = len(o)
+        if self.mirror is not None:
+            self.mirror.erase_observation(lid, kf.kid)
 
     def kill(self, lid: int, keyframes: Dict[int, KeyFrame]):
         """Remove the landmark and all its observations."""
@@ -152,6 +165,8 @@ class MapLineStore:
         self.obs.pop(lid, None)
         self.alive[lid] = False
         self._free.append(lid)
+        if self.mirror is not None:
+            self.mirror.kill(lid)
 
     def replace(self, old: int, new: int, keyframes: Dict[int, KeyFrame]):
         """Fuse duplicate landmarks: move old's observations onto new."""
@@ -170,6 +185,8 @@ class MapLineStore:
         self.obs.pop(old, None)
         self.alive[old] = False
         self._free.append(old)
+        if self.mirror is not None:
+            self.mirror.replace(old, new)
 
     def live_ids(self) -> np.ndarray:
         return np.nonzero(self.alive)[0]
@@ -178,13 +195,23 @@ class MapLineStore:
 class SlamMap:
     """Global map: keyframes + line and point landmarks + covisibility graph."""
 
-    def __init__(self, line_capacity: int = 16384, point_capacity: int = 16384):
+    def __init__(self, line_capacity: int = 16384, point_capacity: int = 16384, native: bool | None = None):
+        """``native``: keep the line store's native graph mirror; None reads
+        TPUSLAM_NATIVE_MAP (default "1", as the JAX map). A mirror that is
+        asked for but cannot be built or loaded raises (the JAX map falls
+        back to python silently)."""
         self.keyframes: Dict[int, KeyFrame] = {}
         self.lines = MapLineStore(line_capacity)
         self.points = MapPointStore(point_capacity)
+        if native is None:
+            native = os.environ.get("TPUSLAM_NATIVE_MAP", "1") == "1"
+        if native:
+            from tpuslam_torch.slammap.native import NativeMapStore
+
+            self.lines.mirror = NativeMapStore(line_capacity=line_capacity)
         self._next_kid = 0
-        self.covis: Dict[int, Dict[int, int]] = {}  # kf id -> {kf id: shared lines}
-        # bumped on every global correction (loop closure, not ported yet)
+        self.covis: Dict[int, Dict[int, int]] = {}  # kf id -> {kf id: shared landmarks}
+        # bumped on every global correction (a loop closure)
         self.generation = 0
         # callback(kid) when a keyframe is culled (System hooks the keyframe
         # database here so culled keyframes leave the scoring set)
@@ -208,6 +235,12 @@ class SlamMap:
         self._next_kid += 1
         self.keyframes[kf.kid] = kf
         self.covis[kf.kid] = {}
+        m = self.lines.mirror
+        if m is not None:
+            if kf.kid < m.kf_capacity and f.valid.shape[0] <= m.feat_capacity:
+                m.add_keyframe(kf.kid)
+            else:  # beyond the native capacities: python from here on, as the JAX map
+                self.lines.mirror = None
         return kf
 
     def erase_keyframe(self, kid: int):
@@ -236,15 +269,25 @@ class SlamMap:
             self.keyframes[kf.parent].children.discard(kid)
         kf.is_bad = True
         del self.keyframes[kid]
+        if self.lines.mirror is not None:
+            self.lines.mirror.remove_keyframe(kid)
         if self.on_keyframe_erased is not None:
             self.on_keyframe_erased(kid)
 
     def update_connections(self, kf: KeyFrame):
         """Recount shared landmarks (lines, then points) between kf and every
         keyframe observing them; refresh both adjacency rows and the
-        spanning tree."""
-        counts: Dict[int, int] = {}
-        for ids, store in ((kf.line_ids, self.lines), (kf.point_ids, self.points)):
+        spanning tree. The line counts come from the native mirror where
+        there is one (in its order: by count, descending)."""
+        m = self.lines.mirror
+        if m is not None:
+            kids, ws = m.covisibility(kf.kid)
+            counts: Dict[int, int] = {int(k): int(w) for k, w in zip(kids, ws) if int(k) != kf.kid}
+            families = ((kf.point_ids, self.points),)
+        else:
+            counts = {}
+            families = ((kf.line_ids, self.lines), (kf.point_ids, self.points))
+        for ids, store in families:
             for lm in () if ids is None else ids:
                 if lm < 0:
                     continue

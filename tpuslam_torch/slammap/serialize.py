@@ -76,7 +76,7 @@ def save_map(slam_map: SlamMap, path: str):
 def load_map(path: str) -> SlamMap:
     data = np.load(path, allow_pickle=False)
     meta = json.loads(str(data["meta"]))
-    m = SlamMap()
+    m = SlamMap(native=False)  # the python graph, as the JAX loader builds it
     m._next_kid = meta["next_kid"]
     for e in meta["keyframes"]:
         kid = e["kid"]
