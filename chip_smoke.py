@@ -2652,17 +2652,18 @@ def detector_sum_inputs_batch(imgs):
     return seen
 
 
-def multi_tracker(cams, mapping: bool):
-    """tpuslam_torch.parallel.multi_seq.MultiTracker on the card over the
-    sequences' calibrations (the default TrackerConfig), with a LocalMapper
-    per sequence when ``mapping``."""
+def multi_tracker(cams, mapping: bool, mesh=None):
+    """tpuslam_torch.parallel.multi_seq.MultiTracker on the card (over
+    ``mesh`` when given) over the sequences' calibrations (the default
+    TrackerConfig), with a LocalMapper per sequence on its tracker's card
+    when ``mapping``."""
     from tpuslam_torch.backend.mapping import LocalMapper, MapperConfig
     from tpuslam_torch.parallel.multi_seq import MultiTracker
 
-    mt = MultiTracker(cams, device="cuda")
+    mt = MultiTracker(cams, device="cuda", mesh=mesh)
     if mapping:
         for cam, tr in zip(cams, mt.trackers):
-            m = LocalMapper(tr.map, cam, MapperConfig(), device="cuda")
+            m = LocalMapper(tr.map, cam, MapperConfig(), device=tr.device)
             tr.on_new_keyframe, m.on_map_changed = m.process, tr.invalidate_local_map
     return mt
 
@@ -2688,8 +2689,9 @@ def multi_phase(card):
     1024) against 8 single run_lm solves, with their device ms and
     launches; (d) scaling: host ms, device busy ms and launches per
     sequence-frame at N = 1, 2 and 8 (tracking, no mapper), and the host
-    syncs of one steady batched frame. Returns ({name: kernels-line
-    fields}, launches)."""
+    syncs of one steady batched frame; (e) the split over a mesh
+    (:func:`split_phase`). Returns ({name: kernels-line fields}, launches,
+    the split's launches)."""
     import numpy as np
     import torch
 
@@ -2816,10 +2818,181 @@ def multi_phase(card):
     syncs = count_syncs(lambda: multi_feed(m, frames, MULTI_FRAMES - 1))
     print(f"multi: host syncs of one steady batched frame at N={n}: {len(syncs)} ({syncs}; the packed rows' read once, "
           f"and the host reads of each keyframe a sequence makes in it)", flush=True)
+    split_launches = split_phase(card, cams, scenes, frames, scaling[max(MULTI_SCALING)])
     print(f"multi: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
     for name, r in kres.items():
         r["scaling"] = {str(k): v for k, v in scaling.items()}
-    return kres, launches
+    return kres, launches, split_launches
+
+
+# the C entry point of each batched kernel's counter
+BATCH_ENTRY = {
+    "blur_batch": "tpuslam_blur_batch", "gradients_batch": "tpuslam_gradients_xy_batch",
+    "lsd_front_batch": "tpuslam_lsd_front_batch", "ccl_batch": "tpuslam_ccl_batch",
+    "component_moments_batch": "tpuslam_component_moments_batch",
+    "component_extents_batch": "tpuslam_component_extents_batch", "segment_moments_batch": "tpuslam_segment_sums_batch",
+}
+
+
+def split_mesh():
+    """The split's mesh: the most cards that divide MULTI_SEQ where the
+    machine has several (make_mesh), else two shards on cuda:0, which
+    drives the shard code and its threads on one card."""
+    import torch
+
+    from tpuslam_torch.parallel.sharded_ba import DeviceMesh, make_mesh
+
+    have = torch.cuda.device_count()
+    if have > 1:
+        return make_mesh(max(n for n in range(1, have + 1) if MULTI_SEQ % n == 0))
+    return DeviceMesh((torch.device("cuda", 0),) * 2)
+
+
+def per_card(prof) -> dict:
+    """{card index: (device busy us, kernel records)} of a torch.profiler
+    run, without `profiled`'s marker kernels and the copies."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == DeviceType.CUDA and PROFILE_MARKER not in name and not name.startswith(("Memcpy", "Memset")):
+            us, n = out.get(e.device_index(), (0.0, 0))
+            out[e.device_index()] = (us + (e.end_ns() - e.start_ns()) / 1e3, n + 1)
+    return out
+
+
+def split_phase(card, cams, scenes, frames, one_card: dict):
+    """Phase 20e: config #5 split over a mesh (split_mesh). The main path:
+    the counts set to 0 just before the MULTI_SEQ sequences' MULTI_FRAMES
+    frames (MultiTracker over the mesh, a LocalMapper each on its shard's
+    card) and read just after: every frame after the first OK, one batched
+    dispatch per shard per steady frame, each shard's batched kernel calls
+    PER_MULTI_FRAME x frames, each on its own card over its own images, and
+    each sequence's ATE within the JAX MultiTracker's x 1.05 + 0.01 m. Then
+    batched_ba of 8 toy problems at (16, 256, 1024) over the mesh against
+    the unsplit call (float64, 4 iterations), and the split's host ms per
+    batched frame, sequence-frames/s, device busy ms and launches per card
+    (tracking, no mapper) beside one card's at N = MULTI_SEQ (`one_card`,
+    from part (d)). Returns the main path's (calls, device launches)."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from tpuslam_torch.backend.lm import BAProblem, LMConfig
+    from tpuslam_torch.kernels import cuda_lib
+    from tpuslam_torch.parallel import multi_seq
+    from tpuslam_torch.parallel.sharded_ba import _toy_problem, batched_ba, stack_problems
+
+    t_phase = time.perf_counter()
+    mesh = split_mesh()
+    k, N = len(mesh.devices), len(cams)
+    cards = sorted({d.index for d in mesh.devices})
+    print(f"split: {N} sequences over {k} shards on cards {cards} ({[str(d) for d in mesh.devices]}); "
+          f"{torch.cuda.device_count()} card(s) on this machine", flush=True)
+    mt = multi_tracker(cams, mapping=True, mesh=mesh)
+    dispatches, launches_seen = [], []
+    real_step, real_launch = multi_seq.batched_track_step, cuda_lib.launch
+
+    def counting(*a, **kw):
+        dispatches.append((threading.current_thread().name, a[0].device))
+        return real_step(*a, **kw)
+
+    def recording(entry, t, what, *args):
+        launches_seen.append((threading.current_thread().name, entry, t.device, t.shape[0] if t.dim() == 3 else 1))
+        return real_launch(entry, t, what, *args)
+
+    multi_seq.batched_track_step, cuda_lib.launch = counting, recording
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        results = [multi_feed(mt, frames, f) for f in range(MULTI_FRAMES)]
+        for d in cards:
+            torch.cuda.synchronize(d)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        multi_seq.batched_track_step, cuda_lib.launch = real_step, real_launch
+    print(f"split: {N} sequences x {MULTI_FRAMES} frames over {k} shards: {wall:.2f} s, {N * MULTI_FRAMES / wall:.2f} "
+          f"sequence-frames/s (tracking and mapping); batched dispatches {len(dispatches)}", flush=True)
+    states = [[r.state.name for r in res] for res in results]
+    if any(st != "OK" for row in states[1:] for st in row):
+        fail(f"split: a frame after the first did not track OK: {states}")
+    threads = [f"shard-{s}" for s in range(k)]
+    for s, name in enumerate(threads):
+        mine = [d for t, d in dispatches if t == name]
+        if len(mine) != MULTI_FRAMES - 1 or any(d != mesh.devices[s] for d in mine):
+            fail(f"split: shard {s}: {len(mine)} batched dispatches on {set(map(str, mine))}, expected {MULTI_FRAMES - 1} on "
+                 f"{mesh.devices[s]}")
+    if len(dispatches) != k * (MULTI_FRAMES - 1):
+        fail(f"split: {len(dispatches)} batched dispatches, expected {k} x {MULTI_FRAMES - 1}")
+    calls_, device = launches
+    want_lpc = launches_per_call()
+    for name, n in calls_.items():
+        per = PER_MULTI_FRAME.get(name, 0)
+        lpc = want_lpc[name.removesuffix("_batch")]
+        if n != k * per * MULTI_FRAMES or device[name] != n * lpc:
+            fail(f"split: {name}: {n} calls and {device[name]} device launches, expected {k} x {per * MULTI_FRAMES} and {lpc} "
+                 f"per call")
+        for s, tname in enumerate(threads):
+            mine = [(dev, b) for t, e, dev, b in launches_seen if t == tname and e == BATCH_ENTRY.get(name)]
+            if per and (len(mine) != per * MULTI_FRAMES or any(x != (mesh.devices[s], N // k) for x in mine)):
+                fail(f"split: shard {s}: {name}: {len(mine)} calls over {sorted(set(mine))}, expected {per * MULTI_FRAMES} on "
+                     f"{mesh.devices[s]} over {N // k} images each")
+        if per:
+            print(f"split: {name} calls {n} ({k} shards x {per} x {MULTI_FRAMES}, each on its shard's card over {N // k} "
+                  f"images), device launches {device[name]}", flush=True)
+    if any(t not in threads for t, *_ in launches_seen):
+        fail(f"split: kernels launched outside the shards' threads: {sorted({t for t, *_ in launches_seen} - set(threads))}")
+    for s in range(N):
+        traj = [res[s] for res in results]
+        ate = ate_of(traj, scenes[s])
+        bound = JAX_MULTI_ATE_M[s] * PIPELINED_ATE_FACTOR + ATE_MARGIN_M
+        kfs = [r.frame_idx for r in traj if r.made_keyframe]
+        print(f"split: sequence {s} on {mt.trackers[s].device}: keyframes {kfs}, ATE {ate:.5f} m, bound {bound:.5f} m", flush=True)
+        if not ate <= bound:
+            fail(f"split: sequence {s}: ATE {ate} m above {bound} m")
+
+    # batched BA over the mesh against the unsplit call
+    rng = np.random.default_rng(0)
+    probs = stack_problems([
+        BAProblem(*(x.double() if x.is_floating_point() else x for x in _toy_problem(rng, 16, 256, 1024, cams[0], device="cuda:0")))
+        for _ in range(8)
+    ])
+    cfg = LMConfig(max_iters=4)
+    ref = batched_ba(probs, cams[0], cfg)
+    out = batched_ba(probs, cams[0], cfg, mesh=mesh)
+    gaps = [float((x - y).abs().max()) - 1e-6 * float(y.abs().max()) for x, y in zip(out, ref)]
+    if max(gaps) > 1e-8 or any(x.device != mesh.devices[0] for x in out):
+        fail(f"split: batched BA over the mesh differs from the unsplit call: {gaps}")
+    print(f"split: batched BA (float64, 4 iterations) of 8 problems at (16, 256, 1024) over {k} shards equals the unsplit call "
+          f"(largest gap beyond 1e-6 relative {max(gaps):.3g})", flush=True)
+
+    # host and device time per batched frame, tracking alone
+    m = multi_tracker(cams, mapping=False, mesh=mesh)
+    for f in range(MULTI_WARM):
+        multi_feed(m, frames, f)
+    for d in cards:
+        torch.cuda.synchronize(d)
+    t = time.perf_counter()
+    for f in range(MULTI_WARM, MULTI_WARM + MULTI_TIMED):
+        multi_feed(m, frames, f)
+    for d in cards:
+        torch.cuda.synchronize(d)
+    host_ms = (time.perf_counter() - t) * 1e3 / MULTI_TIMED
+    nxt = iter(range(MULTI_WARM + MULTI_TIMED, MULTI_FRAMES))
+    prof, (busy_us, n_launch, _) = profiled(lambda: (multi_feed(m, frames, next(nxt)), [torch.cuda.synchronize(d) for d in cards]), whole=False)
+    by_card = per_card(prof)
+    print(f"split: host {host_ms:.2f} ms per batched frame ({1e3 * N / host_ms:.2f} sequence-frames/s) over {k} shards on "
+          f"cards {cards}; device busy {busy_us / 1e3:.3f} ms and {n_launch} launches per frame in all; per card "
+          f"{ {c: (round(us / 1e3, 3), n) for c, (us, n) in sorted(by_card.items())} } (ms, launches) on {card}", flush=True)
+    print(f"split: one card at N={N} (part d): host {one_card['host_ms_per_frame']:.2f} ms per batched frame "
+          f"({1e3 * N / one_card['host_ms_per_frame']:.2f} sequence-frames/s); device busy "
+          f"{one_card['device_ms_per_seq_frame'] * N:.3f} ms and {one_card['launches_per_frame']} launches per frame; the "
+          f"split's host ms {host_ms / one_card['host_ms_per_frame']:.2f}x", flush=True)
+    print(f"split: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
 
 
 # ---- the host surface: settings, the CLI, eval and RPE, map files (phase 21) ----
@@ -3025,6 +3198,33 @@ def bench100_run(tag, card, per_extraction, noise_seed=None, via_cli: bool = Fal
     return res, launches
 
 
+def multi_only() -> int:
+    """Phase 20 alone after the kernel build (config #5 on cuda:0, then its
+    split over split_mesh(): every card of a machine with several), for a
+    call on several cards:
+
+        python3 -c "import sys, chip_smoke; sys.exit(chip_smoke.multi_only())"
+    """
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script runs on a CUDA device only")
+    card = card_line()
+    cards = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True,
+                           text=True, check=True, timeout=60).stdout.strip().splitlines()
+    print(f"cards: {torch.cuda.device_count()}: {cards}", flush=True)
+    from tpuslam_torch.kernels import cuda_lib
+
+    cuda_lib.build()
+    cuda_lib.library()
+    os.environ["TPUSLAM_NATIVE_MAP"] = "0"  # as main() runs phase 20
+    multi_phase(card)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def bench100_child() -> int:
     """One seed run of phase 22 in a process of its own (see
     bench100_seeds): sys.argv[1] is the JSON [tag, points, seed]. Runs
@@ -3221,7 +3421,7 @@ def main() -> int:
     lap("phase 18 pipelined mono")
     radtan_launches = radtan_phase(card)
     lap("phase 19 radtan")
-    multi_kres, multi_launches = multi_phase(card)
+    multi_kres, multi_launches, split_launches = multi_phase(card)
     lap("phase 20 config #5")
     cli_launches = cli_phase(card)
     lap("phase 21 host surface")
@@ -3272,7 +3472,10 @@ def main() -> int:
                 name=f"{name}.batch", route="cuda", source=KERNELS[name][0], replaces=KERNELS[name][1],
                 launches=multi_launches[0][f"{name}_batch"],
                 launches_per_call=multi_launches[1][f"{name}_batch"] // multi_launches[0][f"{name}_batch"],
-                launches_by_path={"multi": multi_launches[0][f"{name}_batch"], "cli": cli_launches[0][f"{name}_batch"]},
+                launches_by_path={
+                    "multi": multi_launches[0][f"{name}_batch"], "multi_split": split_launches[0][f"{name}_batch"],
+                    "cli": cli_launches[0][f"{name}_batch"],
+                },
                 **multi_kres[name],
             )
         )

@@ -156,3 +156,92 @@ def test_params_convert():
     for base_scale, prescaled in ((0.5, True), (0.5, False), (1.0, True)):
         ref = jad.inject_coord_scale_align(jad.DirectAlignParams(), base_scale, prescaled)
         assert tad.inject_coord_scale_align(tad.DirectAlignParams(), base_scale, prescaled)._asdict() == ref._asdict()
+
+
+# ---- the bench's first chunk under TPUSLAM_BENCH_CAM=qvga ------------------------
+
+
+@pytest.fixture(scope="module")
+def qvga_chunk():
+    """The port's bench System (``bench_configs()``) over the first 8 of the
+    bench's 12 QVGA frames (``python tests/test_torch_bench.py gaps qvga``'s)
+    on the CPU (detection at 160x120): the anchor-template call and every
+    follower's inputs of its first semi-direct chunk (frames 1-6), recorded
+    as the chunk program made them."""
+    from tpuslam_torch import bench as tbench
+    from tpuslam_torch import system as tsystem
+    from tpuslam_torch.frontend import pipeline as tp
+
+    rec = {"anchor": [], "followers": []}
+    real_tm, real_step = tp.anchor_templates_body, tp._follower_step
+
+    def anchor(img, T, ep3d, validf, cam, ap):
+        rec["anchor"].append((img.clone(), T.clone(), ep3d.clone(), validf.clone(), ap))
+        return real_tm(img, T, ep3d, validf, cam, ap)
+
+    def follower(img, T_l, T_p, plucker_a, tm, cam, ap, min_inliers, tm_p=None):
+        out = real_step(img, T_l, T_p, plucker_a, tm, cam, ap, min_inliers, tm_p)
+        rec["followers"].append((img.clone(), T_l.clone(), T_p.clone(), plucker_a.clone(), tm))
+        return out
+
+    _, imgs = tbench.bench_scene(12, tbench.QVGA)
+    tcfg, mcfg = tsystem.bench_configs()
+    mp = pytest.MonkeyPatch()
+    mp.setattr(tp, "anchor_templates_body", anchor)
+    mp.setattr(tp, "_follower_step", follower)
+    try:
+        ts = tsystem.System(tbench.QVGA, sensor="stereo", loop_closing=False, tracker_cfg=tcfg, mapper_cfg=mcfg, device="cpu")
+        for f, (il, ir) in enumerate(imgs[:8]):
+            ts.track_stereo(il, ir, f * 0.05)
+        ts.shutdown()
+    finally:
+        mp.undo()
+    assert tcfg.chunk == 6 and len(rec["followers"]) >= 5
+    return rec["anchor"][0], rec["followers"][:5]
+
+
+def test_qvga_chunk_templates_match_jax(qvga_chunk):
+    """The first QVGA chunk's anchor templates (160x120 image, the anchor's
+    pose and map as the port's chunk had them) against the JAX package's on
+    the same inputs: the same validity and search axes, intensities within
+    1e-4 on the 0..255 scale."""
+    (img, T, ep3d, validf, ap), _ = qvga_chunk
+    from tpuslam_torch import bench as tbench
+
+    jap = jad.DirectAlignParams(**ap._asdict())
+    ref = jad.anchor_templates(*(jnp.asarray(np_of(x)) for x in (img, T, ep3d, validf)), JIntrinsics(*tbench.QVGA), jap)
+    tm = tad.anchor_templates_body(img, T, ep3d, validf, tbench.QVGA, ap)
+    assert float(np.asarray(ref.tvalid).sum()) > 150
+    np.testing.assert_array_equal(np_of(tm.tvalid), np.asarray(ref.tvalid))
+    np.testing.assert_array_equal(np_of(tm.vert), np.asarray(ref.vert))
+    np.testing.assert_allclose(np_of(tm.tmpl), np.asarray(ref.tmpl), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5])
+def test_qvga_chunk_follower_matches_jax(qvga_chunk, k):
+    """Follower k of the bench's first QVGA chunk (frame k + 1) through both
+    packages on identical inputs: its 160x120 image, the motion-model
+    prediction from the port chunk's chain, the map lines and the anchor
+    templates: the pose within 1e-5 rad and 1e-4 m of the JAX package's,
+    the same good-sample and aligned-line counts. (Run as whole Systems, the
+    two packages' frames 4-6 part by up to 3.2e-3 m: keyframe 0's map and
+    the anchor's pose differ through the detector's float32 sums, and a
+    template's uniqueness ratio near the gate's 0.9 crosses it; ROADMAP.md
+    section 3.)"""
+    from test_torch_semidirect import _pose_gap
+    from tpuslam_torch import bench as tbench
+    from tpuslam_torch.geometry.se3 import se3_inverse
+
+    (_, _, _, _, ap), followers = qvga_chunk
+    img, T_l, T_p, plucker_a, tm = followers[k - 1]
+    T_pred = T_l @ se3_inverse(T_p) @ T_l
+    jap = jad.DirectAlignParams(**ap._asdict())
+    jtm = jad.AlignTemplates(*(jnp.asarray(np_of(x)) for x in tm))
+    T_ref, n_samp_ref, n_lines_ref = jad.align_frame(
+        *(jnp.asarray(np_of(x)) for x in (img, T_pred, plucker_a)), jtm, JIntrinsics(*tbench.QVGA), jap
+    )
+    T, n_samp, n_lines = tad.align_frame_body(img, T_pred, plucker_a, tm, tbench.QVGA, ap)
+    ang, dist = _pose_gap(np_of(T), np.asarray(T_ref))
+    assert ang <= 1e-5 and dist <= 1e-4, (ang, dist)
+    assert (float(n_samp), float(n_lines)) == (float(n_samp_ref), float(n_lines_ref))
+    assert float(n_lines) >= 30

@@ -12,7 +12,10 @@ than QVGA here (12 frames make one keyframe, so no local BA runs). Under
 TPUSLAM_BENCH_CAM=qvga the bench detects on 160x120 images, and there the
 chunk followers of the two packages part by up to 2.3e-2 m (frame 9; frame
 5, inside the first chunk, 3.2e-3 m), where at VGA every frame stays
-within 1.2e-3 m.
+within 1.2e-3 m: a threshold crossing (a template's uniqueness ratio at
+0.89998 against 0.9) downstream of the detector's float32 sums, while on
+identical inputs each QVGA follower agrees within 1.0e-6 m
+(test_torch_align_direct.py; ROADMAP.md section 3).
 
 Run as a script, it prints chip_smoke.py's phase-22 references: the JAX
 System with the bench configuration (lines only, or hybrid points over
@@ -21,11 +24,14 @@ hidden, TPUSLAM_KF_DEFER_MS=0 and the native mirror on; ``seeds`` runs the
 same over image-noise seeds k0..k1-1 (~1 min per lines run, ~1.5 per
 hybrid run); ``portseeds`` this package's bench on the CPU over the same
 seeds; ``gaps`` the 12-frame comparison of the tests frame by frame, at
-VGA or at the QVGA camera:
+VGA or at the QVGA camera; ``crossing`` why the first QVGA chunk's
+followers part (frame 0's feature gaps, the map, anchor-pose and template
+gaps, and each follower's samples whose uniqueness decision differs):
 
     python tests/test_torch_bench.py lines|hybrid [seeds K0 K1]
     python tests/test_torch_bench.py portseeds lines|hybrid K0 K1
     python tests/test_torch_bench.py gaps vga|qvga
+    python tests/test_torch_bench.py crossing
 """
 
 import contextlib
@@ -300,11 +306,124 @@ def pose_gaps(cam, n: int = N_TIMED + N_WARM):
     return [(x.frame_idx, *_pose_gap(x.T_cw, np.asarray(y.T_cw))) for x, y in zip(a, b)], kfs
 
 
+def crossing_report(n: int = N_TIMED + N_WARM) -> None:
+    """Both packages' bench Systems over the first 8 of the bench's n QVGA
+    frames (mirrors on, as ``gaps``), each first semi-direct chunk's inputs
+    and packed rows recorded. Prints frame 0's keyframe feature gaps (valid
+    segments), the map lines' and anchor poses' gaps, the anchor templates'
+    gap, and for each follower the pose gap and every template sample whose
+    uniqueness or acceptance differs between the two packages' inputs: this
+    package's ``_slide_zsad`` run on each package's map, anchor pose and
+    motion-model chain (which reproduce each package's follower poses)."""
+    import tempfile
+
+    import torch
+
+    import jax.numpy as jnp
+
+    import tpuslam.frontend.pipeline as jpipe
+    import tpuslam.kernels.align_direct as jad
+    from tpuslam.system import System as JSystem
+    from tpuslam_torch.frontend import pipeline as tpipe
+    from tpuslam_torch.kernels import align_direct as tad
+    from tpuslam_torch.kernels.stereo_direct import moving_mean, subpixel_argmin
+
+    cam = bench.QVGA
+    _, imgs = bench.bench_scene(n, cam)
+    rec = {}
+
+    def recording(name, real):
+        def call(*a):
+            out = real(*a)
+            rec.setdefault(name, ([np_of(x) if hasattr(x, "shape") else x for x in a[:7]], np_of(out[5])))
+            return out
+
+        return call
+
+    tcfg, mcfg = bench_configs()
+    ts = tsystem.System(cam, sensor="stereo", loop_closing=False, tracker_cfg=tcfg, mapper_cfg=mcfg, device="cpu")
+    real_t, real_j = tpipe._fused_chunk_semidirect, jpipe._fused_chunk_semidirect
+    tpipe._fused_chunk_semidirect = recording("port", real_t)
+    jpipe._fused_chunk_semidirect = recording("jax", real_j)
+    try:
+        with tempfile.TemporaryDirectory() as d, jax_native_library(d), JaxWithMirror():
+            jt, jm = jax_bench_config()
+            js = JSystem(_jax_cam(cam), sensor="stereo", mapping=True, loop_closing=False, tracker_cfg=jt, mapper_cfg=jm)
+            for f, (il, ir) in enumerate(imgs[:8]):
+                ts.track_stereo(il, ir, f * 0.05)
+                js.track_stereo(il, ir, f * 0.05)
+            ts.shutdown()
+            js.shutdown()
+    finally:
+        tpipe._fused_chunk_semidirect, jpipe._fused_chunk_semidirect = real_t, real_j
+    a, b = ts.map.keyframes[0].features, js.map.keyframes[0].features
+    v = np.asarray(b.valid) > 0.5
+    gap = lambda name: np.abs(np_of(getattr(a, name)) - np.asarray(getattr(b, name)))[v]  # noqa: E731
+    ep = gap("endpoints").reshape(int(v.sum()), -1).max(axis=1)
+    print(f"frame 0: {int(v.sum())} segments; endpoints up to {ep.max():.3g} px apart (segment {int(np.nonzero(v)[0][ep.argmax()])}), "
+          f"angles up to {gap('angle').max():.3g} rad", flush=True)
+    (P, prow), (J, jrow) = rec["port"], rec["jax"]
+    ap = tad.inject_coord_scale_align(tad.DirectAlignParams(), tcfg.frontend.base_scale, tcfg.frontend.prescaled)
+    A = ap.align_cap
+    valid = P[6][:A] > 0.5
+    print(f"map lines (first {A}): endpoints up to {np.abs(P[4][:A] - J[4][:A])[valid].max():.3g} m apart; anchor poses "
+          f"{_pose_gap(prow[0, :16].reshape(4, 4), jrow[0, :16].reshape(4, 4))} (rad, m)", flush=True)
+    frames = tpipe._frames01(torch.from_numpy(P[0]))
+
+    def side(args, rows):
+        pl, ep3d, val = (torch.from_numpy(np.asarray(args[i][:A], np.float32).copy()) for i in (3, 4, 6))
+        return pl, tad.anchor_templates_body(frames[0], torch.from_numpy(rows[0, :16].reshape(4, 4).copy()), ep3d, val, cam, ap)
+
+    def rounds(pl, tm, T, img):
+        out, img255 = [], img * 255.0
+        for _ in range(ap.rounds):
+            _, uv = tad._project(T, tm.p3d, cam)
+            uv = uv * ap.coord_scale
+            M, Wt = 2 * ap.search + 1, ap.template
+            win, inb = tad._axis_window(img255, uv[..., 0], uv[..., 1], tm.vert[:, None], M - 1 + Wt, -(ap.search + Wt // 2))
+            mwin, mt = moving_mean(win, Wt), tm.tmpl.mean(-1, keepdim=True)
+            cost = sum(torch.abs((win[..., w : w + M] - mwin) - (tm.tmpl[..., w : w + 1] - mt)) for w in range(Wt)) / float(Wt)
+            cost = cost + (1.0 - (moving_mean(inb.float(), Wt) > 0.999).float()) * 1e6
+            best, cbest, uniq, _ = subpixel_argmin(cost, ap.ratio)
+            near = (torch.arange(M)[None, None, :] - best[..., None]).abs() <= 2
+            second = torch.min(cost + near * 1e6, dim=-1).values
+            m, ok = tad._search_templates(img255, T, tm, cam, ap)
+            out.append((cbest / second, uniq, ok))
+            T, _ = tad._gn_pose(T, pl, m, ok, cam, ap)
+        return out, T
+
+    (tpl, ttm), (jpl, jtm) = side(P, prow), side(J, jrow)
+    print(f"anchor templates: up to {float((ttm.tmpl - jtm.tmpl).abs().max()):.3g} apart (0..255)", flush=True)
+    for k in range(1, len(prow)):
+        pred = lambda rows, Tl0: torch.from_numpy(  # noqa: E731
+            (rows[k - 1, :16].reshape(4, 4) @ np.linalg.inv(rows[k - 2, :16].reshape(4, 4) if k > 1 else Tl0)
+             @ rows[k - 1, :16].reshape(4, 4)).astype(np.float32)
+        )
+        tr, Tt = rounds(tpl, ttm, pred(prow, P[2]), frames[k + 1])
+        jr, Tj = rounds(jpl, jtm, pred(jrow, J[2]), frames[k + 1])
+        # both packages' follower on this package's inputs (test_torch_align_direct's comparison)
+        same = [x.numpy() for x in (frames[k + 1], pred(prow, P[2]), tpl)]
+        T_ref = jad.align_frame(*map(jnp.asarray, same), jad.AlignTemplates(*(jnp.asarray(x.numpy()) for x in ttm)),
+                                _jax_cam(cam), jad.DirectAlignParams(**ap._asdict()))[0]
+        print(f"frame {k + 1}: pose gap {_pose_gap(prow[k, :16].reshape(4, 4), jrow[k, :16].reshape(4, 4))} (rad, m); "
+              f"on identical inputs {_pose_gap(Tt.numpy(), np.asarray(T_ref))}; reconstructed within "
+              f"{_pose_gap(Tt.numpy(), prow[k, :16].reshape(4, 4))[1]:.2g} / {_pose_gap(Tj.numpy(), jrow[k, :16].reshape(4, 4))[1]:.2g} m",
+              flush=True)
+        for r, ((rt, ut, okt), (rj, uj, okj)) in enumerate(zip(tr, jr)):
+            for line, sample in (ut != uj).nonzero().tolist():
+                print(f"  round {r + 1}: line {line} sample {sample}: ratio {float(rj[line, sample]):.5f} from the JAX "
+                      f"package's inputs, {float(rt[line, sample]):.5f} from this package's (gate {ap.ratio}); accepted "
+                      f"{bool(okj[line, sample])} / {bool(okt[line, sample])}", flush=True)
+
+
 if __name__ == "__main__":
     import jax
 
     jax.config.update("jax_platforms", "cpu")
     args = sys.argv[1:]
+    if args[0] == "crossing":
+        crossing_report()
+        sys.exit(0)
     if args[0] == "gaps":
         # the 12-frame comparison of test_run_benchmark_matches_jax, frame by
         # frame, at the bench's VGA or under TPUSLAM_BENCH_CAM=qvga's camera

@@ -1263,3 +1263,129 @@ def test_batched_ba_on_card_matches_single_solves(dev):
                 assert float((a.poses[i] - s.poses).abs().max()) <= 5e-3, i
     b = batched_ba(stack_problems(ps), VGA, LMConfig())
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+# ---- config #5 split over a mesh ------------------------------------------------
+
+
+def _card_meshes():
+    """(cuda:0, cuda:0): two shards and their threads on one card; and every
+    card when there are several."""
+    from tpuslam_torch.parallel.sharded_ba import DeviceMesh, make_mesh
+
+    meshes = [DeviceMesh((torch.device("cuda", 0),) * 2)]
+    if torch.cuda.device_count() > 1:
+        meshes.append(make_mesh())
+    return meshes
+
+
+def _pose_gap(T, T_ref):
+    """(rotation angle rad, camera centre distance m) between two T_cw."""
+    T, T_ref = np.asarray(T, np.float64), np.asarray(T_ref, np.float64)
+    dR = T[:3, :3] @ T_ref[:3, :3].T
+    w = 0.5 * np.array([dR[2, 1] - dR[1, 2], dR[0, 2] - dR[2, 0], dR[1, 0] - dR[0, 1]])
+    ang = float(np.arctan2(np.linalg.norm(w), 0.5 * (np.trace(dR) - 1.0)))
+    return ang, float(np.linalg.norm(-T[:3, :3].T @ T[:3, 3] + T_ref[:3, :3].T @ T_ref[:3, 3]))
+
+
+def _split_run(mesh, n_seq=4, n_frames=8):
+    """MultiTracker over tests/test_parallel.py's 4 synthetic sequences
+    (this package's scenes and features), a LocalMapper per sequence on its
+    tracker's device: results per frame and the threads of the batched
+    dispatches."""
+    from tpuslam_torch.backend.mapping import LocalMapper
+    from tpuslam_torch.frontend.frame import FrameFeatures
+    from tpuslam_torch.io.synthetic import make_wireframe_scene, synthetic_frame_features
+    from tpuslam_torch.parallel import multi_seq as tms
+
+    scenes = [
+        make_wireframe_scene(np.random.default_rng(100 + s), n_segments=120, n_frames=n_frames, cam=VGA, motion_scale=0.02)
+        for s in range(n_seq)
+    ]
+    mt = tms.MultiTracker([VGA] * n_seq, mesh=mesh, device="cuda:0")
+    for tr in mt.trackers:
+        m = LocalMapper(tr.map, VGA, device=tr.device)
+        tr.on_new_keyframe, m.on_map_changed = m.process, tr.invalidate_local_map
+    calls, real = [], tms.batched_track_step
+
+    def counting(*a, **k):
+        calls.append(a[0].device)
+        return real(*a, **k)
+
+    tms.batched_track_step = counting
+    try:
+        res = []
+        for f in range(n_frames):
+            per = [
+                synthetic_frame_features(sc, f, noise_px=0.3, rng=np.random.default_rng(f * 31 + s), with_depth=True, device="cuda:0")[0]
+                for s, sc in enumerate(scenes)
+            ]
+            res.append(mt.track_features(FrameFeatures(*(torch.stack(xs) for xs in zip(*per))), [f * 0.05] * n_seq))
+    finally:
+        tms.batched_track_step = real
+    return res, calls, mt
+
+
+def test_split_on_card_matches_unsplit(dev):
+    """MultiTracker and batched_ba over (cuda:0, cuda:0) and over every card
+    when there are several, against the unsplit calls on cuda:0. Tracking
+    (4 sequences x 8 frames, a mapper each): one dispatch per shard per
+    steady frame, on the shard's card; every sequence's states and
+    keyframes equal, poses within 1e-5 rad and 1e-4 m (a shard's batched
+    pose LM runs on fewer rows, which the card's batched products may round
+    apart; on the CPU 2 of 4 rows are bit-equal and 1 of 4 within 2.5e-6
+    rad and 2.0e-5 m). batched_ba of 8 toy problems at the bench rung (16,
+    256, 1024) in float64, 4 iterations: every field within 1e-8 plus 1e-6
+    of its largest entry, gathered on the mesh's first card."""
+    from tpuslam_torch.backend.lm import BAProblem, LMConfig
+    from tpuslam_torch.parallel.sharded_ba import _toy_problem, batched_ba, stack_problems
+
+    ref, _, _ = _split_run(None)
+    rng = np.random.default_rng(0)
+    probs = stack_problems([
+        BAProblem(*(x.double() if x.is_floating_point() else x for x in _toy_problem(rng, 16, 256, 1024, VGA, device="cuda:0")))
+        for _ in range(8)
+    ])
+    ba_ref = batched_ba(probs, VGA, LMConfig(max_iters=4))
+    for mesh in _card_meshes():
+        k = len(mesh.devices)
+        res, calls, mt = _split_run(mesh)
+        assert len(calls) == k * 7 and set(calls) == set(mesh.devices), calls
+        assert [tr.device for tr in mt.trackers] == [d for d in mesh.devices for _ in range(4 // k)]
+        for f, (a, b) in enumerate(zip(res, ref)):
+            for s in range(4):
+                assert (a[s].state, a[s].made_keyframe) == (b[s].state, b[s].made_keyframe), (mesh, f, s)
+                ang, dist = _pose_gap(a[s].T_cw, b[s].T_cw)
+                assert ang <= 1e-5 and dist <= 1e-4, (mesh, f, s, ang, dist)
+        out = batched_ba(probs, VGA, LMConfig(max_iters=4), mesh=mesh)
+        for x, y in zip(out, ba_ref):
+            assert x.device == mesh.devices[0]
+            assert float((x - y).abs().max()) <= 1e-8 + 1e-6 * float(y.abs().max())
+
+
+def test_kernel_on_a_non_current_card(dev):
+    """Each hand kernel's wrapper on a tensor of cuda:1 while cuda:0 is the
+    current device: it launches on cuda:1 (the counts move), and its result
+    is bit for bit the same call's on cuda:0."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from tpuslam_torch.frontend.frame import FrontendParams, extract_features
+
+    _, frames = stereo_scene(2, cam=VGA)
+    imgs = torch.stack([torch.from_numpy(image01(f[0])) for f in frames])
+    with torch.cuda.device(0):
+        a = extract_features(imgs.to("cuda:0"), FrontendParams())
+        before = {**image.LAUNCHES, **lsd.LAUNCHES}
+        b = extract_features(imgs.to("cuda:1"), FrontendParams())
+        after = {**image.LAUNCHES, **lsd.LAUNCHES}
+        blur1 = image.gaussian_blur(imgs[0].to("cuda:1"), 1.2)
+        blur0 = image.gaussian_blur(imgs[0].to("cuda:0"), 1.2)
+    assert {k for k in after if after[k] != before[k]} == {
+        "blur_batch", "gradients_batch", "lsd_front_batch", "ccl_batch",
+        "component_moments_batch", "component_extents_batch", "segment_moments_batch",
+    }
+    torch.cuda.synchronize(1)
+    for name, x, y in zip(a._fields, a, b):
+        assert y.device == torch.device("cuda", 1), name
+        assert torch.equal(x, y.to("cuda:0")), name
+    assert torch.equal(blur0, blur1.to("cuda:0"))

@@ -427,15 +427,20 @@ def test_batched_ba_matches_jax(ba_batch):
 
 def test_mesh_and_dryrun():
     """make_mesh takes the devices there are and refuses more; a mesh of
-    several cards is refused by batched_ba (the split is not ported); the
+    several entries splits batched_ba's batch (two problems over two CPU
+    entries: a finite state per problem, on the mesh's first device; the
+    split is held to the unsplit solve in tests/test_torch_mesh.py); the
     dryrun runs the whole config-#5 step on tiny shapes."""
     mesh = tsba.make_mesh(1, device="cpu")
     assert mesh.devices == (torch.device("cpu"),) and mesh.axis == "seq"
     with pytest.raises(ValueError):
         tsba.make_mesh(2, device="cpu")
     two = tsba.DeviceMesh((torch.device("cpu"), torch.device("cpu")))
-    with pytest.raises(NotImplementedError):
-        tsba.batched_ba(tsba.stack_problems([tsba._toy_problem(np.random.default_rng(0), 3, 8, 32, CAM, "cpu")]), CAM, mesh=two)
+    rng = np.random.default_rng(0)
+    probs = tsba.stack_problems([tsba._toy_problem(rng, 3, 8, 32, CAM, "cpu") for _ in range(2)])
+    state = tsba.batched_ba(probs, CAM, tsba.LMConfig(max_iters=2), mesh=two)
+    assert tuple(state.poses.shape) == (2, 3, 4, 4) and state.poses.device == two.devices[0]
+    assert bool(torch.all(torch.isfinite(state.cost)))
     tsba.dryrun(1, device="cpu")
 
 

@@ -10,7 +10,12 @@ workers may start one at once).
 
 Each C entry point takes data pointers, sizes and the CUDA stream, launches
 on that stream without synchronising, and returns ``cudaGetLastError()``;
-:func:`check` raises when that is not 0. Nothing here runs at import.
+:func:`launch` calls it with the tensor's card as the current device (a CUDA
+launch goes to the calling thread's current device, whatever card the
+pointers and the stream belong to) and raises when that is not 0. The
+wrappers count their calls through :func:`count`, under a lock: the shards of
+a mesh (``parallel``) launch from threads of their own. Nothing here runs at
+import.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -97,9 +103,19 @@ def build() -> Path:
     return out
 
 
-@functools.lru_cache(maxsize=None)
+_LIB_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+
+
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call; the build's file lock
+    orders processes, this lock the threads of one)."""
+    with _LIB_LOCK:
+        return _load()
+
+
+@functools.lru_cache(maxsize=None)
+def _load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     P, I, IP = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
     F = ctypes.c_float
@@ -149,6 +165,23 @@ def check(code: int, what: str) -> None:
 def stream_of(t: torch.Tensor) -> int:
     """Raw handle of the current CUDA stream on ``t``'s device."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def launch(entry: str, t: torch.Tensor, what: str, *args) -> None:
+    """Call the C entry point ``entry`` with ``args`` and the current stream
+    of ``t``'s card, that card being the current device during the call;
+    raise if it reports a CUDA error."""
+    lib = library()
+    with torch.cuda.device(t.device):
+        code = getattr(lib, entry)(*args, stream_of(t))
+    check(code, what)
+
+
+def count(launches: dict, kernel_launches: dict, key: str, n: int) -> None:
+    """One more call of a wrapper, which made ``n`` device launches."""
+    with _COUNT_LOCK:
+        launches[key] += 1
+        kernel_launches[key] += n
 
 
 BATCH_ENTRY_POINTS = (

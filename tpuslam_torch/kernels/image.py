@@ -75,10 +75,10 @@ def _blur_cuda(img: torch.Tensor, sigma: float, batched: bool = False):
     taps = np.ascontiguousarray(_blur_taps(sigma).numpy())
     out = torch.empty_like(img)
     n = ctypes.c_int(0)
-    code = cuda_lib.library().tpuslam_blur_batch(
-        img.data_ptr(), out.data_ptr(), B, H, W, taps.ctypes.data, taps.size, ctypes.byref(n), cuda_lib.stream_of(img)
+    cuda_lib.launch(
+        "tpuslam_blur_batch", img, "gaussian_blur",
+        img.data_ptr(), out.data_ptr(), B, H, W, taps.ctypes.data, taps.size, ctypes.byref(n),
     )
-    cuda_lib.check(code, "gaussian_blur")
     return out, n.value
 
 
@@ -91,10 +91,10 @@ def _blur_two_pass_cuda(img: torch.Tensor, sigma: float) -> torch.Tensor:
     H, W = img.shape
     tmp = torch.empty_like(img)
     out = torch.empty_like(img)
-    code = cuda_lib.library().tpuslam_blur_two_pass(
-        img.data_ptr(), tmp.data_ptr(), out.data_ptr(), H, W, taps.ctypes.data, taps.size, cuda_lib.stream_of(img)
+    cuda_lib.launch(
+        "tpuslam_blur_two_pass", img, "gaussian_blur (two pass)",
+        img.data_ptr(), tmp.data_ptr(), out.data_ptr(), H, W, taps.ctypes.data, taps.size,
     )
-    cuda_lib.check(code, "gaussian_blur (two pass)")
     return out
 
 
@@ -103,8 +103,7 @@ def gaussian_blur(img: torch.Tensor, sigma: float) -> torch.Tensor:
     edge padding. Kernel on a CUDA tensor, plain version on a CPU tensor."""
     if cuda_lib.on_card(img):
         out, n = _blur_cuda(img, sigma)
-        LAUNCHES["blur"] += 1
-        KERNEL_LAUNCHES["blur"] += n
+        cuda_lib.count(LAUNCHES, KERNEL_LAUNCHES, "blur", n)
         return out
     return gaussian_blur_torch(img, sigma)
 
@@ -120,8 +119,7 @@ def gaussian_blur_batch(imgs: torch.Tensor, sigma: float) -> torch.Tensor:
     call), the plain version on a CPU tensor."""
     if cuda_lib.on_card(imgs):
         out, n = _blur_cuda(imgs, sigma, batched=True)
-        LAUNCHES["blur_batch"] += 1
-        KERNEL_LAUNCHES["blur_batch"] += n
+        cuda_lib.count(LAUNCHES, KERNEL_LAUNCHES, "blur_batch", n)
         return out
     return gaussian_blur_batch_torch(imgs, sigma)
 
@@ -151,11 +149,11 @@ def _gradients_cuda(img: torch.Tensor):
     cuda_lib.require_plane(img, torch.float32, "image_gradients")
     H, W = img.shape
     gx, gy, mag, angle = (torch.empty_like(img) for _ in range(4))
-    code = cuda_lib.library().tpuslam_gradients(
+    cuda_lib.launch(
+        "tpuslam_gradients", img, "image_gradients",
         img.data_ptr(), gx.data_ptr(), gy.data_ptr(), mag.data_ptr(), angle.data_ptr(),
-        H, W, cuda_lib.stream_of(img),
+        H, W,
     )
-    cuda_lib.check(code, "image_gradients")
     return gx, gy, mag, angle
 
 
@@ -164,8 +162,7 @@ def image_gradients(img: torch.Tensor):
     tensor, plain version on a CPU tensor."""
     if cuda_lib.on_card(img):
         out = _gradients_cuda(img)
-        LAUNCHES["gradients"] += 1
-        KERNEL_LAUNCHES["gradients"] += 1
+        cuda_lib.count(LAUNCHES, KERNEL_LAUNCHES, "gradients", 1)
         return out
     return image_gradients_torch(img)
 
@@ -179,10 +176,7 @@ def gradients_xy_torch(img: torch.Tensor, scale: float):
 def _gradients_xy_cuda(img: torch.Tensor, scale: float, batched: bool = False):
     B, H, W = cuda_lib.image_batch(img, torch.float32, "gradients_xy", batched)
     gx, gy = torch.empty_like(img), torch.empty_like(img)
-    code = cuda_lib.library().tpuslam_gradients_xy_batch(
-        img.data_ptr(), gx.data_ptr(), gy.data_ptr(), B, H, W, scale, cuda_lib.stream_of(img)
-    )
-    cuda_lib.check(code, "gradients_xy")
+    cuda_lib.launch("tpuslam_gradients_xy_batch", img, "gradients_xy", img.data_ptr(), gx.data_ptr(), gy.data_ptr(), B, H, W, scale)
     return gx, gy
 
 
@@ -194,8 +188,7 @@ def gradients_xy(img: torch.Tensor, scale: float):
     with ``image_gradients(img * scale)[:2]``."""
     if cuda_lib.on_card(img):
         out = _gradients_xy_cuda(img, scale)
-        LAUNCHES["gradients"] += 1
-        KERNEL_LAUNCHES["gradients"] += 1
+        cuda_lib.count(LAUNCHES, KERNEL_LAUNCHES, "gradients", 1)
         return out
     return gradients_xy_torch(img, scale)
 
@@ -212,8 +205,7 @@ def gradients_xy_batch(imgs: torch.Tensor, scale: float):
     image bit for bit its single call), the plain version on a CPU tensor."""
     if cuda_lib.on_card(imgs):
         out = _gradients_xy_cuda(imgs, scale, batched=True)
-        LAUNCHES["gradients_batch"] += 1
-        KERNEL_LAUNCHES["gradients_batch"] += 1
+        cuda_lib.count(LAUNCHES, KERNEL_LAUNCHES, "gradients_batch", 1)
         return out
     return gradients_xy_batch_torch(imgs, scale)
 

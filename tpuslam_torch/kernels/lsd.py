@@ -190,15 +190,14 @@ def _ccl_cuda(labels, maxlab, compat_bits, rounds: int, batched: bool = False):
     B, H, W = _check_ccl_planes(labels, maxlab, compat_bits, batched)
     lab_out, mx_out, lab_tmp, mx_tmp = (torch.empty_like(labels) for _ in range(4))
     n = ctypes.c_int(0)
-    code = cuda_lib.library().tpuslam_ccl_batch(
+    cuda_lib.launch(
+        "tpuslam_ccl_batch", labels, "ccl_propagate",
         labels.data_ptr(), maxlab.data_ptr(), compat_bits.data_ptr(),
         lab_out.data_ptr(), mx_out.data_ptr(), lab_tmp.data_ptr(), mx_tmp.data_ptr(),
-        B, H, W, int(rounds), *CCL_TILE, ctypes.byref(n), cuda_lib.stream_of(labels),
+        B, H, W, int(rounds), *CCL_TILE, ctypes.byref(n),
     )
-    cuda_lib.check(code, "ccl_propagate")
     key = "ccl_batch" if batched else "ccl"
-    LAUNCHES[key] += 1
-    KERNEL_LAUNCHES[key] += n.value
+    cuda_lib.count(LAUNCHES, KERNEL_LAUNCHES, key, n.value)
     return lab_out, mx_out
 
 
@@ -209,12 +208,12 @@ def _ccl_per_round_cuda(labels, maxlab, compat_bits, rounds: int):
     _check_ccl_planes(labels, maxlab, compat_bits)
     H, W = labels.shape
     lab_out, mx_out, lab_tmp, mx_tmp = (torch.empty_like(labels) for _ in range(4))
-    code = cuda_lib.library().tpuslam_ccl_per_round(
+    cuda_lib.launch(
+        "tpuslam_ccl_per_round", labels, "ccl_propagate (per round)",
         labels.data_ptr(), maxlab.data_ptr(), compat_bits.data_ptr(),
         lab_out.data_ptr(), mx_out.data_ptr(), lab_tmp.data_ptr(), mx_tmp.data_ptr(),
-        H, W, int(rounds), cuda_lib.stream_of(labels),
+        H, W, int(rounds),
     )
-    cuda_lib.check(code, "ccl_propagate (per round)")
     return lab_out, mx_out
 
 
@@ -270,11 +269,10 @@ def _moments_two_launch_cuda(values: torch.Tensor, slot: torch.Tensor, S: int) -
     partial = torch.empty((MOMENTS_BLOCKS, V, S), dtype=torch.float32, device=values.device)
     out = torch.empty((V, S), dtype=torch.float32, device=values.device)
     n = ctypes.c_int(0)
-    code = cuda_lib.library().tpuslam_moments(
+    cuda_lib.launch(
+        "tpuslam_moments", values, "segment_moments (two launches)",
         values.data_ptr(), slot.data_ptr(), partial.data_ptr(), out.data_ptr(), N, V, S, ctypes.byref(n),
-        cuda_lib.stream_of(values),
     )
-    cuda_lib.check(code, "segment_moments (two launches)")
     return out
 
 
@@ -284,10 +282,10 @@ def _segment_sums_cuda(values: torch.Tensor, slot: torch.Tensor, S: int, batched
     B, V, N = _check_sum_inputs(values, slot, "segment_moments", batched)
     out = torch.empty((*values.shape[:-2], V, S), dtype=torch.float32, device=values.device)
     n = ctypes.c_int(0)
-    code = cuda_lib.library().tpuslam_segment_sums_batch(
-        values.data_ptr(), slot.data_ptr(), out.data_ptr(), B, N, V, S, ctypes.byref(n), cuda_lib.stream_of(values)
+    cuda_lib.launch(
+        "tpuslam_segment_sums_batch", values, "segment_moments",
+        values.data_ptr(), slot.data_ptr(), out.data_ptr(), B, N, V, S, ctypes.byref(n),
     )
-    cuda_lib.check(code, "segment_moments")
     return out, n.value
 
 
@@ -299,8 +297,7 @@ def segment_moments(values: torch.Tensor, slot: torch.Tensor, S: int) -> torch.T
     version does on a CPU tensor (merge_collinear's size: 256 items)."""
     if cuda_lib.on_card(values):
         out, n = _segment_sums_cuda(values, slot, S)
-        LAUNCHES["segment_moments"] += 1
-        KERNEL_LAUNCHES["segment_moments"] += n
+        cuda_lib.count(LAUNCHES, KERNEL_LAUNCHES, "segment_moments", n)
         return out
     return segment_moments_torch(values, slot, S)
 
@@ -316,8 +313,7 @@ def segment_moments_batch(values: torch.Tensor, slot: torch.Tensor, S: int) -> t
     for bit its single call), the plain version on CPU tensors."""
     if cuda_lib.on_card(values):
         out, n = _segment_sums_cuda(values, slot, S, batched=True)
-        LAUNCHES["segment_moments_batch"] += 1
-        KERNEL_LAUNCHES["segment_moments_batch"] += n
+        cuda_lib.count(LAUNCHES, KERNEL_LAUNCHES, "segment_moments_batch", n)
         return out
     return segment_moments_batch_torch(values, slot, S)
 
@@ -409,7 +405,7 @@ def _ticket_counters(dev: torch.device, images: int = 1) -> torch.Tensor:
     back to 0 as they finish: every image's last-block combine counts its
     own blocks only. Calls on one stream run one after another, so every
     call may start from the same buffer (grown, zeroed, for a larger batch)."""
-    key = (dev.type, dev.index if dev.index is not None else torch.cuda.current_device())
+    key = (dev.type, dev.index)  # a tensor's device: never without its index
     if key not in _COUNTERS or _COUNTERS[key].numel() < images * COUNTERS_PER_IMAGE:
         _COUNTERS[key] = torch.zeros(images * COUNTERS_PER_IMAGE, dtype=torch.int32, device=dev)
     return _COUNTERS[key]
@@ -448,12 +444,11 @@ def _component_moments_cuda(labels, mag, support, roots, batched: bool = False):
     blocks, ipw, partial = _component_scratch(labels, K, 7)
     out = torch.empty((*labels.shape[:-2], 7, K), dtype=torch.float32, device=labels.device)
     n = ctypes.c_int(0)
-    code = cuda_lib.library().tpuslam_component_moments_batch(
+    cuda_lib.launch(
+        "tpuslam_component_moments_batch", labels, "component_moments",
         labels.data_ptr(), mag.data_ptr(), support.data_ptr(), roots.data_ptr(), partial.data_ptr(),
         _ticket_counters(labels.device, B).data_ptr(), out.data_ptr(), B, H, W, K, blocks, ipw, ctypes.byref(n),
-        cuda_lib.stream_of(labels),
     )
-    cuda_lib.check(code, "component_moments")
     return out, n.value
 
 
@@ -469,12 +464,12 @@ def _component_extents_cuda(labels, mag, support, roots, cx, cy, ev, batched: bo
     keys = torch.empty((*partial.shape[:-2], 2, K), dtype=torch.int64, device=labels.device)
     out = torch.empty((*lead, 3, K), dtype=torch.float32, device=labels.device)
     n = ctypes.c_int(0)
-    code = cuda_lib.library().tpuslam_component_extents_batch(
+    cuda_lib.launch(
+        "tpuslam_component_extents_batch", labels, "component_extents",
         labels.data_ptr(), mag.data_ptr(), support.data_ptr(), roots.data_ptr(), cx.data_ptr(), cy.data_ptr(),
         ev.data_ptr(), partial.data_ptr(), keys.data_ptr(), _ticket_counters(labels.device, B).data_ptr(),
-        out.data_ptr(), B, H, W, K, blocks, ipw, ctypes.byref(n), cuda_lib.stream_of(labels),
+        out.data_ptr(), B, H, W, K, blocks, ipw, ctypes.byref(n),
     )
-    cuda_lib.check(code, "component_extents")
     return out, n.value
 
 
@@ -485,8 +480,7 @@ def component_moments_batch(labels, mag, support, roots) -> torch.Tensor:
     image on CPU tensors."""
     if cuda_lib.on_card(labels):
         out, n = _component_moments_cuda(labels, mag, support, roots, batched=True)
-        LAUNCHES["component_moments_batch"] += 1
-        KERNEL_LAUNCHES["component_moments_batch"] += n
+        cuda_lib.count(LAUNCHES, KERNEL_LAUNCHES, "component_moments_batch", n)
         return out
     return torch.stack([component_moments_torch(*a) for a in zip(labels, mag, support, roots)])
 
@@ -497,8 +491,7 @@ def component_extents_batch(labels, mag, support, roots, cx, cy, ev) -> torch.Te
     plain version per image on CPU tensors."""
     if cuda_lib.on_card(labels):
         out, n = _component_extents_cuda(labels, mag, support, roots, cx, cy, ev, batched=True)
-        LAUNCHES["component_extents_batch"] += 1
-        KERNEL_LAUNCHES["component_extents_batch"] += n
+        cuda_lib.count(LAUNCHES, KERNEL_LAUNCHES, "component_extents_batch", n)
         return out
     return torch.stack([component_extents_torch(*a) for a in zip(labels, mag, support, roots, cx, cy, ev)])
 
@@ -513,8 +506,7 @@ def component_moments(labels: torch.Tensor, mag: torch.Tensor, support: torch.Te
     the plain version on CPU tensors."""
     if cuda_lib.on_card(labels):
         out, n = _component_moments_cuda(labels, mag, support, roots)
-        LAUNCHES["component_moments"] += 1
-        KERNEL_LAUNCHES["component_moments"] += n
+        cuda_lib.count(LAUNCHES, KERNEL_LAUNCHES, "component_moments", n)
         return out
     return component_moments_torch(labels, mag, support, roots)
 
@@ -530,8 +522,7 @@ def component_extents(labels, mag, support, roots, cx, cy, ev) -> torch.Tensor:
     -0.0 and a +0.0 settle alike."""
     if cuda_lib.on_card(labels):
         out, n = _component_extents_cuda(labels, mag, support, roots, cx, cy, ev)
-        LAUNCHES["component_extents"] += 1
-        KERNEL_LAUNCHES["component_extents"] += n
+        cuda_lib.count(LAUNCHES, KERNEL_LAUNCHES, "component_extents", n)
         return out
     return component_extents_torch(labels, mag, support, roots, cx, cy, ev)
 
@@ -622,12 +613,12 @@ def _lsd_front_cuda(img: torch.Tensor, params: LSDParams, batched: bool = False)
     support = torch.empty(img.shape, dtype=torch.bool, device=img.device)
     labels0, maxlab0, compat_bits = (torch.empty(img.shape, dtype=torch.int32, device=img.device) for _ in range(3))
     n = ctypes.c_int(0)
-    code = cuda_lib.library().tpuslam_lsd_front_batch(
+    cuda_lib.launch(
+        "tpuslam_lsd_front_batch", img, "ccl_inputs",
         img.data_ptr(), mag.data_ptr(), support.data_ptr(), labels0.data_ptr(), maxlab0.data_ptr(),
         compat_bits.data_ptr(), B, H, W, taps.ctypes.data, taps.size, rho, cos_tol,
-        FRONT_TILE, front_halo(r), ctypes.byref(n), cuda_lib.stream_of(img),
+        FRONT_TILE, front_halo(r), ctypes.byref(n),
     )
-    cuda_lib.check(code, "ccl_inputs")
     return (mag, support, labels0, maxlab0, compat_bits), n.value
 
 
@@ -653,8 +644,7 @@ def ccl_inputs(img: torch.Tensor, params: LSDParams = LSDParams()):
     plain version on a CPU tensor."""
     if cuda_lib.on_card(img):
         out, n = _lsd_front_cuda(img, params)
-        LAUNCHES["lsd_front"] += 1
-        KERNEL_LAUNCHES["lsd_front"] += n
+        cuda_lib.count(LAUNCHES, KERNEL_LAUNCHES, "lsd_front", n)
         return out
     return ccl_inputs_torch(img, params)
 
@@ -666,8 +656,7 @@ def ccl_inputs_batch(imgs: torch.Tensor, params: LSDParams = LSDParams()):
     call), the plain version per image on a CPU tensor."""
     if cuda_lib.on_card(imgs):
         out, n = _lsd_front_cuda(imgs, params, batched=True)
-        LAUNCHES["lsd_front_batch"] += 1
-        KERNEL_LAUNCHES["lsd_front_batch"] += n
+        cuda_lib.count(LAUNCHES, KERNEL_LAUNCHES, "lsd_front_batch", n)
         return out
     return tuple(torch.stack(p) for p in zip(*(ccl_inputs_torch(im, params) for im in imgs)))
 

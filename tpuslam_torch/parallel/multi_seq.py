@@ -21,12 +21,15 @@ Host control flow (keyframe policy, map bookkeeping) stays per sequence:
 :class:`MultiTracker` owns N port ``Tracker``s and feeds them the batched
 results through their own resolve (one host read of the batch's packed
 rows per frame). Sequences that are initializing or LOST take their own
-synchronous path, as in the reference.
+synchronous path, as in the reference. Over a mesh of several entries the
+sequences split into shards, one per entry, each driven by a host thread of
+its own on its device (the JAX package shards the same axis with a
+``NamedSharding``).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -37,6 +40,8 @@ from tpuslam_torch.frontend.frame import FrameFeatures, FrontendParams, StereoPa
 from tpuslam_torch.frontend.matcher import ProjectionSearchParams, TrackStepResult, tracked_pose_step
 from tpuslam_torch.frontend.tracking import Tracker, TrackerConfig, TrackingState
 from tpuslam_torch.geometry.camera import Intrinsics
+from tpuslam_torch.kernels import cuda_lib
+from tpuslam_torch.parallel.sharded_ba import DeviceMesh, run_sharded, shard_slices
 from tpuslam_torch.slammap.map import SlamMap
 
 
@@ -95,73 +100,116 @@ def batched_track_step(
     return torch.func.vmap(one)(T_pred, map_plucker, map_ep3d, map_bits, map_validf, feats, cams)
 
 
+class _Shard(NamedTuple):
+    """The sequences ``seqs`` of a MultiTracker on one device, with their
+    calibrations batched there."""
+
+    seqs: slice
+    device: torch.device
+    fxb: torch.Tensor  # (n,) fx * baseline
+    cam_b: Intrinsics  # (n,) fields
+
+
 class MultiTracker:
-    """Track N stereo sequences concurrently with batched device stages."""
+    """Track N stereo sequences concurrently with batched device stages.
+
+    With a mesh (``parallel.sharded_ba.DeviceMesh``) of k entries the N
+    sequences split into k contiguous shards (``shard_slices``: k must
+    divide N); sequence i's ``Tracker`` lives on its shard's device, and
+    each frame runs every shard's batched stages on that shard's own host
+    thread (``run_sharded``). Attach a sequence's ``LocalMapper`` on its
+    tracker's ``device``: the mapper runs on the shard's thread too. A mesh
+    of one entry, or none, is one shard on the calling thread."""
 
     def __init__(self, cams: Sequence[Intrinsics], cfg: Optional[TrackerConfig] = None, mesh=None, device="cuda"):
         if len({(c.width, c.height) for c in cams}) != 1:
             raise ValueError("all sequences must share an image shape")
-        if mesh is not None:
-            if len(mesh.devices) != 1:
-                raise NotImplementedError(
-                    "MultiTracker: splitting the sequences over several cards is not ported (one card per mesh)"
-                )
-            device = mesh.devices[0]
-        self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else DeviceMesh((resolve_device(device),))
+        devices = [resolve_device(d) for d in self.mesh.devices]
+        self.device = devices[0]
         self.cams = list(cams)
         self.cfg = cfg if cfg is not None else TrackerConfig()
-        self.mesh = mesh
-        self.trackers: List[Tracker] = [Tracker(c, SlamMap(), self.cfg, device=self.device) for c in cams]
-        self._fxb = torch.tensor([float(np.float32(c.fx * c.baseline)) for c in cams], dtype=torch.float32, device=self.device)
-        self._cam_b = cam_batch(self.cams, self.device)
+        self.shards: List[_Shard] = []
+        self.trackers: List[Tracker] = []
+        for seqs, dev in zip(shard_slices(len(cams), self.mesh), devices):
+            cs = self.cams[seqs]
+            fxb = torch.tensor([float(np.float32(c.fx * c.baseline)) for c in cs], dtype=torch.float32, device=dev)
+            self.shards.append(_Shard(seqs, dev, fxb, cam_batch(cs, dev)))
+            self.trackers += [Tracker(c, SlamMap(), self.cfg, device=dev) for c in cs]
+        if len(self.shards) > 1 and any(d.type == "cuda" for d in devices):
+            cuda_lib.library()  # built and loaded before any shard thread runs
 
     def track_stereo(self, lefts: np.ndarray, rights: np.ndarray, timestamps: Sequence[float]):
-        """lefts / rights: (N, H, W) frames. Returns one FrameResult per sequence."""
-        fe, up = self.cfg.frontend, self.trackers[0]._image  # (N, H, W) frames, u8 or f32, as one sequence's
-        fl = batched_extract(up(np.stack(lefts)), fe)
-        fr = batched_extract(up(np.stack(rights)), fe)
-        feats = batched_stereo(fl, fr, self._fxb, self.cfg.stereo)
-        return self.track_features(feats, timestamps)
+        """lefts / rights: (N, H, W) frames. Returns one FrameResult per
+        sequence. Each shard uploads its own frames to its device."""
 
-    def track_features(self, feats: FrameFeatures, timestamps: Sequence[float]):
-        """Track one batched-feature frame per sequence (leading axis N).
+        def shard(s: int, _dev) -> list:
+            sh = self.shards[s]
+            up = self.trackers[sh.seqs.start]._image  # (n, H, W) frames, u8 or f32, as one sequence's
+            fl = batched_extract(up(np.stack(lefts[sh.seqs])), self.cfg.frontend)
+            fr = batched_extract(up(np.stack(rights[sh.seqs])), self.cfg.frontend)
+            feats = batched_stereo(fl, fr, sh.fxb, self.cfg.stereo)
+            return self._track_shard(sh, feats, timestamps[sh.seqs])
 
-        Every sequence in steady tracking is solved by ONE batched coarse and
-        fine dispatch (:func:`batched_track_step`), per-sequence
-        calibrations included; all N rows are always dispatched (a row not
-        in steady tracking carries its tracker's local map, zero-valid
-        before initialization), so the shapes never change. Keyframe policy
-        and map bookkeeping stay per sequence through
+        return [r for rs in run_sharded(self.mesh, shard) for r in rs]
+
+    def track_features(self, feats, timestamps: Sequence[float]):
+        """Track one batched-feature frame per sequence: ``feats`` with a
+        leading N axis (each shard takes its rows to its device), or one
+        FrameFeatures per shard on its device.
+
+        Every sequence of a shard in steady tracking is solved by ONE batched
+        coarse and fine dispatch (:func:`batched_track_step`), per-sequence
+        calibrations included; all of the shard's rows are always dispatched
+        (a row not in steady tracking carries its tracker's local map,
+        zero-valid before initialization), so the shapes never change.
+        Keyframe policy and map bookkeeping stay per sequence through
         ``Tracker._resolve_pending``; sequences that are initializing or
         LOST take their own synchronous path."""
-        N = len(self.trackers)
-        results: List = [None] * N
-        steady = [i for i, tr in enumerate(self.trackers) if tr.state == TrackingState.OK and tr.last_T_cw is not None]
-        for tr in self.trackers:
+        if isinstance(feats, FrameFeatures):
+            if len(self.shards) == 1:
+                per = [feats]
+            else:
+                per = [FrameFeatures(*(x[sh.seqs].to(sh.device) for x in feats)) for sh in self.shards]
+        else:
+            per = list(feats)
+            if len(per) != len(self.shards):
+                raise ValueError(f"track_features: {len(per)} feature batches for {len(self.shards)} shards")
+        def shard(s: int, _dev) -> list:
+            return self._track_shard(self.shards[s], per[s], timestamps[self.shards[s].seqs])
+
+        return [r for rs in run_sharded(self.mesh, shard) for r in rs]
+
+    def _track_shard(self, sh: _Shard, feats: FrameFeatures, timestamps: Sequence[float]) -> list:
+        """One frame of the shard's sequences (``feats`` on its device)."""
+        trackers = self.trackers[sh.seqs]
+        results: List = [None] * len(trackers)
+        steady = [i for i, tr in enumerate(trackers) if tr.state == TrackingState.OK and tr.last_T_cw is not None]
+        for tr in trackers:
             tr.frame_idx += 1
         feat_i = lambda i: FrameFeatures(*(x[i] for x in feats))  # noqa: E731
 
         if steady:
             T_pred = np.stack([
                 (tr.velocity @ tr.last_T_cw).astype(np.float32) if tr.last_T_cw is not None else np.eye(4, dtype=np.float32)
-                for tr in self.trackers
+                for tr in trackers
             ])
-            locs = [tr._local_map_arrays() for tr in self.trackers]
+            locs = [tr._local_map_arrays() for tr in trackers]
             stackk = lambda k: torch.stack([loc[k] for loc in locs])  # noqa: E731
             pose_b, midx_b, inl_b, nm_b, ni_b, packed_b = batched_track_step(
-                self.trackers[0]._to_device(T_pred), stackk("plucker"), stackk("ep3d"), stackk("bits"),
-                stackk("valid"), feats, self._cam_b, self.cfg.search_coarse, self.cfg.search_fine, self.cfg.pose_opt,
+                trackers[0]._to_device(T_pred), stackk("plucker"), stackk("ep3d"), stackk("bits"),
+                stackk("valid"), feats, sh.cam_b, self.cfg.search_coarse, self.cfg.search_fine, self.cfg.pose_opt,
             )
-            packed = packed_b.cpu().numpy()  # one host read for the whole batch
+            packed = packed_b.cpu().numpy()  # one host read for the shard's batch
             for i in steady:
-                tr = self.trackers[i]
+                tr = trackers[i]
                 fine_i = TrackStepResult(pose_b[i], midx_b[i], inl_b[i], nm_b[i], ni_b[i])
                 results[i] = tr._resolve_pending(
                     tr.frame_idx, timestamps[i], feat_i(i), fine_i, True, tr._local_ids.copy(), tr._local_valid.copy(),
                     packed[i],
                 )
 
-        for i, tr in enumerate(self.trackers):
+        for i, tr in enumerate(trackers):
             if results[i] is None:
                 results[i] = tr._track(feat_i(i), timestamps[i], stereo=True)
         return results

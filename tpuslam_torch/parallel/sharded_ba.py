@@ -8,14 +8,22 @@ iteration is one set of launches for the whole batch (the solver is
 branch-free: accept and reject are ``torch.where``, and its sums are the
 fixed-order one-hot products, batched).
 
-The JAX package shards that axis over a 1-D device mesh. Here a mesh is
-one card (:func:`make_mesh`); splitting the batch over several cards is not
-ported and raises.
+The JAX package shards that axis over a 1-D device mesh. Here a
+:class:`DeviceMesh` is a tuple of devices: :func:`shard_slices` cuts a
+leading axis into one contiguous equal shard per entry, in order, and
+:func:`run_sharded` runs one function per shard, each on a host thread of
+its own with its card as the current device (the port is host-bound: one
+thread enqueueing k shards would pay k times the launches). An entry may
+repeat a card: ``DeviceMesh((cuda:0, cuda:0))`` drives the shard code and the
+threads on one card, and shards on one card share its current stream. A mesh
+of one entry runs on the calling thread with no copy. The shards are
+independent, as in the JAX package: no collective runs between them.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+import threading
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,16 +58,65 @@ def make_mesh(n_devices: Optional[int] = None, axis: str = "seq", device="cuda")
     return DeviceMesh(tuple(torch.device("cuda", i) for i in range(n)), axis)
 
 
+def shard_slices(n: int, mesh: DeviceMesh) -> List[slice]:
+    """Contiguous equal shards of a leading axis of ``n``, one per mesh
+    entry in order; raises ValueError when the mesh size does not divide
+    ``n`` (as the JAX package's ``NamedSharding`` does)."""
+    k = len(mesh.devices)
+    if n % k:
+        raise ValueError(f"a leading axis of {n} does not split over a mesh of {k}")
+    step = n // k
+    return [slice(s * step, (s + 1) * step) for s in range(k)]
+
+
+def run_sharded(mesh: DeviceMesh, fn: Callable[[int, torch.device], object]) -> list:
+    """``[fn(s, device) for s, device in enumerate(mesh.devices)]``. With more
+    than one entry each call runs on a thread of its own, its card the
+    thread's current device; every thread is joined, and the first shard's
+    exception (in shard order) is raised here."""
+    if len(mesh.devices) == 1:
+        return [fn(0, mesh.devices[0])]
+    out: list = [None] * len(mesh.devices)
+    errors: list = [None] * len(mesh.devices)
+
+    def shard(s: int, dev: torch.device) -> None:
+        try:
+            if dev.type == "cuda":
+                with torch.cuda.device(dev):
+                    out[s] = fn(s, dev)
+            else:
+                out[s] = fn(s, dev)
+        except BaseException as e:  # noqa: BLE001 -- handed to the caller below
+            errors[s] = e
+
+    threads = [threading.Thread(target=shard, args=(s, d), name=f"shard-{s}") for s, d in enumerate(mesh.devices)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for s, e in enumerate(errors):
+        if e is not None:
+            e.add_note(f"in shard {s} of {len(errors)}, on {mesh.devices[s]}")
+            raise e
+    return out
+
+
 def batched_ba(probs: BAProblem, cam: Intrinsics, cfg: LMConfig = LMConfig(), mesh: Optional[DeviceMesh] = None) -> BAState:
     """Solve a leading-axis batch of BA problems: ``probs`` fields (B, ...)
     -> BAState fields (B, ...), each problem as ``run_lm`` solves it alone,
-    in one set of launches per LM iteration. With a mesh the batch goes to
-    its card; a mesh of several cards raises (the split is not ported)."""
-    if mesh is not None:
-        if len(mesh.devices) != 1:
-            raise NotImplementedError("batched_ba: splitting the batch over several cards is not ported (one card per mesh)")
-        probs = BAProblem(*(x.to(mesh.devices[0]) for x in probs))
-    return torch.func.vmap(lambda p: run_lm(p, cam, cfg))(probs)
+    in one set of launches per LM iteration. With a mesh of several entries
+    each shard (:func:`shard_slices`) is solved on its own device by its own
+    thread, every shard enqueued before any result is read; the states come
+    back in sequence order on the mesh's first device."""
+    solve = torch.func.vmap(lambda p: run_lm(p, cam, cfg))
+    if mesh is None:
+        return solve(probs)
+    if len(mesh.devices) == 1:
+        return solve(BAProblem(*(x.to(mesh.devices[0]) for x in probs)))
+    parts = shard_slices(probs.poses.shape[0], mesh)
+    states = run_sharded(mesh, lambda s, dev: solve(BAProblem(*(x[parts[s]].to(dev) for x in probs))))
+    first = mesh.devices[0]
+    return BAState(*(torch.cat([st[i].to(first) for st in states]) for i in range(len(BAState._fields))))
 
 
 def _toy_problem(rng: np.random.Generator, P_: int, L: int, OL: int, cam: Intrinsics, device="cuda") -> BAProblem:
@@ -118,10 +175,11 @@ def stack_problems(probs) -> BAProblem:
 
 
 def dryrun(n_devices: int = 1, device="cuda") -> None:
-    """Run the whole config-#5 step on tiny shapes: (1) batched
-    multi-sequence tracking (one coarse and fine projection search and pose
-    LM dispatch for all sequences) over detector-bypassing features and (2)
-    the batched local-BA solve."""
+    """Run the whole config-#5 step on tiny shapes over an ``n_devices``
+    mesh (:func:`make_mesh`) with one sequence per entry, as the JAX
+    package's hook does: (1) batched multi-sequence tracking (one coarse and
+    fine projection search and pose LM dispatch per shard) over
+    detector-bypassing features and (2) the split batched local-BA solve."""
     from tpuslam_torch.frontend.tracking import TrackerConfig, TrackingState
     from tpuslam_torch.io.synthetic import make_wireframe_scene, synthetic_frame_features
     from tpuslam_torch.parallel.multi_seq import MultiTracker
@@ -130,7 +188,7 @@ def dryrun(n_devices: int = 1, device="cuda") -> None:
     rng = np.random.default_rng(0)
     mesh = make_mesh(n_devices, device=device)
     dev = mesh.devices[0]
-    B = max(n_devices, 2)
+    B = len(mesh.devices)
 
     scenes = [
         make_wireframe_scene(np.random.default_rng(100 + s), n_segments=80, n_frames=3, cam=cam, motion_scale=0.01)
