@@ -189,13 +189,34 @@ first failure and catches nothing):
    run); fps_wall, fps_median, track_ms_median, fps_device_feed,
    local_ba_ms and its rungs', pretouch_s, wire_mbps and the keyframe
    frames printed. The CLI run and the hybrid seed-0 run run alone in this
-   process and give the rates; the other nine seed runs run four at a time,
+   process and give the rates; the other nine seed runs run seven at a time,
    each in a process of its own with the same checks (a run's result does
-   not depend on its timing). Each row's median ATE over the seeds within
+   not depend on its timing), in one pool with phase 23's five. Each row's median ATE over the seeds within
    the JAX package's median x 1.05 + 0.01 m; then run_ba_benchmark: each rung's
    ms per solve and launches per solve, its initial cost equal to the
    CPU's (1e-5) and the card's and the CPU's final cost at the float32
    floor (at most 1e-8 of the initial cost).
+   Phases 1-22 run with TPUSLAM_BA_SUBPROCESS=0 and TPUSLAM_BENCH_FUSEDEFER=0:
+   local and global BA in this process, fusion at the keyframe (their JAX
+   references and bit-equal repeats belong to that path).
+23. the asynchronous back end, the configuration the JAX bench runs on its
+   chip (TPUSLAM_BA_SUBPROCESS=1, TPUSLAM_BENCH_FUSEDEFER=1): a solver
+   process (backend/ba_worker.py) on the card, its start-up time, and the
+   bench's larger toy rung solved there twice against solve_in_process on
+   the card (every array and the cost within 1e-5); the bench with the
+   solver process and deferred fusion: the CLI run and the hybrid run of
+   seed 0 alone in this process, each printed beside phase 22's
+   synchronous run on the same frames (fps_wall, fps_median, the longest
+   call that ran a keyframe event, local_ba_ms), then lines only over
+   noise seeds 0-4 in processes of their own (in phase 22's pool), the median ATE within phase
+   22's bound; every run with solves submitted and none failed, abandoned
+   or stale; the loop configuration (phase 9's System(cam)) with its
+   solver process: a closure, every global-BA round through the solver in
+   float64, the final keyframe-map ATE within phase 9's bound, the stale
+   solves printed; then one steady chunk's calls of the bench
+   configuration under torch.profiler with the solver idle and with two
+   toy solves at (24, 1024, 4096) in flight: the tracking chunk's device
+   busy ms and wall ms.
 
 Output: a {"kernels": [...]} JSON line (calls per path and launches per
 call from the mono phase's hybrid run, the main path; times, bounds,
@@ -203,7 +224,8 @@ errors and profiled launches per call at 480x640 from phase 3, device us
 at every shape timed; "blur.resize", the blur kernel at the resize's
 sigma, with its calls from phase 15; "<name>.batch", each kernel's batched
 form, from phase 20; "cli" in launches_by_path from phase 21, "bench100"
-(the CLI run) and "bench100_hybrid" (seed 0) from phase 22), the script's
+(the CLI run) and "bench100_hybrid" (seed 0) from phase 22,
+"bench100_async", "bench100_async_hybrid" and "loop_solver" from phase 23), the script's
 own wall time, the card line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -371,7 +393,7 @@ JAX_HYBRID_BENCH100_SEED_ATES_M = (
 BENCH100_ATE_FACTOR = 1.05
 # phase 22's seed runs at once, each in a process of its own, and the most
 # seconds one may take
-BENCH100_SLOTS, BENCH100_CHILD_S = 4, 600
+BENCH100_SLOTS, BENCH100_CHILD_S = 7, 600
 # benchmarks/ladder.py's mono tracker settings
 MONO_TRACKER = dict(min_init_lines=8, min_track_matches=6, min_track_inliers=6, max_frames_between_kf=4)
 RELOC_FRAME = 20
@@ -3170,7 +3192,10 @@ def bench100_run(tag, card, per_extraction, noise_seed=None, via_cli: bool = Fal
     print(
         f"{tag}: fps_wall {res['fps_wall']:.2f}, fps_median {res['fps_median']:.2f}, track_ms_median "
         f"{res['track_ms_median']:.3f} ms, fps_device_feed {res.get('fps_device_feed', 'not run')}, local_ba_ms {res['local_ba_ms']:.2f} "
-        f"(by rung {res.get('local_ba_ms_by_rung')}, {res['ba_submitted']} solves), pretouch_s {res['pretouch_s']}, "
+        f"(by rung {res.get('local_ba_ms_by_rung')}, {res['ba_submitted']} solves; solver process {res['ba_worker']}, fusion "
+        f"deferred {res['fuse_defer']}, skipped {res['ba_skipped']}, resubmitted {res['ba_resubmitted']}, stale {res['ba_stale']}, "
+        f"failed {res['ba_failed']}, cold {res.get('local_ba_cold', False)}, last stage ms {res.get('local_ba_stage_ms')}), "
+        f"calls that ran a keyframe event {[round(x, 2) for x in res['keyframe_call_ms']]} ms, pretouch_s {res['pretouch_s']}, "
         f"wire_mbps {res['wire_mbps']:.1f}, flush_ms {res['flush_ms']:.1f}, keyframes at frames {res['keyframe_frames']}, "
         f"lines {res['lines']}, ATE {res['ate_rmse']:.5f} m; {len(rows)} JSON lines, {wall:.1f} s in all; device "
         f"{res['device']!r}, power limit {res['power_limit_w']} W ({card})",
@@ -3185,6 +3210,12 @@ def bench100_run(tag, card, per_extraction, noise_seed=None, via_cli: bool = Fal
         fail(f"{tag}: {res['tracked_ok']} of {n} frames tracked OK in frame order")
     if res["native_map"] is not True:
         fail(f"{tag}: the map's native mirror was not in use")
+    solver = os.environ.get("TPUSLAM_BA_SUBPROCESS") == "1"
+    if res["ba_worker"] != solver or res["fuse_defer"] != (os.environ.get("TPUSLAM_BENCH_FUSEDEFER") == "1"):
+        fail(f"{tag}: solver process {res['ba_worker']}, fusion deferred {res['fuse_defer']}: not the configuration asked for")
+    if solver and (res["ba_failed"] or res["ba_stale"] or res["ba_submitted"] < 1 or res.get("local_ba_cold")):
+        fail(f"{tag}: {res['ba_submitted']} solves submitted, {res['ba_failed']} failed or abandoned, {res['ba_stale']} stale, "
+             f"cold only {res.get('local_ba_cold', False)}")
     calls, device = launches
     want_lpc = launches_per_call()
     ext = res["extractions"]
@@ -3218,6 +3249,7 @@ def multi_only() -> int:
     cuda_lib.build()
     cuda_lib.library()
     os.environ["TPUSLAM_NATIVE_MAP"] = "0"  # as main() runs phase 20
+    os.environ.update(SYNC_ENV)
     multi_phase(card)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3225,12 +3257,79 @@ def multi_only() -> int:
     return 0
 
 
+def async_only() -> int:
+    """Phase 22's two solo runs (the synchronous references) and phase 23
+    alone after the kernel build:
+
+        python3 -c "import sys, chip_smoke; sys.exit(chip_smoke.async_only())"
+    """
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script runs on a CUDA device only")
+    card = card_line()
+    from tpuslam_torch.kernels import cuda_lib
+
+    cuda_lib.build()
+    cuda_lib.library()
+    os.environ["TPUSLAM_NATIVE_MAP"] = "1"  # as main() runs phases 22-23
+    os.environ.update(SYNC_ENV)
+    os.environ.pop("TPUSLAM_BENCH_POINTS", None)
+    sync_cli, _ = bench100_run("bench100 cli", card, PER_EXTRACTION, via_cli=True)
+    os.environ["TPUSLAM_BENCH_POINTS"] = "1"
+    sync_hybrid, _ = bench100_run("bench100 hybrid seed 0", card, PER_EXTRACTION_HYBRID, noise_seed=0)
+    got = bench100_seeds([(f"async seed {k}", False, k, True) for k in BENCH100_SEEDS])
+    async_phase(card, sync_cli, sync_hybrid, {k: got[(False, k, True)] for k in BENCH100_SEEDS})
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def bench_turns(rounds: int = 2) -> int:
+    """The lines-only `cli bench --frames 100 --warmup 6` run alone in this
+    process, synchronous (SYNC_ENV) and asynchronous (ASYNC_ENV) in turns
+    (sync, async, async, sync, ... ``rounds`` times), without the device
+    feed: each run's fps_wall, the calls that ran a keyframe event and the
+    solves, then each configuration's fps_wall median:
+
+        python3 -c "import sys, chip_smoke; sys.exit(chip_smoke.bench_turns())"
+    """
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script runs on a CUDA device only")
+    card = card_line()
+    from tpuslam_torch.kernels import cuda_lib
+
+    cuda_lib.build()
+    cuda_lib.library()
+    os.environ["TPUSLAM_NATIVE_MAP"] = "1"
+    os.environ.pop("TPUSLAM_BENCH_POINTS", None)
+    got = {"sync": [], "async": []}
+    for i, mode in enumerate(["sync", "async", "async", "sync"] * rounds):
+        os.environ.update(SYNC_ENV if mode == "sync" else ASYNC_ENV)
+        res, _ = bench100_run(f"turns {i + 1} {mode}", card, PER_EXTRACTION, via_cli=True, devfeed=False)
+        got[mode].append(res)
+    for mode, rows in got.items():
+        print(f"turns: {mode}: fps_wall {[round(r['fps_wall'], 2) for r in rows]}, median "
+              f"{statistics.median(r['fps_wall'] for r in rows):.2f}; the longest call with a keyframe event "
+              f"{[round(max(r['keyframe_call_ms']), 2) for r in rows]} ms; solves {[r['ba_submitted'] for r in rows]}; "
+              f"local_ba_ms {[round(r['local_ba_ms'], 2) for r in rows]} on {card}", flush=True)
+    os.environ.update(SYNC_ENV)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def bench100_child() -> int:
-    """One seed run of phase 22 in a process of its own (see
-    bench100_seeds): sys.argv[1] is the JSON [tag, points, seed]. Runs
-    bench100_run with its checks (a failed check exits 1) and prints the
-    ATE and fps_wall as the last line."""
-    tag, points, seed = json.loads(sys.argv[1])
+    """One seed run of phase 22 or 23 in a process of its own (see
+    bench100_seeds): sys.argv[1] is the JSON [tag, points, seed, asynchronous]
+    (ASYNC_ENV or SYNC_ENV). Runs bench100_run with its checks (a failed
+    check exits 1) and prints the ATE and fps_wall as the last line."""
+    tag, points, seed, asynchronous = json.loads(sys.argv[1])
+    os.environ.update(ASYNC_ENV if asynchronous else SYNC_ENV)
     os.environ["TPUSLAM_NATIVE_MAP"] = "1"
     os.environ["TPUSLAM_BENCH_POINTS"] = "1" if points else "0"
     res, _ = bench100_run(tag, card_line(), PER_EXTRACTION_HYBRID if points else PER_EXTRACTION, noise_seed=seed, devfeed=False)
@@ -3239,13 +3338,15 @@ def bench100_child() -> int:
 
 
 def bench100_seeds(jobs) -> dict:
-    """Phase 22's seed runs ``jobs`` ((tag, points, seed), ...), each in a
-    process of its own (bench100_child), BENCH100_SLOTS at a time on the
-    one card: a run's result does not depend on its timing, so they share
+    """The seed runs ``jobs`` ((tag, points, seed, asynchronous), ...), each
+    in a process of its own (bench100_child), BENCH100_SLOTS at a time on
+    the one card: a synchronous run's result does not depend on its timing,
+    and an asynchronous one's barely does (seeds 0-4 gave the same
+    keyframes 4, 5 and 7 at once, their ATEs within 1e-4 m), so they share
     the host, and the rates they print are not the bench's (the solo runs
     give those). Each child's output is printed; a child that fails, or
     runs past BENCH100_CHILD_S, fails the phase once all have ended.
-    Returns {(points, seed): {"ate_rmse", "fps_wall"}}."""
+    Returns {(points, seed, asynchronous): {"ate_rmse", "fps_wall"}}."""
     from concurrent.futures import ThreadPoolExecutor
 
     code = "import sys, chip_smoke; sys.exit(chip_smoke.bench100_child())"
@@ -3260,14 +3361,14 @@ def bench100_seeds(jobs) -> dict:
     with ThreadPoolExecutor(BENCH100_SLOTS) as pool:
         done = list(pool.map(run, jobs))
     out = {}
-    for (tag, points, seed), proc in zip(jobs, done):
+    for (tag, points, seed, asynchronous), proc in zip(jobs, done):
         stdout = proc.stdout if isinstance(proc.stdout, str) else proc.stdout.decode()
         for line in stdout.strip().splitlines()[:-1]:
             print(line, flush=True)
         if proc.returncode != 0:
             print(stdout.strip().splitlines()[-1:], proc.stderr[-4000:], flush=True)
             fail(f"{tag} seed {seed}: its process ended with code {proc.returncode}")
-        out[(points, seed)] = json.loads(stdout.strip().splitlines()[-1])
+        out[(points, seed, asynchronous)] = json.loads(stdout.strip().splitlines()[-1])
     return out
 
 
@@ -3277,8 +3378,10 @@ def bench100_phase(card):
     set's median ATE within the JAX package's median x 1.05 + 0.01 m; then
     run_ba_benchmark. The CLI run and the hybrid run of seed 0 run alone,
     with the device feed: their rates are the bench's; the other seed runs
-    share the host (bench100_seeds). Returns the launches of the CLI run
-    and of the hybrid run of seed 0."""
+    share the host (bench100_seeds), in one pool with phase 23's
+    asynchronous seed runs (lines only, seeds 0-4). Returns the launches of
+    the CLI run and of the hybrid run of seed 0, those two runs' results
+    and the asynchronous seed runs' results by seed."""
     t0 = time.perf_counter()
     os.environ.pop("TPUSLAM_BENCH_POINTS", None)
     cli_res, cli_launches = bench100_run("bench100 cli", card, PER_EXTRACTION, via_cli=True)
@@ -3288,15 +3391,17 @@ def bench100_phase(card):
     os.environ.pop("TPUSLAM_BENCH_POINTS", None)
     os.environ.pop("TPUSLAM_BENCH_DEVFEED", None)
     t = time.perf_counter()
-    jobs = [(f"bench100 seed {k} ({BENCH100_SLOTS} runs at once)", False, k) for k in BENCH100_SEEDS]
-    jobs += [(f"bench100 hybrid seed {k} ({BENCH100_SLOTS} runs at once)", True, k) for k in BENCH100_SEEDS if k != 0]
+    jobs = [(f"bench100 seed {k} ({BENCH100_SLOTS} runs at once)", False, k, False) for k in BENCH100_SEEDS]
+    jobs += [(f"bench100 hybrid seed {k} ({BENCH100_SLOTS} runs at once)", True, k, False) for k in BENCH100_SEEDS if k != 0]
+    jobs += [(f"async seed {k} ({BENCH100_SLOTS} runs at once)", False, k, True) for k in BENCH100_SEEDS]
     got = bench100_seeds(jobs)
-    got[(True, 0)] = hybrid_res
-    print(f"bench100: {len(jobs)} seed runs, {BENCH100_SLOTS} at a time, {time.perf_counter() - t:.1f} s", flush=True)
+    got[(True, 0, False)] = hybrid_res
+    print(f"bench100: {len(jobs)} seed runs (phase 23's asynchronous ones among them), {BENCH100_SLOTS} at a time, "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
     for tag, points, jax_ates, solo in (
         ("bench100", False, JAX_BENCH100_SEED_ATES_M, cli_res), ("bench100 hybrid", True, JAX_HYBRID_BENCH100_SEED_ATES_M, hybrid_res)
     ):
-        ates = [got[(points, k)]["ate_rmse"] for k in BENCH100_SEEDS]
+        ates = [got[(points, k, False)]["ate_rmse"] for k in BENCH100_SEEDS]
         med, jmed = statistics.median(ates), statistics.median(jax_ates)
         bound = jmed * BENCH100_ATE_FACTOR + ATE_MARGIN_M
         print(f"{tag}: ATE over noise seeds {list(BENCH100_SEEDS)} {ates}, median {med:.5f} m; the JAX package's {list(jax_ates)}, "
@@ -3306,7 +3411,7 @@ def bench100_phase(card):
             fail(f"{tag}: median ATE {med} m above {bound} m")
     ba_bench_phase(card)
     print(f"bench100: phase {time.perf_counter() - t0:.1f} s on {card}", flush=True)
-    return cli_launches, hybrid_launches
+    return cli_launches, hybrid_launches, cli_res, hybrid_res, {k: got[(False, k, True)] for k in BENCH100_SEEDS}
 
 
 def ba_bench_phase(card) -> None:
@@ -3350,6 +3455,239 @@ def ba_bench_phase(card) -> None:
     torch.cuda.synchronize()
 
 
+# ---- the asynchronous back end: the solver process and deferred fusion (phase 23) ----
+# phases 1-22 run local and global BA in this process and fusion at the
+# keyframe (their references and bit-equal repeats belong to that path);
+# phase 23 runs the JAX bench's on-chip configuration
+SYNC_ENV = {"TPUSLAM_BA_SUBPROCESS": "0", "TPUSLAM_BENCH_FUSEDEFER": "0"}
+ASYNC_ENV = {"TPUSLAM_BA_SUBPROCESS": "1", "TPUSLAM_BENCH_FUSEDEFER": "1"}
+SOLVER_TOL = 1e-5  # the solver process's solve against this process's, same card
+ASYNC_PROFILE_RUNG = (24, 1024, 4096)  # the toy solves in flight during the profiled chunk
+ASYNC_PROFILE_SOLVES = 5  # ~130 ms each: they outlast the chunk
+ASYNC_PROFILE_FRAMES = 64
+
+
+def solver_check(card) -> None:
+    """A solver process on the card (BASolverWorker): its start-up time, then
+    the toy problem at the bench's larger rung solved there twice (cold,
+    warm) against solve_in_process on the card, every array and the cost
+    within SOLVER_TOL; the child gone after close()."""
+    import numpy as np
+    import torch
+
+    from tpuslam_torch import bench
+    from tpuslam_torch.backend.ba_worker import BASolverWorker
+    from tpuslam_torch.backend.lm import BAProblem
+    from tpuslam_torch.backend.local_ba import LocalBAConfig, problem_arrays, solve_in_process
+    from tpuslam_torch.parallel.sharded_ba import _toy_problem
+
+    cfg = LocalBAConfig()
+    P_, L_, OL_ = bench.BA_RUNGS[-1]
+    prob = _toy_problem(np.random.default_rng(0), P_=P_, L=L_, OL=OL_, cam=bench.VGA, device="cpu")
+    ref = solve_in_process(BAProblem(*[x.cuda() for x in prob]), bench.VGA, cfg)
+    t = time.perf_counter()
+    w = BASolverWorker(bench.VGA, warm_caps=(), device="cuda")
+    try:
+        w.wait_ready(300.0)
+        up_s = time.perf_counter() - t
+        got = []
+        for _ in range(2):
+            t = time.perf_counter()
+            res, err = w.solve(problem_arrays(prob), cfg.lm, cfg.chi2_line, cfg.chi2_point, timeout=300.0)
+            if res is None:
+                fail(f"solver: the solve failed: {err}")
+            got.append((res, (time.perf_counter() - t) * 1e3))
+    finally:
+        w.close()
+    for (res, ms), which in zip(got, ("first", "second")):
+        err = max(float(np.abs(np.asarray(res[k]) - np.asarray(ref[k])).max())
+                  for k in ("poses", "lines", "points", "inl_l", "inl_p", "inl_l0", "inl_p0"))
+        err = max(err, abs(res["cost"] - ref["cost"]))
+        print(f"solver: {which} solve of the toy problem at {(P_, L_, OL_)} in the solver process: {ms:.2f} ms round trip, "
+              f"{res['solve_ms']:.2f} ms in the child (warm {res['warm']}, stages {res['stage_ms']}); max abs difference to "
+              f"the in-process solve on the card {err!r} (bound {SOLVER_TOL}) on {card}", flush=True)
+        if not err <= SOLVER_TOL:
+            fail(f"solver: the solver process's solve is {err} from the in-process solve on the card")
+    print(f"solver: the process came up in {up_s:.2f} s (torch import, card opened); alive after close: {w.alive}", flush=True)
+    if w.alive:
+        fail("solver: the solver process outlived close()")
+    torch.cuda.synchronize()
+
+
+def async_profile_phase(card) -> None:
+    """The bench configuration with the solver process and deferred fusion
+    over make_frames(ASYNC_PROFILE_FRAMES): one steady chunk's calls under
+    torch.profiler (this process's device work) with the solver idle, then
+    with ASYNC_PROFILE_SOLVES toy solves at ASYNC_PROFILE_RUNG sent to the
+    same solver just before (a poll right after the chunk tells which were
+    still in flight): the tracking chunk's device busy ms and wall ms of
+    each."""
+    import numpy as np
+    import torch
+
+    from tpuslam_torch.backend.local_ba import problem_arrays
+    from tpuslam_torch.parallel.sharded_ba import _toy_problem
+    from tpuslam_torch.system import System, bench_configs
+
+    cam, _, frames = make_frames(ASYNC_PROFILE_FRAMES)
+    tcfg, mcfg = bench_configs(BENCH_C, fuse_defer=True)
+    sys_ = System(cam, sensor="stereo", mapping=True, loop_closing=False, tracker_cfg=tcfg, mapper_cfg=mcfg, device="cuda")
+    w = sys_._ba_worker
+    if w is None:
+        fail("async profile: the System started no solver process")
+    w.wait_ready(300.0)
+    f = 0
+
+    def feed(n):
+        nonlocal f
+        for _ in range(n):
+            sys_.track_stereo(*frames[f], f * 0.05)
+            f += 1
+
+    feed(1 + 2 * BENCH_C)
+    torch.cuda.synchronize()
+    P_, L_, OL_ = ASYNC_PROFILE_RUNG
+    toy = problem_arrays(_toy_problem(np.random.default_rng(0), P_=P_, L=L_, OL=OL_, cam=cam, device="cpu"))
+    ba = mcfg.ba
+    out = {}
+    busy_label = f"{ASYNC_PROFILE_SOLVES} toy solves sent just before"
+    for label in ("solver idle", busy_label):
+        walls, ids, still = [], [], []
+
+        def run_chunk():
+            if label != "solver idle":
+                ids[:] = [w.submit(toy, ba.lm, ba.chi2_line, ba.chi2_point) for _ in range(ASYNC_PROFILE_SOLVES)]
+                time.sleep(0.02)  # the child takes the first one up
+            t = time.perf_counter()
+            feed(BENCH_C)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            still[:] = [w.poll(i, 0.0) is None for i in ids]  # a finished one is consumed here
+            for i, busy in zip(ids, still):
+                if busy and w.poll(i, 300.0) is None:
+                    fail("async profile: a toy solve gave no result in 300 s")
+
+        _, (busy_us, n_kernels, n_copies) = profiled(run_chunk, tries=3, whole=False)
+        out[label] = busy_us
+        print(f"async profile: one steady chunk's calls ({BENCH_C} frames, {label}; toy solves still in flight when the chunk "
+              f"ended {still}): device busy {busy_us / 1e3:.3f} ms, {n_kernels} kernel launches, {n_copies} memcpy/memset, "
+              f"{walls[-1] * 1e3:.2f} ms wall (device idle {1 - busy_us / 1e6 / walls[-1]:.1%}) on {card}", flush=True)
+    sys_.shutdown()
+    print(f"async profile: the tracking chunk's device busy ms, solver idle {out['solver idle'] / 1e3:.3f}, {busy_label} "
+          f"{out[busy_label] / 1e3:.3f}; mapper solves {sys_.mapper.ba_submitted}, failed "
+          f"{sys_.mapper.ba_failed} on {card}", flush=True)
+    if sys_.mapper.ba_failed:
+        fail("async profile: a mapper solve failed")
+
+
+def loop_solver_phase(card):
+    """The loop configuration of phase 9 (System(cam) with its defaults) with
+    its solver process: local BA asynchronous, global BA through the
+    solver's blocking solve(); the launch counts set to 0 just before and
+    read just after. At least one closure, every global-BA round through the
+    solver (float64 arrays), the final keyframe-map ATE within phase 9's
+    bound, no failed solve; the stale solves reported. Returns the
+    launches."""
+    import numpy as np
+    import torch
+
+    cam, scene, frames = make_loop_frames()
+    sys_ = loop_system(cam)
+    worker = sys_._ba_worker
+    if worker is None or sys_.loop_closer.solver is not worker:
+        fail("loop solver: the System started no solver process, or the loop closer does not use it")
+    worker.wait_ready(300.0)
+    reset_launches()
+    t = time.perf_counter()
+    frame_s = []
+    for f, (il, ir) in enumerate(frames):
+        t1 = time.perf_counter()
+        sys_.track_stereo(il, ir, f * 0.05)
+        torch.cuda.synchronize()
+        frame_s.append(time.perf_counter() - t1)
+    launches = read_launches()
+    sys_.shutdown()
+    wall = time.perf_counter() - t
+    lc, mp_ = sys_.loop_closer, sys_.mapper
+    traj = sys_.trajectory
+    ok = [r for r in traj if r.state.name == "OK"]
+    final = kf_map_ate(sys_.map, scene)
+    bound = JAX_LOOP_KF_ATE_M * LOOP_KF_ATE_FACTOR + ATE_MARGIN_M
+    kf_s = [dt for r, dt in zip(traj[1:], frame_s[1:]) if r.made_keyframe]
+    print(
+        f"loop solver: {len(frames)} frames in {wall:.1f} s, OK {len(ok)} (JAX package {JAX_LOOP_OK_FRAMES}), keyframes "
+        f"{len(sys_.map.keyframes)}, loops closed {lc.closed_loops}, gba_skipped {lc.gba_skipped}; final keyframe-map ATE "
+        f"{final:.5f} m, bound {bound:.5f} m; local BA submitted {mp_.ba_submitted}, skipped {mp_.ba_skipped}, resubmitted "
+        f"{mp_.ba_resubmitted}, stale {mp_.ba_stale}, failed {mp_.ba_failed}, warm solves median "
+        f"{statistics.median(mp_.solve_ms) if mp_.solve_ms else float('nan'):.2f} ms, cold {[round(x, 1) for x in mp_.cold_solve_ms]}; "
+        f"ms per frame median {statistics.median(frame_s[1:]) * 1e3:.2f}, keyframe frames median "
+        f"{statistics.median(kf_s) * 1e3:.2f} on {card}",
+        flush=True,
+    )
+    for rung, ms in mp_.solve_ms_by_rung.items():
+        print(f"loop solver: local BA rung {rung}: {len(ms)} warm solves in the solver process, median {statistics.median(ms):.2f} ms", flush=True)
+    for ev, rec in zip([e for e in lc.timings if e["closed"]], lc.closures):
+        gba = rec.get("gba", {})
+        solves = gba.get("solves", [])
+        print(f"loop solver: closure at keyframe {ev['kid']}: global BA {ev.get('global_ba_ms', float('nan')):.2f} ms, rung "
+              f"{gba.get('rung')}, {len(solves)} rounds through the solver ({', '.join(f'{ms:.2f}' for _, _, ms in solves)} ms in "
+              f"the child) on {card}", flush=True)
+        if not solves or not all(isinstance(a, dict) and a["poses"].dtype == np.float64 for a, _, _ in solves):
+            fail(f"loop solver: the closure at keyframe {ev['kid']} did not solve global BA through the solver in float64")
+    if not lc.closed_loops:
+        fail("loop solver: no loop was closed")
+    if not final <= bound:
+        fail(f"loop solver: final keyframe-map ATE {final} m above {bound} m")
+    if len(ok) < JAX_LOOP_OK_FRAMES - 2:
+        fail(f"loop solver: {len(ok)} OK frames, fewer than the JAX package's {JAX_LOOP_OK_FRAMES} - 2")
+    if mp_.ba_failed or mp_.ba_submitted < 1 or worker.alive:
+        fail(f"loop solver: {mp_.ba_submitted} solves submitted, {mp_.ba_failed} failed; solver alive after shutdown {worker.alive}")
+    calls, device = launches
+    want_lpc = launches_per_call()
+    for name in PER_FRAME:
+        if calls[name] == 0 or device[name] != calls[name] * want_lpc[name]:
+            fail(f"loop solver: {name}: {calls[name]} calls, {device[name]} device launches")
+    return launches
+
+
+def async_phase(card, sync_cli, sync_hybrid, async_seeds):
+    """Phase 23: the solver check, the bench in the JAX bench's on-chip
+    configuration (solver process, deferred fusion): the CLI run (the
+    JAX bench's noise stream) and the hybrid run of seed 0 alone in this
+    process, each beside phase 22's synchronous run on the same frames;
+    lines only over noise seeds 0-4 (``async_seeds``, run in child
+    processes in phase 22's pool), the median ATE within phase 22's bound;
+    then the loop configuration with its solver and the tracking chunk's
+    device time with solves in flight. Returns the launches of the CLI run,
+    the hybrid run and the loop run."""
+    t0 = time.perf_counter()
+    os.environ.update(ASYNC_ENV)
+    solver_check(card)
+    os.environ.pop("TPUSLAM_BENCH_POINTS", None)
+    cli_res, cli_launches = bench100_run("async cli", card, PER_EXTRACTION, via_cli=True, devfeed=False)
+    os.environ["TPUSLAM_BENCH_POINTS"] = "1"
+    hybrid_res, hybrid_launches = bench100_run("async hybrid seed 0", card, PER_EXTRACTION_HYBRID, noise_seed=0, devfeed=False)
+    os.environ.pop("TPUSLAM_BENCH_POINTS", None)
+    os.environ.pop("TPUSLAM_BENCH_DEVFEED", None)
+    for tag, sync, asyn in (("lines, the CLI run", sync_cli, cli_res), ("hybrid, seed 0", sync_hybrid, hybrid_res)):
+        row = lambda r: (f"fps_wall {r['fps_wall']:.2f}, fps_median {r['fps_median']:.2f}, largest call with a keyframe event "  # noqa: E731
+                         f"{max(r['keyframe_call_ms'], default=float('nan')):.2f} ms, local_ba_ms {r['local_ba_ms']:.2f}, "
+                         f"{r['ba_submitted']} solves, ATE {r['ate_rmse']:.5f} m")
+        print(f"async: {tag}: synchronous (phase 22) {row(sync)}; asynchronous {row(asyn)} on {card}", flush=True)
+    ates = [async_seeds[k]["ate_rmse"] for k in BENCH100_SEEDS]
+    med, jmed = statistics.median(ates), statistics.median(JAX_BENCH100_SEED_ATES_M)
+    bound = jmed * BENCH100_ATE_FACTOR + ATE_MARGIN_M
+    print(f"async: ATE over noise seeds {list(BENCH100_SEEDS)} {ates}, median {med:.5f} m (synchronous, phase 22: see "
+          f"above); the JAX package's median {jmed:.5f} m; bound {bound:.5f} m", flush=True)
+    if not med <= bound:
+        fail(f"async: median ATE {med} m above {bound} m")
+    loop_launches = loop_solver_phase(card)
+    async_profile_phase(card)
+    os.environ.update(SYNC_ENV)
+    print(f"async: phase {time.perf_counter() - t0:.1f} s on {card}", flush=True)
+    return cli_launches, hybrid_launches, loop_launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3385,8 +3723,10 @@ def main() -> int:
     lap("phase 3 kernels")
 
     # phases 4-21 hold the port to JAX references taken with the JAX map's
-    # native mirror off, so the port's mirror is off there too
+    # native mirror off, so the port's mirror is off there too; phases 1-22
+    # solve in this process and fuse at the keyframe (phase 23 does not)
     os.environ["TPUSLAM_NATIVE_MAP"] = "0"
+    os.environ.update(SYNC_ENV)
 
     slice_sys, slice_launches = run_slice("slice", cam, scene, frames, card, mapping=False, jax_ate=JAX_ATE_M)
     lap("phase 4 slice")
@@ -3426,8 +3766,10 @@ def main() -> int:
     cli_launches = cli_phase(card)
     lap("phase 21 host surface")
     os.environ["TPUSLAM_NATIVE_MAP"] = "1"  # phase 22 runs with the mirror on, the JAX bench's default
-    bench100_launches, bench100_hybrid_launches = bench100_phase(card)
-    lap("phase 22 bench")
+    bench100_launches, bench100_hybrid_launches, sync_cli, sync_hybrid, async_seeds = bench100_phase(card)
+    lap("phase 22 bench (and phase 23's seed runs)")
+    async_launches, async_hybrid_launches, loop_solver_launches = async_phase(card, sync_cli, sync_hybrid, async_seeds)
+    lap("phase 23 asynchronous back end")
     new_paths = {tag.replace(" ", "_"): launches[0] for tag, (launches, _) in forms.items()}
     new_paths.update(pipelined_mono=pmono_launches[0], radtan=radtan_launches[0], cli=cli_launches[0])
 
@@ -3446,6 +3788,8 @@ def main() -> int:
                 "mono_lines": mono_lines_launches[0][name], "mono_loop": mono_loop_launches[0][name],
                 **{path: calls_[name] for path, calls_ in new_paths.items()},
                 "bench100": bench100_launches[0][name], "bench100_hybrid": bench100_hybrid_launches[0][name],
+                "bench100_async": async_launches[0][name], "bench100_async_hybrid": async_hybrid_launches[0][name],
+                "loop_solver": loop_solver_launches[0][name],
             },
             **kres[name],
         )

@@ -86,7 +86,9 @@ def test_bench_scene_matches_jax():
     assert not np.array_equal(other[0][0], imgs[0][0])
 
 
-DEFAULT = dict(mapping=True, chunk=6, points=False, pipelined=True, direct=True, halfres=True, hostscale=True, semidirect=True)
+DEFAULT = dict(
+    mapping=True, chunk=6, points=False, pipelined=True, direct=True, halfres=True, hostscale=True, semidirect=True, fuse_defer=True
+)
 SWITCHES = [
     ({}, {}),
     ({"NOMAP": "1"}, {"mapping": False}),
@@ -98,7 +100,8 @@ SWITCHES = [
     ({"CHUNK": "4"}, {"chunk": 4}),
     ({"SEMIDIRECT": "0"}, {"semidirect": False}),
     ({"POINTS": "1"}, {"points": True}),
-    ({"FUSEDEFER": "0", "WARMUP": "0"}, {}),  # read only by the JAX bench
+    ({"FUSEDEFER": "0", "WARMUP": "0"}, {"fuse_defer": False}),  # WARMUP: read only by the JAX bench
+    ({"WARMUP": "0"}, {}),
 ]
 
 
@@ -111,13 +114,23 @@ def test_bench_switches(env, changed):
     assert got == {**DEFAULT, **changed}
     kw = dict(got)
     kw.pop("mapping")
-    tcfg, _ = bench_configs(**kw)
+    tcfg, mcfg = bench_configs(**kw)
     assert tcfg.pipelined == kw["pipelined"] and tcfg.chunk == kw["chunk"]
     assert (tcfg.direct_stereo is not None) == kw["direct"]
     assert (tcfg.points is not None) == kw["points"]
     assert tcfg.frontend.base_scale == (0.5 if kw["halfres"] else 1.0)
     assert tcfg.frontend.prescaled == (kw["halfres"] and kw["hostscale"])
     assert (tcfg.semidirect is not None) == (kw["chunk"] > 1 and kw["direct"] and kw["semidirect"])
+    assert mcfg.fuse_defer == kw["fuse_defer"]
+
+
+def test_ba_rungs():
+    """TPUSLAM_BA_WARM_CAPS sets the bench's local-BA rungs, as the JAX
+    bench reads it; unset, the two rungs of bench_configs."""
+    assert bench.ba_rungs({}) == bench.BA_RUNGS
+    assert bench.ba_rungs({"TPUSLAM_BA_WARM_CAPS": "8,128,512;"}) == ((8, 128, 512),)
+    ba = bench_configs()[1].ba
+    assert tuple(zip(ba.pose_buckets, ba.line_buckets, ba.obs_buckets)) == bench.BA_RUNGS
 
 
 @pytest.fixture(scope="module")
@@ -182,17 +195,24 @@ def test_run_benchmark_lines(port_run):
 def test_run_benchmark_fields(port_run):
     """The JAX bench's fields and the port's, with the values of this run:
     ATE that of the returned trajectory, one OK entry per frame, the mirror
-    in use, a toy solve per rung, the detector's runs counted."""
+    in use, a toy solve per rung in this process (on the CPU local BA
+    solves here: no solver process, fusion deferred by the bench's
+    default), the mapper's counters, the detector's runs counted."""
     out, sys_, _, _ = port_run
     for key in (
         "device", "frames", "fps_median", "fps_mean", "fps_wall", "track_ms_median", "local_ba_ms", "keyframes", "lines",
         "warmup_s", "pretouch_s", "pretouch_total_s", "stage_ms", "track_sum_ms", "flush_ms", "wire_mbps",
-        "fps_device_feed", "ate_rmse", "ate_ok", "ba_submitted",
-        "power_limit_w", "keyframe_frames", "native_map", "tracked_ok", "extractions",
+        "fps_device_feed", "ate_rmse", "ate_ok", "ba_submitted", "ba_skipped", "ba_resubmitted", "ba_stale", "ba_failed",
+        "power_limit_w", "keyframe_frames", "keyframe_call_ms", "ba_worker", "fuse_defer", "native_map", "tracked_ok",
+        "extractions",
     ):
         assert key in out, key
-    for key in ("ba_skipped", "ba_resubmitted", "ba_stale", "local_ba_cold", "local_ba_stage_ms"):
+    # as the JAX bench: only a run whose every solve was a bucket's first
+    # reports local_ba_cold, only a solver process local_ba_stage_ms
+    for key in ("local_ba_cold", "local_ba_stage_ms"):
         assert key not in out, key
+    assert out["ba_worker"] is False and out["fuse_defer"] is True and sys_.mapper.cfg.fuse_defer is True
+    assert out["ba_skipped"] == out["ba_resubmitted"] == out["ba_stale"] == out["ba_failed"] == 0
     scene, _ = bench.bench_scene(N_TIMED + N_WARM, bench.VGA)
     traj = sorted(sys_.trajectory, key=lambda r: r.frame_idx)
     assert [r.frame_idx for r in traj] == list(range(N_TIMED + N_WARM))
@@ -203,6 +223,7 @@ def test_run_benchmark_fields(port_run):
     assert set(out["pretouch_s"]) == {"8x128x512", "16x256x1024"}
     # one keyframe in 12 frames: no local BA, so no per-rung medians (as the JAX bench)
     assert out["ba_submitted"] == len(out["keyframe_frames"]) - 1 == 0 and "local_ba_ms_by_rung" not in out
+    assert len(out["keyframe_call_ms"]) <= len(out["keyframe_frames"])
     tr = sys_.tracker
     assert out["extractions"] == dict(
         anchors=len(tr.anchor_frames), flush=len(tr.flush_frames), synchronous=tr.n_sync_extractions, device_feed=7

@@ -18,6 +18,14 @@ from tpuslam_torch.kernels import cuda_lib, image, lsd
 
 pytestmark = pytest.mark.cuda
 
+
+@pytest.fixture(autouse=True)
+def _in_process_ba(monkeypatch):
+    """These tests hold the synchronous path (local and global BA in this
+    process, as their CPU references run it); the solver process is held by
+    tests/test_torch_ba_worker.py and chip_smoke.py's phase 23."""
+    monkeypatch.setenv("TPUSLAM_BA_SUBPROCESS", "0")
+
 # slice shapes, a QVGA frame, KITTI width and a ragged one (partial tiles;
 # smaller than one CCL window)
 SHAPES = [(480, 640), (384, 512), (240, 320), (376, 1241), (37, 53)]

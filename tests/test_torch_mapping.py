@@ -112,9 +112,8 @@ def test_bucket_ladder_matches_jax():
 def test_ba_configs_carry_ported_fields_only():
     """Every field of the JAX LocalBAConfig carries over, the point buckets
     of hybrid points included, directly and inside a MapperConfig; the mono
-    triangulation fields carry over; a MapperConfig field of a path not
-    ported (deferred fusion) is dropped at its default and refused
-    otherwise."""
+    triangulation fields carry over, and so do the deferred fusion's
+    (fuse_defer, fuse_apply_delay_s)."""
     jcfg = jlba.LocalBAConfig(window_size=7, point_buckets=(64, 128), p_obs_buckets=(256, 512))
     assert set(jcfg._fields) == set(tlba.LocalBAConfig._fields)
     cfg = params_from(tlba.LocalBAConfig, jcfg)
@@ -124,8 +123,8 @@ def test_ba_configs_carry_ported_fields_only():
     assert mapper_config_from(JMapperConfig(ba=jcfg)).ba == cfg
     tri = mapper_config_from(JMapperConfig(tri_max_reproj_px=2.0, tri_depth_band=(0.35, 3.0)))
     assert tri.tri_max_reproj_px == 2.0 and tri.tri_depth_band == (0.35, 3.0) and tri.tri_match == JMapperConfig().tri_match
-    with pytest.raises(ValueError, match="not ported"):
-        mapper_config_from(JMapperConfig(fuse_defer=True))
+    defer = mapper_config_from(JMapperConfig(fuse_defer=True, fuse_apply_delay_s=0.25))
+    assert defer.fuse_defer is True and defer.fuse_apply_delay_s == 0.25
 
 
 @pytest.mark.parametrize("kid", [3, 6, 7])

@@ -298,8 +298,8 @@ def test_unported_pipelined_configurations_raise(change):
 def test_tracker_config_converts():
     """The bench TrackerConfig carries into the port's types, the hybrid
     point fields too; a JAX MapperConfig's mono triangulation fields carry
-    over, and a field of an unported path (deferred fusion) is refused when
-    set."""
+    over, and so does the JAX bench's deferred fusion (bench_configs'
+    fuse_defer)."""
     from tpuslam.frontend.points import PointFrontendParams
     from tpuslam.kernels.stereo_direct import DirectPointStereoParams
 
@@ -312,8 +312,8 @@ def test_tracker_config_converts():
     jmcfg.tri_depth_band = (0.35, 3.0)
     assert mapper_config_from(jmcfg).tri_depth_band == (0.35, 3.0)
     jmcfg.fuse_defer = True
-    with pytest.raises(ValueError, match="fuse_defer"):
-        mapper_config_from(jmcfg)
+    got = mapper_config_from(jmcfg)
+    assert got.fuse_defer is True and got == dataclasses.replace(bench_configs(fuse_defer=True)[1], tri_depth_band=(0.35, 3.0))
 
 
 if __name__ == "__main__":

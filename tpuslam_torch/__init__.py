@@ -13,7 +13,10 @@ hybrid points. ``System(cam)`` with its defaults (``sensor="stereo",
 mapping=True, loop_closing=True``): synchronous or pipelined tracking with
 relocalization, local mapping with an LM+Schur local bundle adjustment at
 every keyframe, and loop closing (SE(3) essential graph, landmark
-correction, global bundle adjustment). ``System(cam, sensor="mono")``:
+correction, global bundle adjustment), on the card with local and global
+BA in a persistent solver process (``backend/ba_worker.py``; local BA
+asynchronous, as the JAX package runs it on its chip).
+``System(cam, sensor="mono")``:
 a two-view bootstrap, synchronous tracking, two-view triangulation of new
 lines and points in the mapper, and loop closing on the Sim(3) branch.
 ``parallel/``: N stereo sequences tracked concurrently (``MultiTracker``,

@@ -13,8 +13,10 @@ written back.
 Both solves run on the device one after the other, in float64 (the JAX
 package's float32 solve is ill-conditioned here: :func:`solve_global`), the
 second warm-started from the first without a read back; the result comes
-back to the host in one transfer, as float32. The JAX package's subprocess
-solver is not carried over.
+back to the host in one transfer, as float32. Given a ``solver``
+(``backend.ba_worker.BASolverWorker``) each round is one blocking
+``solver.solve`` of the float64 problem instead, in the solver process on
+its device, as the JAX package sends its rounds; a solver error raises.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import numpy as np
 import torch
 
 from tpuslam_torch.backend.lm import BAProblem, LMConfig, chi2_outlier_mask, run_lm
-from tpuslam_torch.backend.local_ba import _project_endpoints_to_line, ladder_bucket
+from tpuslam_torch.backend.local_ba import _project_endpoints_to_line, ladder_bucket, problem_arrays
 from tpuslam_torch.device import resolve_device
 from tpuslam_torch.geometry.camera import Intrinsics
 from tpuslam_torch.slammap.map import SlamMap
@@ -178,29 +180,56 @@ def solve_global(prob: BAProblem, cam: Intrinsics, cfg: GlobalBAConfig = GlobalB
     return state
 
 
+def solve_global_in(solver, prob: BAProblem, cfg: GlobalBAConfig = GlobalBAConfig(), solves=None):
+    """:func:`solve_global`'s rounds, each a blocking ``solver.solve`` of
+    the problem as float64 arrays: the masks of a round's result and its
+    state give the next round's problem, as :func:`solve_global` forms it
+    on the device. Returns the last result dict (float64 arrays). Given a
+    list ``solves``, each round appends (its problem's arrays, its result,
+    the solver's solve ms). Raises RuntimeError with the solver's error."""
+    arrays = {k: (v.astype(np.float64) if v.dtype.kind == "f" else v) for k, v in problem_arrays(prob).items()}
+    for r in range(1 + max(0, int(cfg.outlier_rounds))):
+        if r:
+            arrays = dict(arrays, poses=res["poses"], lines=res["lines"], points=res["points"],
+                          l_valid=arrays["l_valid"] * res["inl_l"], p_valid=arrays["p_valid"] * res["inl_p"])
+        res, err = solver.solve(arrays, cfg.lm, cfg.chi2_line, cfg.chi2_point)
+        if res is None:
+            raise RuntimeError(f"global BA: the BA solver failed: {err}")
+        if solves is not None:
+            solves.append((arrays, res, res["solve_ms"]))
+    return res
+
+
 def global_bundle_adjustment(
     slam_map: SlamMap,
     cam: Intrinsics,
     cfg: GlobalBAConfig = GlobalBAConfig(),
     device="cuda",
     record: dict | None = None,
+    solver=None,
 ) -> GlobalBAStats:
-    """Full-map BA on ``device``, written back into ``slam_map`` unless it
+    """Full-map BA on ``device`` (or through ``solver``:
+    :func:`solve_global_in`), written back into ``slam_map`` unless it
     diverged. Given ``record``, it receives the problem's rungs and the
-    solves (problem, state, ms) of :func:`solve_global`."""
-    prob, ctx = build_global_problem(slam_map, cfg, device)
+    solves (problem, state, ms) of :func:`solve_global` (with a solver:
+    (arrays, result, ms) of :func:`solve_global_in`)."""
+    prob, ctx = build_global_problem(slam_map, cfg, "cpu" if solver is not None else device)
     solves = None
     if record is not None:
         solves = []
         record.update(rung=tuple(int(x) for x in (prob.poses.shape[0], prob.lines.shape[0], prob.l_pose.shape[0])),
                       point_rung=(int(prob.points.shape[0]), int(prob.p_pose.shape[0])), solves=solves)
-    state = solve_global(prob, cam, cfg, solves)
-    parts = [state.poses, state.lines, state.points, state.cost]
-    flat = torch.cat([p.reshape(-1) for p in parts]).float().cpu().numpy()  # one read back
-    out = []
-    for p in parts:
-        out.append(flat[: p.numel()].reshape(p.shape))
-        flat = flat[p.numel():]
+    if solver is not None:
+        res = solve_global_in(solver, prob, cfg, solves)
+        out = [np.asarray(res[k], np.float32) for k in ("poses", "lines", "points", "cost")]
+    else:
+        state = solve_global(prob, cam, cfg, solves)
+        parts = [state.poses, state.lines, state.points, state.cost]
+        flat = torch.cat([p.reshape(-1) for p in parts]).float().cpu().numpy()  # one read back
+        out = []
+        for p in parts:
+            out.append(flat[: p.numel()].reshape(p.shape))
+            flat = flat[p.numel():]
     new_poses, new_lines, new_points, cost = out[0], out[1], out[2], float(out[3])
 
     n_obs_total = ctx["n_obs"]

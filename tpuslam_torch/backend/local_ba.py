@@ -11,8 +11,13 @@ result is written back with the chi2 prune and the divergence guard.
 The problem is padded to a rung of the diagonal bucket ladder, as in the JAX
 package: PyTorch needs no fixed shapes to avoid recompiles, but the rungs
 keep the port's problems field for field equal to the JAX package's and the
-shapes few enough for a captured CUDA graph later. The solve runs in this
-process; the JAX package's subprocess worker is not carried over.
+shapes few enough for a captured CUDA graph later.
+
+:func:`local_bundle_adjustment` solves in this process. The mapper's
+asynchronous path hands the solve to the solver process
+(``backend.ba_worker``): it assembles on the host (``device="cpu"``),
+ships :func:`problem_arrays` and writes back the dict that
+:func:`solve_arrays` returns there.
 """
 
 from __future__ import annotations
@@ -351,22 +356,60 @@ def initial_chi2_masks(prob: BAProblem, cam: Intrinsics, chi2_line, chi2_point):
     return chi2_outlier_mask(state0, prob, cam, chi2_line, chi2_point)
 
 
-def solve_in_process(prob: BAProblem, cam: Intrinsics, cfg: LocalBAConfig) -> dict:
-    """The LM+Schur solve and the chi2 masks on the problem's device, read
-    back to numpy in one transfer."""
-    state = run_lm(prob, cam, cfg.lm)
+def problem_arrays(prob: BAProblem) -> Dict[str, np.ndarray]:
+    """The problem as host numpy arrays, field by field, dtypes kept: what
+    the solver process receives."""
+    return {f: getattr(prob, f).detach().cpu().numpy() for f in prob._fields}
+
+
+def _solve(prob: BAProblem, cam: Intrinsics, lm: LMConfig, chi2_line, chi2_point, masks: bool, marks=None) -> dict:
+    """run_lm and, with ``masks``, the chi2 masks after and before the
+    solve, read back in one transfer. ``marks`` (a list) receives the host
+    clock after the LM's and after the masks' enqueue."""
+    state = run_lm(prob, cam, lm)
     parts = [state.poses, state.lines, state.points, state.cost]
-    if cfg.prune_outliers:
-        parts += [*chi2_outlier_mask(state, prob, cam, cfg.chi2_line, cfg.chi2_point)]
-        parts += [*initial_chi2_masks(prob, cam, cfg.chi2_line, cfg.chi2_point)]
+    if marks is not None:
+        marks.append(time.perf_counter())
+    if masks:
+        parts += [*chi2_outlier_mask(state, prob, cam, chi2_line, chi2_point)]
+        parts += [*initial_chi2_masks(prob, cam, chi2_line, chi2_point)]
+    if marks is not None:
+        marks.append(time.perf_counter())
     flat = torch.cat([p.reshape(-1) for p in parts]).cpu().numpy()
     out = []
     for p in parts:
         out.append(flat[: p.numel()].reshape(p.shape))
         flat = flat[p.numel():]
     res = dict(poses=out[0], lines=out[1], points=out[2], cost=float(out[3]))
-    if cfg.prune_outliers:
+    if masks:
         res["inl_l"], res["inl_p"], res["inl_l0"], res["inl_p0"] = out[4:]
+    return res
+
+
+def solve_in_process(prob: BAProblem, cam: Intrinsics, cfg: LocalBAConfig) -> dict:
+    """The LM+Schur solve and the chi2 masks on the problem's device, read
+    back to numpy in one transfer."""
+    return _solve(prob, cam, cfg.lm, cfg.chi2_line, cfg.chi2_point, cfg.prune_outliers)
+
+
+def solve_arrays(arrays: Dict[str, np.ndarray], cam: Intrinsics, lm: LMConfig, chi2_line: float, chi2_point: float,
+                 device) -> dict:
+    """Solve a problem received as :func:`problem_arrays` on ``device``, in
+    the dtype its arrays have (global BA sends float64): the solver
+    process's solve. Returns :func:`solve_in_process`'s dict with the masks
+    always, plus ``solve_ms`` (wall ms from the upload to the read back) and
+    ``stage_ms``, the JAX worker's split: ``lm_enqueue`` (the LM's
+    launches), ``chi2_enqueue`` (the masks') and ``exec_d2h`` (the wait for
+    the device and the read back)."""
+    t0 = time.perf_counter()
+    prob = BAProblem(**{f: torch.from_numpy(np.ascontiguousarray(arrays[f])).to(device) for f in BAProblem._fields})
+    marks = [t0]
+    res = _solve(prob, cam, lm, chi2_line, chi2_point, True, marks)
+    t1 = time.perf_counter()
+    res["solve_ms"] = (t1 - t0) * 1e3
+    res["stage_ms"] = {
+        "lm_enqueue": (marks[1] - marks[0]) * 1e3, "chi2_enqueue": (marks[2] - marks[1]) * 1e3, "exec_d2h": (t1 - marks[2]) * 1e3,
+    }
     return res
 
 

@@ -15,8 +15,11 @@ numpy RANSAC + Umeyama, refined by the pose LM on the device; then the
 essential graph (``backend.pose_graph``) on the device, the keyframe and
 landmark correction on the host, and global BA (``backend.global_ba``).
 Per event it records its stage times (``timings``) and per closure the
-device problems it solved (``closures``). The JAX package's BA worker
-subprocess is not carried over.
+device problems it solved (``closures``). Given a ``solver``
+(``backend.ba_worker.BASolverWorker``) global BA solves through it. The
+correction bumps ``map.generation`` after the keyframes and landmarks are
+corrected and before global BA, where the JAX package bumps it, so that a
+local-BA solve assembled before the closure is dropped at its write-back.
 """
 
 from __future__ import annotations
@@ -233,11 +236,13 @@ class LoopCloser:
         cfg: LoopConfig | None = None,
         db: KeyFrameDatabase | None = None,
         mono: bool = False,
+        solver=None,
         device="cuda",
     ):
         self.map = slam_map
         self.cam = cam
         self.cfg = cfg if cfg is not None else LoopConfig()  # its own: callers may edit it
+        self.solver = solver  # global BA through the solver process, or None: on device
         self.device = resolve_device(device)
         # `is not None`, not `db or ...`: an empty database has len 0 and is
         # falsy, and the System's shared one must not be replaced by a private one
@@ -588,7 +593,8 @@ class LoopCloser:
             gba = {}
             try:
                 record["gba_stats"] = global_bundle_adjustment(
-                    self.map, self.cam, cfg=self.cfg.gba_cfg or GlobalBAConfig(), device=self.device, record=gba
+                    self.map, self.cam, cfg=self.cfg.gba_cfg or GlobalBAConfig(), device=self.device, record=gba,
+                    solver=self.solver,
                 )
             except ValueError as e:
                 # the map exceeds the largest BA bucket: the essential graph has

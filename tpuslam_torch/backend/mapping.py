@@ -1,9 +1,9 @@
 """Local mapping: the mapper's steps at each keyframe (torch).
 
 Counterpart of ``tpuslam.backend.mapping`` for stereo and monocular maps of
-lines and, with the hybrid front end, points. At each keyframe event,
-synchronously:
+lines and, with the hybrid front end, points. At each keyframe event:
 
+  (apply a deferred fusion still pending)
   MapLine/PointCulling  -> drop recent landmarks not confirmed in time
   CreateNewMapLines/Points -> (mono) two-view triangulation against covisible
                            keyframes
@@ -12,14 +12,27 @@ synchronously:
   LocalBundleAdjustment -> backend.local_ba (LM+Schur on the device)
   KeyFrameCulling       -> drop redundant keyframes
 
-The JAX package's TPU machinery around the solve is not ported: the subprocess BA worker and the
-deferred fusion apply (both exist to hide the TPU's dispatch and compile
-costs). So ``tick`` and ``finish`` have nothing to do; they stay so that
-``System`` drives both packages' mappers alike.
+Local BA runs in this process, or, given a ``solver``
+(``backend.ba_worker.BASolverWorker``, which ``System`` starts on the card),
+asynchronously in the solver process, as the reference's mapping thread
+runs it: at a keyframe the mapper applies the previous solve if it has
+finished and submits the new window; while the solver is busy the window
+is skipped (``ba_skipped``) and :meth:`LocalMapper.tick` sends the
+freshest one once it is free (``ba_resubmitted``); a solve assembled before
+a loop correction (``map.generation``) is dropped (``ba_stale``); a failed
+or abandoned solve is counted (``ba_failed``) and reported on stderr.
+
+With ``MapperConfig.fuse_defer`` the fusion searches are dispatched at the
+keyframe, their matches copied to pinned host memory behind a CUDA event,
+and applied by :meth:`LocalMapper.tick` once ``fuse_apply_delay_s`` has
+passed (or at the next keyframe event, or at :meth:`LocalMapper.finish`),
+unless the keyframe was culled or the map corrected meanwhile.
 """
 
 from __future__ import annotations
 
+import os
+import sys
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List
@@ -27,7 +40,14 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from tpuslam_torch.backend.local_ba import LocalBAConfig, LocalBAStats, local_bundle_adjustment
+from tpuslam_torch.backend.local_ba import (
+    LocalBAConfig,
+    LocalBAStats,
+    apply_result,
+    assemble_problem,
+    local_bundle_adjustment,
+    problem_arrays,
+)
 from tpuslam_torch.device import resolve_device
 from tpuslam_torch.frontend.matcher import ProjectionSearchParams, search_by_projection
 from tpuslam_torch.geometry.camera import Intrinsics, image_line_through, line_projection_matrix
@@ -51,8 +71,7 @@ from tpuslam_torch.slammap.map import KeyFrame, SlamMap, features_to_device, poi
 @dataclass
 class MapperConfig:
     """The mapper's settings; same names and defaults as
-    ``tpuslam.backend.mapping.MapperConfig``. Its deferred-fusion fields
-    belong to a path not ported and are absent."""
+    ``tpuslam.backend.mapping.MapperConfig``."""
 
     ba: LocalBAConfig = field(default_factory=LocalBAConfig)
     ba_every: int = 1  # run local BA every N keyframes
@@ -78,10 +97,17 @@ class MapperConfig:
     kf_cull_redundancy: float = 0.9  # cull KF if this fraction of its
     kf_cull_min_obs: int = 3  # landmarks is seen by >= this many other KFs
     enable_kf_culling: bool = True
+    # dispatch the fusion searches at the keyframe and apply their matches
+    # from tick() once fuse_apply_delay_s has passed (finish() drains it);
+    # the JAX bench turns it on (TPUSLAM_BENCH_FUSEDEFER=1, its default)
+    fuse_defer: bool = False
+    fuse_apply_delay_s: float = field(default_factory=lambda: float(os.environ.get("TPUSLAM_FUSE_DEFER_MS", "40")) / 1e3)
 
 
 class LocalMapper:
-    """Synchronous mapping back end; install via tracker.on_new_keyframe."""
+    """Mapping back end; install via tracker.on_new_keyframe. Local BA
+    solves in this process, or asynchronously in ``solver`` (a
+    ``backend.ba_worker.BASolverWorker``)."""
 
     def __init__(
         self,
@@ -89,27 +115,45 @@ class LocalMapper:
         cam: Intrinsics,
         cfg: MapperConfig = MapperConfig(),
         mono: bool = False,
+        solver=None,
         device="cuda",
     ):
         self.map = slam_map
         self.cam = cam
         self.cfg = cfg
         self.mono = mono
+        self.solver = solver
         self.device = resolve_device(device)
+        self._ba_ctx = None  # the in-flight solve's write-back context
+        self._ba_req = -1  # and its request id
+        self._ba_want_resubmit = False  # a window was skipped: tick() sends the freshest
+        self._fuse_pending = None  # a deferred fusion's matches on their way to the host
         self._recent: Dict[int, int] = {}  # line id -> kf id at creation
         self._recent_pts: Dict[int, int] = {}  # point id -> kf id at creation
         self._kf_count = 0
         self.last_ba: LocalBAStats | None = None
         self.on_map_changed = None  # callback (e.g. tracker.invalidate_local_map)
         self.timer = None  # optional StageTimer (System wires its own in)
-        # per-solve wall ms (assemble excluded, read back included) by the
-        # (P, L, OL) rung of the problem
+        # the JAX mapper's counters of the asynchronous path, and ba_failed
+        self.ba_submitted = 0
+        self.ba_skipped = 0  # the solver was busy when a keyframe's window was due
+        self.ba_resubmitted = 0  # freshest windows sent by tick() after a skip
+        self.ba_stale = 0  # solves dropped: the map was corrected while they ran
+        self.ba_failed = 0  # solves that came back with an error or were abandoned at a drain
+        # solve wall ms (assembly excluded, read back included): warm solves,
+        # and the same by (P, L, OL) rung; the solver's first solve of a rung
+        # in cold_solve_ms; the solver's stage split of its last solve
+        self.solve_ms: List[float] = []
         self.solve_ms_by_rung: Dict[tuple, List[float]] = {}
+        self.cold_solve_ms: List[float] = []
+        self.last_stage_ms = None
 
     def process(self, kf: KeyFrame):
         _t = time.perf_counter
         marks = [("start", _t())]
         self._kf_count += 1
+        self._apply_pending_fuse()
+        marks.append(("mp.fuse_apply", _t()))
         self._register_recent(kf)
         self._cull_recent(kf)
         marks.append(("mp.cull", _t()))
@@ -117,14 +161,31 @@ class LocalMapper:
             self._create_new_maplines(kf)
             self._create_new_mappoints(kf)
             marks.append(("mp.triangulate", _t()))
-        self._fuse_all(kf)
+        if self.cfg.fuse_defer:
+            self._dispatch_fuse_deferred(kf)
+        else:
+            self._fuse_all(kf)
         marks.append(("mp.fuse_dispatch", _t()))
         self.map.update_connections(kf)
         marks.append(("mp.covis", _t()))
         if self._kf_count % self.cfg.ba_every == 0 and len(self.map.keyframes) >= 2:
-            self.last_ba = local_bundle_adjustment(
-                self.map, kf.kid, self.cam, self.cfg.ba, device=self.device, solve_ms_by_rung=self.solve_ms_by_rung
-            )
+            if self.solver is not None:
+                # apply the previous keyframe's solve if it has finished, then
+                # submit this window; a busy solver skips it (tick() catches up)
+                self._poll_ba(blocking=False)
+                if self._ba_ctx is None:
+                    self._submit_ba(kf.kid)
+                else:
+                    self.ba_skipped += 1
+                    self._ba_want_resubmit = True
+            else:
+                by_rung: Dict[tuple, List[float]] = {}
+                self.last_ba = local_bundle_adjustment(
+                    self.map, kf.kid, self.cam, self.cfg.ba, device=self.device, solve_ms_by_rung=by_rung
+                )
+                for rung, ms in by_rung.items():
+                    self.solve_ms_by_rung.setdefault(rung, []).extend(ms)
+                    self.solve_ms.extend(ms)
         marks.append(("mp.ba", _t()))
         if self.cfg.enable_kf_culling:
             self._cull_keyframes(kf)
@@ -135,11 +196,79 @@ class LocalMapper:
             for (_, prev), (name, now) in zip(marks, marks[1:]):
                 self.timer.add(name, now - prev)
 
-    def tick(self):
-        """Between-keyframe poll: nothing is deferred in this package."""
+    # ---- the asynchronous local BA -----------------------------------------
+    def _submit_ba(self, center_kid: int):
+        """Assemble the window around ``center_kid`` on the host and submit
+        it to the solver (the caller knows it is free)."""
+        prob, ctx = assemble_problem(self.map, center_kid, self.cam, self.cfg.ba, device="cpu")
+        ctx["generation"] = self.map.generation  # a loop correction before the write-back makes it stale
+        ctx["bucket"] = (int(prob.poses.shape[0]), int(prob.lines.shape[0]), int(prob.l_pose.shape[0]))
+        ba = self.cfg.ba
+        self._ba_req = self.solver.submit(problem_arrays(prob), ba.lm, ba.chi2_line, ba.chi2_point)
+        self._ba_ctx = ctx
+        self.ba_submitted += 1
+        self._ba_want_resubmit = False
 
-    def finish(self):
-        """Sequence end: nothing is in flight in this package."""
+    def _poll_ba(self, blocking: bool, timeout: float = 1200.0):
+        """Write back the in-flight solve if it has finished (``blocking``:
+        once it has, waiting up to ``timeout`` s; past that the solve is
+        abandoned, counted in ``ba_failed``, and the solver restarted, so that
+        its late result cannot meet the next request)."""
+        if self.solver is None or self._ba_ctx is None:
+            return
+        out = self.solver.poll(self._ba_req, timeout=0.0)
+        t0 = time.perf_counter()
+        while out is None and blocking and time.perf_counter() - t0 < timeout:
+            step = min(30.0, max(0.1, timeout - (time.perf_counter() - t0)))
+            out = self.solver.poll(self._ba_req, timeout=step)
+        if out is None:
+            if blocking:
+                print(f"mapper: abandoned the in-flight BA solve after a {timeout:.0f} s drain", file=sys.stderr)
+                self.ba_failed += 1
+                self._ba_ctx, self._ba_req = None, -1
+                self.solver.restart()
+            return
+        res, err = out
+        ctx, self._ba_ctx = self._ba_ctx, None
+        self._ba_req = -1
+        if res is None:
+            print(f"BA solver: the solve failed: {err}", file=sys.stderr)
+            self.ba_failed += 1
+            return
+        if "solve_ms" in res:
+            if res.get("warm", True):
+                self.solve_ms.append(float(res["solve_ms"]))
+                self.solve_ms_by_rung.setdefault(ctx.get("bucket", ()), []).append(float(res["solve_ms"]))
+            else:
+                self.cold_solve_ms.append(float(res["solve_ms"]))
+            self.last_stage_ms = res.get("stage_ms")
+        if ctx.get("generation", self.map.generation) != self.map.generation:
+            # assembled before a loop correction: writing it back would undo it
+            self.ba_stale += 1
+            return
+        self.last_ba = apply_result(self.map, self.cfg.ba, ctx, res)
+        if self.on_map_changed:
+            self.on_map_changed()
+
+    def tick(self):
+        """Between keyframes (once per tracked frame): apply a deferred
+        fusion whose delay has passed, write back a finished solve, and
+        after a skipped window submit the freshest one once the solver is
+        free."""
+        pending = self._fuse_pending
+        if pending is not None and time.perf_counter() - pending[-1] >= self.cfg.fuse_apply_delay_s:
+            self._apply_pending_fuse()
+        if self._ba_ctx is not None:
+            self._poll_ba(blocking=False)
+        if self._ba_ctx is None and self._ba_want_resubmit and self.solver is not None and len(self.map.keyframes) >= 2:
+            self._submit_ba(max(self.map.keyframes))
+            self.ba_resubmitted += 1
+
+    def finish(self, timeout: float = 1200.0):
+        """Sequence end: apply a pending fusion and drain the in-flight
+        solve, waiting up to ``timeout`` s for it."""
+        self._apply_pending_fuse()
+        self._poll_ba(blocking=True, timeout=timeout)
 
     # ---- landmark culling ----------------------------------------------
     def _register_recent(self, kf: KeyFrame):
@@ -376,21 +505,66 @@ class LocalMapper:
                 self._recent_pts[pid] = kf.kid
 
     # ---- duplicate fusion -----------------------------------------------
+    def _fuse_dispatch(self, kf: KeyFrame):
+        """Both families' fusion searches; (line ids, point ids, matches as
+        one device tensor (2, n): valid, then index), or None when neither
+        has older landmarks."""
+        ld, pd = self._fuse_lines_dispatch(kf), self._fuse_points_dispatch(kf)
+        live = [d for d in (ld, pd) if d is not None]
+        if not live:
+            return None
+        both = torch.cat([torch.stack([m.valid.to(torch.int64), m.idx]) for m, _ in live], dim=1)
+        return (None if ld is None else ld[1]), (None if pd is None else pd[1]), both
+
+    def _fuse_apply(self, kf: KeyFrame, line_ids, point_ids, both: np.ndarray):
+        """Bind missed observations and merge duplicates from the matches."""
+        n = 0
+        for ids, apply in ((line_ids, self._fuse_lines_apply), (point_ids, self._fuse_points_apply)):
+            if ids is not None:
+                k = len(ids)
+                apply(kf, ids, both[0, n : n + k] > 0, both[1, n : n + k])
+                n += k
+
     def _fuse_all(self, kf: KeyFrame):
         """Match older local-map lines and points into this keyframe (one
         read back of both families' matches); bind missed observations and
         merge duplicates."""
-        ld, pd = self._fuse_lines_dispatch(kf), self._fuse_points_dispatch(kf)
-        live = [d for d in (ld, pd) if d is not None]
-        if not live:
+        out = self._fuse_dispatch(kf)
+        if out is not None:
+            line_ids, point_ids, both = out
+            self._fuse_apply(kf, line_ids, point_ids, both.cpu().numpy())
+
+    def _dispatch_fuse_deferred(self, kf: KeyFrame):
+        """Dispatch the fusion searches and start their matches' copy to
+        pinned host memory behind a CUDA event; the apply runs later."""
+        out = self._fuse_dispatch(kf)
+        if out is None:
             return
-        both = torch.cat([torch.stack([m.valid.to(torch.int64), m.idx]) for m, _ in live], dim=1).cpu().numpy()
-        n = 0
-        for d, apply in ((ld, self._fuse_lines_apply), (pd, self._fuse_points_apply)):
-            if d is not None:
-                k = len(d[1])
-                apply(kf, d[1], both[0, n : n + k] > 0, both[1, n : n + k])
-                n += k
+        line_ids, point_ids, both = out
+        ready = None
+        if both.is_cuda:
+            host = torch.empty(both.shape, dtype=both.dtype, pin_memory=True)
+            host.copy_(both, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(both.device))
+            both = host
+        self._fuse_pending = (kf, line_ids, point_ids, both, ready, self.map.generation, time.perf_counter())
+
+    def _apply_pending_fuse(self):
+        """Apply the deferred fusion, unless its keyframe was culled or the
+        map corrected since the dispatch (its matches are then stale)."""
+        pending, self._fuse_pending = self._fuse_pending, None
+        if pending is None:
+            return
+        kf, line_ids, point_ids, both, ready, generation, _ = pending
+        if kf.kid not in self.map.keyframes or kf.is_bad or generation != self.map.generation:
+            return
+        if ready is not None:
+            ready.synchronize()  # the copy, not the whole device
+        self._fuse_apply(kf, line_ids, point_ids, both.numpy())
+        self.map.update_connections(kf)
+        if self.on_map_changed:
+            self.on_map_changed()
 
     @staticmethod
     def _padded_ids(old_ids: List[int]):

@@ -18,16 +18,19 @@ median local-BA solve), BASELINE.json's three metrics.
 The JAX bench's switches are read under their JAX names:
 ``TPUSLAM_BENCH_FRAMES``, ``_CAM`` (``qvga``), ``_NOMAP``, ``_FORCE_NOMAP``,
 ``_PIPELINED``, ``_DIRECT``, ``_HALFRES``, ``_HOSTSCALE``, ``_CHUNK``,
-``_SEMIDIRECT``, ``_POINTS``, ``_DEVFEED``, ``_PROFILE`` and ``_ATE_REF``.
-Not read, because what they steer is not in this package:
-``TPUSLAM_BENCH_FUSEDEFER`` (fusion applies at the keyframe),
-``TPUSLAM_BA_WARM_CAPS`` (``bench_configs`` fixes the two rungs), and the
-switches of the JAX package's compile warmup, BA worker process and the
-repo-root ``bench.py``'s time budget (``_WARMUP``, ``_WARMUP_S``, ``_BA_WARM_S``,
-``_PRETOUCH_OVERLAP``, ``TPUSLAM_BA_WORKER_WARMUP``, ``_SUB_BUDGET``,
-``_FAKE_HANG``). For the same reason the result has no ``ba_skipped``,
-``ba_resubmitted``, ``ba_stale``, ``local_ba_cold`` or
-``local_ba_stage_ms``: local BA solves in this process, synchronously.
+``_SEMIDIRECT``, ``_POINTS``, ``_FUSEDEFER`` (default 1: the fusion's apply
+deferred to the mapper's tick), ``_PRETOUCH_OVERLAP``, ``_DEVFEED``,
+``_PROFILE`` and ``_ATE_REF``, and ``TPUSLAM_BA_WARM_CAPS`` (the local-BA
+rungs, default :data:`BA_RUNGS`). On the card ``System`` solves local BA in
+its solver process (``backend.ba_worker``; TPUSLAM_BA_SUBPROCESS=0 solves
+in this process), as the JAX bench runs on its chip: the solver's
+pretouches (a toy solve per rung) are enqueued before the kernel library
+is built and collected before the timed loop. With
+TPUSLAM_BA_SUBPROCESS=0 TPUSLAM_BENCH_FUSEDEFER=0 the bench runs the
+synchronous configuration, the toy solves in this process. Not read,
+because what they steer is not in this package: the JAX package's compile
+warmup and the repo-root ``bench.py``'s time budget (``_WARMUP``,
+``_WARMUP_S``, ``_BA_WARM_S``, ``_SUB_BUDGET``, ``_FAKE_HANG``).
 
 Entry points run on the card unless ``device="cpu"`` is passed; without a
 card the default raises.
@@ -36,6 +39,7 @@ card the default raises.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -77,7 +81,31 @@ def bench_switches(env=None) -> dict:
         halfres=on("HALFRES"),
         hostscale=on("HOSTSCALE"),
         semidirect=on("SEMIDIRECT"),
+        fuse_defer=on("FUSEDEFER"),
     )
+
+
+def ba_rungs(env=None) -> tuple:
+    """The local-BA (P, L, OL) rungs: TPUSLAM_BA_WARM_CAPS
+    ("P,L,OL;P,L,OL;..."), as the JAX bench reads them, else BA_RUNGS."""
+    from tpuslam_torch.backend.ba_worker import parse_caps
+
+    env = os.environ if env is None else env
+    text = env.get("TPUSLAM_BA_WARM_CAPS")
+    return BA_RUNGS if text is None else parse_caps(text)
+
+
+@contextlib.contextmanager
+def _env_defaults(**values):
+    """os.environ with ``values`` set where unset, restored on exit."""
+    added = [k for k in values if k not in os.environ]
+    for k in added:
+        os.environ[k] = values[k]
+    try:
+        yield
+    finally:
+        for k in added:
+            os.environ.pop(k, None)
 
 
 def bench_scene(n_frames: int, cam: Intrinsics, noise_seed: Optional[int] = None):
@@ -145,12 +173,16 @@ def run_benchmark(frames: int = 100, warmup: int = 5, quiet: bool = False, devic
     line after each stage unless ``quiet``. ``noise_seed`` draws the image
     noise from its own seed (None: the JAX bench's stream).
 
-    Warmup, before the timed loop: the kernel library is built and loaded
-    (on the card), then one toy local-BA problem per rung is solved
-    (``pretouch_s``, keyed like the JAX bench's), so the first real solve
-    does not pay cuBLAS and cuSOLVER set-up inside the timed window, then
-    the 1 MiB upload probe (``wire_mbps``). Besides the JAX bench's fields
-    the result holds ``power_limit_w``, ``keyframe_frames`` (frame indices),
+    Warmup, before the timed loop: with the solver process, one pretouch
+    per rung is enqueued there (``pretouch_s``, keyed like the JAX
+    bench's: each rung's first toy solve), then the kernel library is built
+    and loaded (on the card), then the pretouches are collected (with
+    TPUSLAM_BENCH_PRETOUCH_OVERLAP=0 they are enqueued only then);
+    without it, one toy problem per rung is solved here. Then the 1 MiB
+    upload probe (``wire_mbps``). Besides the JAX bench's fields the result
+    holds ``power_limit_w``, ``keyframe_frames`` (frame indices),
+    ``keyframe_call_ms`` (the timed calls that ran a keyframe event),
+    ``ba_worker`` and ``fuse_defer`` (the configuration), ``ba_failed``,
     ``native_map`` (the map's native graph mirror in use), ``tracked_ok``
     (trajectory entries, one per frame in order, that tracked OK) and
     ``extractions`` (the detector's runs: chunk anchors, anchors dispatched
@@ -167,7 +199,19 @@ def run_benchmark(frames: int = 100, warmup: int = 5, quiet: bool = False, devic
     sw = bench_switches()
     mapping = sw.pop("mapping")
     tcfg, mcfg = bench_configs(**sw)
-    sys_ = System(cam, sensor="stereo", loop_closing=False, mapping=mapping, tracker_cfg=tcfg, mapper_cfg=mcfg, device=dev)
+    rungs = ba_rungs()
+    mcfg.ba = mcfg.ba._replace(
+        pose_buckets=tuple(r[0] for r in rungs), line_buckets=tuple(r[1] for r in rungs), obs_buckets=tuple(r[2] for r in rungs)
+    )
+    # the solver's warm rungs are the ladder's; the bench's pretouches warm them
+    with _env_defaults(TPUSLAM_BA_WARM_CAPS=";".join(",".join(map(str, r)) for r in rungs), TPUSLAM_BA_WORKER_WARMUP="0"):
+        sys_ = System(cam, sensor="stereo", loop_closing=False, mapping=mapping, tracker_cfg=tcfg, mapper_cfg=mcfg, device=dev)
+    worker = sys_._ba_worker
+    ba = mcfg.ba
+    pt_reqs = {}
+    if worker is not None and os.environ.get("TPUSLAM_BENCH_PRETOUCH_OVERLAP", "1") == "1":
+        pt_reqs = {r: worker.pretouch_async(r, ba.lm, ba.chi2_line, ba.chi2_point) for r in worker.warm_caps}
+        _log(f"bench: {len(pt_reqs)} BA solver pretouches enqueued")
     t_wu = time.perf_counter()
     if dev.type == "cuda":
         from tpuslam_torch.kernels import cuda_lib
@@ -177,9 +221,16 @@ def run_benchmark(frames: int = 100, warmup: int = 5, quiet: bool = False, devic
     warmup_s = time.perf_counter() - t_wu
     _log(f"bench: kernel library built and loaded in {warmup_s:.3f} s")
     pretouch_s: Dict[str, float] = {}
-    if mapping:
-        ba = sys_.mapper.cfg.ba
-        for rung in zip(ba.pose_buckets, ba.line_buckets, ba.obs_buckets):
+    if worker is not None:
+        for rung in worker.warm_caps:
+            rid = pt_reqs[rung] if rung in pt_reqs else worker.pretouch_async(rung, ba.lm, ba.chi2_line, ba.chi2_point)
+            out_pt = worker.pretouch_wait(rid, timeout=300.0)
+            if out_pt is None:
+                raise RuntimeError(f"bench: the BA solver's pretouch of {rung} gave no result in 300 s")
+            pretouch_s["x".join(map(str, rung))] = out_pt[0] / 1e3
+            _log(f"bench: solver pretouch {rung}: {out_pt[0]:.1f} ms (a second toy solve {out_pt[1]:.1f} ms)")
+    elif mapping:
+        for rung in rungs:
             pretouch_s["x".join(map(str, rung))] = s = _toy_solve_s(cam, rung, ba.lm, dev)
             _log(f"bench: toy local-BA solve {rung}: {s:.3f} s")
     probe = torch.zeros(1 << 20, dtype=torch.uint8)
@@ -198,9 +249,11 @@ def run_benchmark(frames: int = 100, warmup: int = 5, quiet: bool = False, devic
         profiler = cProfile.Profile()
         profiler.enable()
     times = []
+    kf_call_ms = []
     t_wall0 = None
     for f in range(n_scene_frames):
         il, ir = imgs[f]
+        n_events = sys_.timer.counts.get("local_mapping", 0)
         t0 = time.perf_counter()
         if f == warmup:
             _sync(dev)
@@ -209,6 +262,8 @@ def run_benchmark(frames: int = 100, warmup: int = 5, quiet: bool = False, devic
         dt = time.perf_counter() - t0
         if f >= warmup:
             times.append(dt)
+            if sys_.timer.counts.get("local_mapping", 0) > n_events:
+                kf_call_ms.append(dt * 1e3)
         if f < warmup or f % 25 == 0:
             _log(f"bench: frame {f} {dt * 1e3:.1f} ms")
     # the frames still buffered or in flight are tracked inside the timed window
@@ -237,6 +292,9 @@ def run_benchmark(frames: int = 100, warmup: int = 5, quiet: bool = False, devic
         local_ba_ms=summary.get("local_mapping", {}).get("median_ms", 0.0),
         keyframes=len(sys_.map.keyframes),
         keyframe_frames=sorted(r.frame_idx for r in sys_.trajectory if r.made_keyframe),
+        keyframe_call_ms=kf_call_ms,
+        ba_worker=worker is not None,
+        fuse_defer=mcfg.fuse_defer,
         lines=len(sys_.map.lines.live_ids()),
         native_map=sys_.map.lines.mirror is not None,
         warmup_s=warmup_s,
@@ -277,12 +335,19 @@ def run_benchmark(frames: int = 100, warmup: int = 5, quiet: bool = False, devic
         if not out["ate_ok"]:
             _log(f"bench: ACCURACY REGRESSION: ate {out['ate_rmse']:.4f} > 1.5 x ref {ref:.4f}")
     if sys_.mapper is not None:
-        by_rung = sys_.mapper.solve_ms_by_rung
-        solves = [ms for v in by_rung.values() for ms in v]
-        if solves:
-            out["local_ba_ms"] = float(np.median(solves))
-            out["local_ba_ms_by_rung"] = {"x".join(map(str, k)): float(np.median(v)) for k, v in by_rung.items()}
-        out["ba_submitted"] = len(solves)
+        # the solver's own solve times (warm ones), as the JAX bench reports them
+        mp_ = sys_.mapper
+        if mp_.solve_ms:
+            out["local_ba_ms"] = float(np.median(mp_.solve_ms))
+            out["local_ba_ms_by_rung"] = {"x".join(map(str, k)): float(np.median(v)) for k, v in mp_.solve_ms_by_rung.items()}
+        elif mp_.cold_solve_ms:
+            out["local_ba_ms"] = float(np.min(mp_.cold_solve_ms))
+            out["local_ba_cold"] = True
+        # in this process every solve is counted as submitted
+        out["ba_submitted"] = mp_.ba_submitted if worker is not None else len(mp_.solve_ms)
+        out.update(ba_skipped=mp_.ba_skipped, ba_resubmitted=mp_.ba_resubmitted, ba_stale=mp_.ba_stale, ba_failed=mp_.ba_failed)
+        if mp_.last_stage_ms:
+            out["local_ba_stage_ms"] = dict(mp_.last_stage_ms)
     emit()
     return out
 

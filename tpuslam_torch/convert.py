@@ -112,12 +112,10 @@ def ba_problem_from(value, device="cpu") -> BAProblem:
 
 
 def mapper_config_from(value) -> MapperConfig:
-    """MapperConfig from a MapperConfig-like dataclass (the JAX package's).
-
-    The mono triangulation fields (``triangulate_neighbors``, ``tri_*``)
-    carry over; those of the deferred fusion, a path this package does not
-    run, are dropped when they hold their class's defaults and refused
-    otherwise."""
+    """MapperConfig from a MapperConfig-like dataclass (the JAX package's):
+    every field carries over, the mono triangulation fields
+    (``triangulate_neighbors``, ``tri_*``) and the deferred fusion's
+    (``fuse_defer``, ``fuse_apply_delay_s``) included."""
     ours = MapperConfig()
     out = {}
     for name, v in _ported_fields(value, {f.name for f in dataclasses.fields(MapperConfig)}, "MapperConfig").items():

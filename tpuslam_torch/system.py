@@ -16,10 +16,14 @@ stereo tracking with relocalization (synchronous, or pipelined: the fused
 single-frame programs, full-detection or semi-direct chunks, the classic
 one-frame-lagged pipeline), lines only or with hybrid points
 (``TrackerConfig.points``), and, with
-``mapping=True``, synchronous local mapping after each keyframe (culling,
-fusion, LM+Schur local BA on ``device``) followed, with
-``loop_closing=True`` (the default), by the loop closer (detection, the
-SE(3) essential graph, landmark correction and global BA on ``device``).
+``mapping=True``, local mapping after each keyframe (culling, fusion,
+LM+Schur local BA) followed, with ``loop_closing=True`` (the default), by
+the loop closer (detection, the SE(3) essential graph, landmark correction
+and global BA). On the card local BA and global BA solve in a persistent
+solver process on the same card (``backend.ba_worker``), local BA
+asynchronously, as the JAX package runs them on its chip; on the CPU they
+solve in this process. TPUSLAM_BA_SUBPROCESS=1 / 0 (the JAX package's
+switch) chooses either way.
 With ``sensor="mono"`` the tracker bootstraps from two views, the mapper
 triangulates new lines and points from two keyframes, and the loop closer
 takes its Sim(3) branch (the scale drifts in mono).
@@ -28,6 +32,7 @@ takes its Sim(3) branch (the scale drifts in mono).
 from __future__ import annotations
 
 import json
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
@@ -80,6 +85,7 @@ def bench_configs(
     halfres: bool = True,
     hostscale: bool = True,
     semidirect: bool = True,
+    fuse_defer: bool = False,
 ):
     """The configuration the JAX package benchmarks (``tpuslam/bench.py``),
     under its switches (TPUSLAM_BENCH_CHUNK, _POINTS, _PIPELINED, _DIRECT,
@@ -90,9 +96,11 @@ def bench_configs(
     ``halfres`` detects at half resolution, halved on the host with
     ``hostscale`` or on the device without; ``semidirect`` needs ``chunk``
     > 1 and ``direct`` stereo; ``points`` adds ``PointFrontendParams()``
-    corners beside the lines. Fusion applies at the keyframe (the JAX
-    bench's deferred fusion is not ported). Returns (TrackerConfig,
-    MapperConfig)."""
+    corners beside the lines; ``fuse_defer`` defers the fusion's apply to
+    the mapper's tick (the JAX bench's TPUSLAM_BENCH_FUSEDEFER, on by
+    default in both benches; off here, so that a System built from these
+    configs applies fusion at the keyframe unless asked). Returns
+    (TrackerConfig, MapperConfig)."""
     from tpuslam_torch.backend.local_ba import LocalBAConfig
     from tpuslam_torch.frontend.frame import FrontendParams
     from tpuslam_torch.frontend.points import PointFrontendParams
@@ -108,7 +116,9 @@ def bench_configs(
         tcfg.semidirect = DirectAlignParams()
     if points:
         tcfg.points = PointFrontendParams()
-    mcfg = MapperConfig(ba=LocalBAConfig(pose_buckets=(8, 16), line_buckets=(128, 256), obs_buckets=(512, 1024)))
+    mcfg = MapperConfig(
+        ba=LocalBAConfig(pose_buckets=(8, 16), line_buckets=(128, 256), obs_buckets=(512, 1024)), fuse_defer=fuse_defer
+    )
     return tcfg, mcfg
 
 
@@ -142,11 +152,17 @@ class System:
         self.tracker = Tracker(cam, self.map, tcfg, device=device)
         self.mapper: Optional[LocalMapper] = None
         self.timer = StageTimer()
+        self._ba_worker = None
         if mapping:
-            # synchronous, in this process: the JAX package's subprocess BA
-            # worker exists for the TPU's compile costs and is not carried over
+            # the solver process on the System's card (the JAX package's
+            # policy: on its chip by default, in process on the CPU)
+            use_worker = os.environ.get("TPUSLAM_BA_SUBPROCESS", "1" if device.type == "cuda" else "0")
+            if use_worker == "1":
+                from tpuslam_torch.backend.ba_worker import BASolverWorker
+
+                self._ba_worker = BASolverWorker(cam, device=device)
             self.mapper = LocalMapper(
-                self.map, cam, mapper_cfg or MapperConfig(), mono=(sensor == "mono"), device=device
+                self.map, cam, mapper_cfg or MapperConfig(), mono=(sensor == "mono"), solver=self._ba_worker, device=device
             )
             self.mapper.timer = self.timer  # KF-event wall split (mp.* stages)
             self.tracker.on_new_keyframe = self._on_new_keyframe
@@ -158,7 +174,9 @@ class System:
         self.loop_closer: Optional[LoopCloser] = None
         if loop_closing:
             # on the System's own database, which relocalization queries too
-            self.loop_closer = LoopCloser(self.map, cam, db=self.kf_db, mono=(sensor == "mono"), device=device)
+            self.loop_closer = LoopCloser(
+                self.map, cam, db=self.kf_db, mono=(sensor == "mono"), solver=self._ba_worker, device=device
+            )
         self.trajectory: List[FrameResult] = []
         self._log_f = open(log_path, "w") if log_path else None
 
@@ -205,7 +223,9 @@ class System:
         dt = time.perf_counter() - t0
         self.timer.add("track", dt)
         if self.mapper is not None:  # between-KF poll, as the JAX System does
+            t1 = time.perf_counter()
             self.mapper.tick()
+            self.timer.add("tick", time.perf_counter() - t1)
         if r is not None:  # pipelined mode resolves a chunk later
             self.trajectory.append(r)
             self._log(r, dt)
@@ -293,15 +313,21 @@ class System:
     def timing_summary(self):
         return self.timer.summary()
 
-    def shutdown(self):
+    def shutdown(self, drain_timeout: float = 1200.0):
         """Track the frames still buffered or in flight (the trajectory then
-        holds one entry per input frame), finish mapping and close the log."""
+        holds one entry per input frame), finish mapping (waiting up to
+        ``drain_timeout`` s for an in-flight solve; past that it is abandoned
+        and counted in ``mapper.ba_failed``), close the log and stop the
+        solver process."""
         for r in self.tracker.flush_all():
             self.trajectory.append(r)
             self._log(r, 0.0)
         if self.mapper is not None:
-            self.mapper.finish()
+            self.mapper.finish(timeout=drain_timeout)
         if self._log_f is not None:
             self._log_f.write(json.dumps(dict(timing=self.timing_summary())) + "\n")
             self._log_f.close()
             self._log_f = None
+        if self._ba_worker is not None:
+            self._ba_worker.close()
+            self._ba_worker = None
