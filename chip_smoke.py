@@ -96,7 +96,10 @@ first failure and catches nothing):
    loop closing) over benchmarks/ladder.py's stereo_loop scene with a
    48-frame dwell (148 QVGA frames): a closure, the keyframe-map ATE
    lower after the last closure, the final one within the JAX package's
-   x 1.05 + 0.01 m, the closures' problems solved again bit-equal;
+   x 1.05 + 0.01 m, the closures' problems solved again bit-equal; the
+   System runs the loop warm-up at start (warm_loop_programs, the card's
+   default), whose seconds are printed beside the first closure's ms and
+   its essential graph's;
 10. mono: System(cam, sensor="mono") with its defaults (mapping, loop
    closing on the Sim(3) branch) and benchmarks/ladder.py's mono tracker
    settings over its mono_sequence scene at VGA (fx 458, 60 segments, 120
@@ -106,8 +109,9 @@ first failure and catches nothing):
    extraction: blur 1, 2 in hybrid, gradients 2, lsd_front 2, CCL 2, each
    sum kernel 2), in hybrid 10+ points seen from two keyframes and the
    Sim(3) ATE within the JAX package's x 1.05 + 0.01 m, lines only the
-   median Sim(3) ATE over 11 RANSAC draws within the JAX package's median
-   over its 11 x 1.05 + 0.01 m (lines-only mono is chaotic in the draws);
+   median Sim(3) ATE over 11 RANSAC draws (10 of them in child processes,
+   5 at a time) within the JAX package's median over its 11 x 1.05 + 0.01
+   m (lines-only mono is chaotic in the draws);
    the hybrid run again (the same keyframes, bit-equal poses); ms per frame (keyframe
    frames apart), mp.triangulate ms per keyframe event, the initializer's
    ms and the host syncs of one attempt, the device busy ms and launches of
@@ -162,7 +166,15 @@ first failure and catches nothing):
    solves (float64: within 1e-8; float32: converged, costs within 1e-5,
    poses within 5e-3), their ms, device busy ms and launches; (d) host ms,
    device busy ms and launches per sequence-frame at N = 1, 2 and 8
-   (tracking alone), and the host syncs of one steady batched frame.
+   (tracking alone), and the host syncs of one steady batched frame; (e)
+   the split over split_mesh() (every card that divides 8, or two shards
+   on cuda:0), one process per shard: part (b)'s checks read from the
+   shards' counters (each shard's batched calls on its own card over its
+   own N/k images, none in this process), batched_ba over the mesh equal
+   to the unsplit call, and the split's host ms per batched frame,
+   sequence-frames/s with mappers and without, device busy ms and
+   launches per card and each process's start-up seconds beside one
+   card's.
 21. the host surface: a 40-frame VGA stereo dataset written by the CLI's
    make-synthetic (seed 0, 140 segments) and a settings YAML with its
    Camera.* keys (load_settings' camera equal to the dataset's); the CLI's
@@ -1232,18 +1244,17 @@ def profile_phase(cam, frames, card) -> None:
 
 
 def reset_launches() -> None:
-    from tpuslam_torch.kernels import image, lsd
+    from tpuslam_torch.kernels import cuda_lib
 
-    for d in (image.LAUNCHES, lsd.LAUNCHES, image.KERNEL_LAUNCHES, lsd.KERNEL_LAUNCHES):
-        for k in d:
-            d[k] = 0
+    cuda_lib.reset_kernel_counts()
 
 
 def read_launches():
     """(kernel calls, device launches of those calls), by kernel."""
-    from tpuslam_torch.kernels import image, lsd
+    from tpuslam_torch.kernels import cuda_lib
 
-    return {**image.LAUNCHES, **lsd.LAUNCHES}, {**image.KERNEL_LAUNCHES, **lsd.KERNEL_LAUNCHES}
+    counts = cuda_lib.kernel_counts()
+    return counts["calls"], counts["launches"]
 
 
 def launches_per_call() -> dict:
@@ -1743,6 +1754,56 @@ def kf_map_ate(slam_map, scene, with_scale: bool = False) -> float:
     return float(absolute_trajectory_error(est, gt, with_scale=with_scale).rmse)
 
 
+def first_closure_run(card) -> None:
+    """Phase 9's loop configuration in this process up to its first closure:
+    prints the warm-up's seconds (System.warm_loop_s, None when
+    TPUSLAM_WARM_LOOP=0) and the first closure's ms with its essential
+    graph's ms."""
+    import torch
+
+    cam, scene, frames = make_loop_frames()
+    t = time.perf_counter()
+    sys_ = loop_system(cam)
+    start_s = time.perf_counter() - t
+    sys_.timer.warmup = 0  # keep every keyframe event's stage times
+    lc = sys_.loop_closer
+    for f, (il, ir) in enumerate(frames):
+        sys_.track_stereo(il, ir, f * 0.05)
+        if lc.closed_loops:
+            break
+    torch.cuda.synchronize()
+    ev, dt = next((ev, dt) for ev, dt in zip(lc.timings, sys_.timer.times["loop_closing"]) if ev["closed"])
+    print(f"first closure (TPUSLAM_WARM_LOOP={os.environ.get('TPUSLAM_WARM_LOOP', 'default')}): System start {start_s:.2f} s, "
+          f"warm-up {sys_.warm_loop_s}; closure at keyframe {ev['kid']} (frame {f}) {dt * 1e3:.2f} ms, essential graph "
+          f"{ev['essential_graph_ms']:.2f} ms, compute_se3 {ev['compute_se3_ms']:.2f} ms on {card}", flush=True)
+    sys_.shutdown()
+
+
+def warm_loop_turns() -> int:
+    """The first closure of phase 9's loop configuration without and with
+    the loop warm-up, each in a fresh process (the set-up it moves is paid
+    once per process), in turns (off, on, on, off):
+
+        python3 -c "import sys, chip_smoke; sys.exit(chip_smoke.warm_loop_turns())"
+    """
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script runs on a CUDA device only")
+    card = card_line()
+    from tpuslam_torch.kernels import cuda_lib
+
+    cuda_lib.library()
+    for warm in ("0", "1", "1", "0"):
+        env = {**os.environ, "TPUSLAM_WARM_LOOP": warm, "TPUSLAM_NATIVE_MAP": "0", **SYNC_ENV}
+        code = (f"import chip_smoke; chip_smoke.first_closure_run({card!r})")
+        res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, timeout=600, check=False)
+        if res.returncode:
+            fail(f"first closure run with TPUSLAM_WARM_LOOP={warm} exited {res.returncode}")
+    print(card, flush=True)
+    return 0
+
+
 def loop_phase(card):
     """The loop sequence through System(cam) with loop closing, the launch
     counts set to 0 just before and read just after; each closure's
@@ -1830,6 +1891,12 @@ def loop_phase(card):
         )
     if not closures:
         fail("loop: no loop was closed")
+    first_ev, first_s = done[0]
+    print(f"loop: warm-up at System start (warm_loop_programs, TPUSLAM_WARM_LOOP={os.environ.get('TPUSLAM_WARM_LOOP', 'default')}): "
+          f"{sys_.warm_loop_s}; first closure (keyframe {first_ev['kid']}) {first_s * 1e3:.2f} ms, essential graph "
+          f"{first_ev['essential_graph_ms']:.2f} ms on {card}", flush=True)
+    if sys_.warm_loop_s is None:
+        fail("loop: the System on the card did not run the loop warm-up")
     # the last closure, as benchmarks/ladder.py's stereo_loop records it
     kid, _, _, pre, post = closures[-1]
     if not post < pre:
@@ -1967,6 +2034,59 @@ def mono_run(cam, frames, points: bool, sampler=None, pipelined: bool = False):
     return sys_, launches
 
 
+MONO_DRAW_SLOTS = 5  # phase 10's lines-only draws run in child processes, this many at a time
+
+
+def mono_draw_child() -> int:
+    """One of phase 10's lines-only RANSAC draws in a process of its own:
+    sys.argv[1] is the draw k (seeded_draws); the loop warm-up is off there
+    (the mono sequence closes no loop, and in a fresh process its set-up
+    costs seconds). Prints the Sim(3) ATE (infinite when the System never
+    initialized) as the last line."""
+    k = int(sys.argv[1])
+    os.environ["TPUSLAM_WARM_LOOP"] = "0"
+    cam, scene, frames = make_mono_frames()
+    other, _ = mono_run(cam, frames, False, sampler=seeded_draws(k))
+    st = [r.state.name for r in other.trajectory]
+    print(json.dumps({"ate": sim3_ate(other.trajectory, scene) if "OK" in st else float("inf")}), flush=True)
+    return 0
+
+
+def mono_draws(ks) -> list:
+    """The Sim(3) ATEs of phase 10's lines-only draws ``ks``, each in a
+    process of its own (mono_draw_child), MONO_DRAW_SLOTS at a time on the
+    one card: the synchronous mono System's result does not depend on its
+    timing. A child that fails fails the phase."""
+    ks = list(ks)
+    done = run_children("mono_draw_child", [str(k) for k in ks], MONO_DRAW_SLOTS, BENCH100_CHILD_S)
+    ates = []
+    for k, proc in zip(ks, done):
+        if proc.returncode != 0:
+            print(proc.stdout[-2000:], proc.stderr[-4000:], flush=True)
+            fail(f"mono lines draw {k}: its process ended with code {proc.returncode}")
+        ates.append(float(json.loads(proc.stdout.strip().splitlines()[-1])["ate"]))
+    return ates
+
+
+def run_children(entry: str, args, slots: int, timeout_s: float) -> list:
+    """``python -c "import chip_smoke; chip_smoke.<entry>()" arg`` for each of
+    ``args``, ``slots`` at a time; their CompletedProcess (text) in order. A
+    child past ``timeout_s`` is killed and reported with code -9."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    code = f"import sys, chip_smoke; sys.exit(chip_smoke.{entry}())"
+
+    def run(arg):
+        try:
+            return subprocess.run([sys.executable, "-c", code, arg], cwd=REPO, capture_output=True, text=True, timeout=timeout_s)
+        except subprocess.TimeoutExpired as e:  # subprocess.run has killed the child
+            out = e.stdout.decode() if isinstance(e.stdout, bytes) else e.stdout or ""
+            return subprocess.CompletedProcess(e.cmd, -9, out, f"stopped after {timeout_s} s")
+
+    with ThreadPoolExecutor(slots) as pool:
+        return list(pool.map(run, args))
+
+
 def mono_phase(card):
     """Phase 10: the mono sequence at VGA through System(cam, sensor="mono"),
     hybrid and lines only, and the hybrid run again (bit-equal). Returns the
@@ -2011,11 +2131,7 @@ def mono_phase(card):
             fail(f"{tag}: only {len(sys_.map.keyframes)} keyframes")
         if not points:
             # the median over MONO_DRAWS draws (k = 0 is this run)
-            ates = [ate]
-            for k in range(1, MONO_DRAWS):
-                other, _ = mono_run(cam, frames, False, sampler=seeded_draws(k))
-                st = [r.state.name for r in other.trajectory]
-                ates.append(sim3_ate(other.trajectory, scene) if "OK" in st else float("inf"))
+            ates = [ate] + mono_draws(range(1, MONO_DRAWS))
             ate, jax_ate = statistics.median(ates), statistics.median(JAX_MONO_LINES_DRAW_ATES_M)
             bound = jax_ate * MONO_ATE_FACTOR + ATE_MARGIN_M
             print(
@@ -2676,26 +2792,22 @@ def detector_sum_inputs_batch(imgs):
 
 def multi_tracker(cams, mapping: bool, mesh=None):
     """tpuslam_torch.parallel.multi_seq.MultiTracker on the card (over
-    ``mesh`` when given) over the sequences' calibrations (the default
-    TrackerConfig), with a LocalMapper per sequence on its tracker's card
-    when ``mapping``."""
-    from tpuslam_torch.backend.mapping import LocalMapper, MapperConfig
+    ``mesh`` when given: its shards in processes of their own) over the
+    sequences' calibrations (the default TrackerConfig), with a LocalMapper
+    per sequence on its tracker's card when ``mapping``."""
+    from tpuslam_torch.backend.mapping import MapperConfig
     from tpuslam_torch.parallel.multi_seq import MultiTracker
 
-    mt = MultiTracker(cams, device="cuda", mesh=mesh)
-    if mapping:
-        for cam, tr in zip(cams, mt.trackers):
-            m = LocalMapper(tr.map, cam, MapperConfig(), device=tr.device)
-            tr.on_new_keyframe, m.on_map_changed = m.process, tr.invalidate_local_map
-    return mt
+    return MultiTracker(cams, device="cuda", mesh=mesh, mapper_cfg=MapperConfig() if mapping else None)
 
 
 def multi_feed(mt, frames, f: int):
     import numpy as np
 
-    lefts = np.stack([seq[f][0] for seq in frames[: len(mt.trackers)]])
-    rights = np.stack([seq[f][1] for seq in frames[: len(mt.trackers)]])
-    return mt.track_stereo(lefts, rights, [f * 0.05] * len(mt.trackers))
+    n = len(mt.cams)
+    lefts = np.stack([seq[f][0] for seq in frames[:n]])
+    rights = np.stack([seq[f][1] for seq in frames[:n]])
+    return mt.track_stereo(lefts, rights, [f * 0.05] * n)
 
 
 def multi_phase(card):
@@ -2840,7 +2952,8 @@ def multi_phase(card):
     syncs = count_syncs(lambda: multi_feed(m, frames, MULTI_FRAMES - 1))
     print(f"multi: host syncs of one steady batched frame at N={n}: {len(syncs)} ({syncs}; the packed rows' read once, "
           f"and the host reads of each keyframe a sequence makes in it)", flush=True)
-    split_launches = split_phase(card, cams, scenes, frames, scaling[max(MULTI_SCALING)])
+    one_card = {**scaling[max(MULTI_SCALING)], "mapping_seq_frames_per_s": N * MULTI_FRAMES / wall}
+    split_launches = split_phase(card, cams, scenes, frames, one_card)
     print(f"multi: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
     for name, r in kres.items():
         r["scaling"] = {str(k): v for k, v in scaling.items()}
@@ -2859,7 +2972,7 @@ BATCH_ENTRY = {
 def split_mesh():
     """The split's mesh: the most cards that divide MULTI_SEQ where the
     machine has several (make_mesh), else two shards on cuda:0, which
-    drives the shard code and its threads on one card."""
+    drives the shard processes on one card."""
     import torch
 
     from tpuslam_torch.parallel.sharded_ba import DeviceMesh, make_mesh
@@ -2870,109 +2983,110 @@ def split_mesh():
     return DeviceMesh((torch.device("cuda", 0),) * 2)
 
 
-def per_card(prof) -> dict:
-    """{card index: (device busy us, kernel records)} of a torch.profiler
-    run, without `profiled`'s marker kernels and the copies."""
-    from torch.autograd import DeviceType
+def shard_sync(mt, s: int) -> None:
+    """In a shard's process: wait for its card's work."""
+    import torch
 
-    out = {}
-    for e in prof.profiler.kineto_results.events():
-        name = e.name()
-        if e.device_type() == DeviceType.CUDA and PROFILE_MARKER not in name and not name.startswith(("Memcpy", "Memset")):
-            us, n = out.get(e.device_index(), (0.0, 0))
-            out[e.device_index()] = (us + (e.end_ns() - e.start_ns()) / 1e3, n + 1)
-    return out
+    torch.cuda.synchronize(mt.device)
+
+
+def shard_frame_profile(mt, s: int, lefts, rights, ts) -> tuple:
+    """In shard s's process: one frame of its rows under torch.profiler
+    (`profiled`, whole=False): (device busy us, kernel records, card index)."""
+    TRACES["checked"] = True  # the record check runs in the main process
+    n = len(mt.trackers)
+    sl = slice(s * n, (s + 1) * n)
+    _, (busy_us, n_launch, _) = profiled(lambda: mt.track_stereo(lefts[sl], rights[sl], ts[sl]), whole=False)
+    return busy_us, n_launch, mt.device.index
 
 
 def split_phase(card, cams, scenes, frames, one_card: dict):
-    """Phase 20e: config #5 split over a mesh (split_mesh). The main path:
-    the counts set to 0 just before the MULTI_SEQ sequences' MULTI_FRAMES
-    frames (MultiTracker over the mesh, a LocalMapper each on its shard's
-    card) and read just after: every frame after the first OK, one batched
-    dispatch per shard per steady frame, each shard's batched kernel calls
-    PER_MULTI_FRAME x frames, each on its own card over its own images, and
-    each sequence's ATE within the JAX MultiTracker's x 1.05 + 0.01 m. Then
-    batched_ba of 8 toy problems at (16, 256, 1024) over the mesh against
-    the unsplit call (float64, 4 iterations), and the split's host ms per
-    batched frame, sequence-frames/s, device busy ms and launches per card
-    (tracking, no mapper) beside one card's at N = MULTI_SEQ (`one_card`,
-    from part (d)). Returns the main path's (calls, device launches)."""
-    import threading
-
+    """Phase 20e: config #5 split over a mesh (split_mesh), one process per
+    shard. The main path: the counts of every shard (and of this process)
+    set to 0 just before the MULTI_SEQ sequences' MULTI_FRAMES frames
+    (MultiTracker over the mesh, a LocalMapper each in its shard's process)
+    and read just after from the shards (MultiTracker.stats): every frame
+    after the first OK, one batched dispatch per shard per steady frame,
+    each shard's batched kernel calls PER_MULTI_FRAME x frames, each on its
+    own card over its own images, none in this process, and each sequence's
+    ATE within the JAX MultiTracker's x 1.05 + 0.01 m. Then batched_ba of 8
+    toy problems at (16, 256, 1024) over the mesh against the unsplit call
+    (float64, 4 iterations), and the split's host ms per batched frame,
+    sequence-frames/s with mappers and without, device busy ms and launches
+    per card (each shard's frame profiled in its process) beside one card's
+    at N = MULTI_SEQ (`one_card`: part (d) and the main path of part (b)),
+    and each shard process's start-up seconds. Returns the main path's
+    (calls, device launches), summed over the shards."""
     import numpy as np
     import torch
 
     from tpuslam_torch.backend.lm import BAProblem, LMConfig
-    from tpuslam_torch.kernels import cuda_lib
-    from tpuslam_torch.parallel import multi_seq
+    from tpuslam_torch.parallel.shard_pool import pool_of
     from tpuslam_torch.parallel.sharded_ba import _toy_problem, batched_ba, stack_problems
 
     t_phase = time.perf_counter()
     mesh = split_mesh()
     k, N = len(mesh.devices), len(cams)
     cards = sorted({d.index for d in mesh.devices})
-    print(f"split: {N} sequences over {k} shards on cards {cards} ({[str(d) for d in mesh.devices]}); "
+    print(f"split: {N} sequences over {k} shards on cards {cards} ({[str(d) for d in mesh.devices]}), one process each; "
           f"{torch.cuda.device_count()} card(s) on this machine", flush=True)
+    t = time.perf_counter()
+    pool = pool_of(mesh)
+    print(f"split: {k} shard processes up in {time.perf_counter() - t:.2f} s (each ready after "
+          f"{[round(x, 2) for x in pool.start_seconds]} s)", flush=True)
     mt = multi_tracker(cams, mapping=True, mesh=mesh)
-    dispatches, launches_seen = [], []
-    real_step, real_launch = multi_seq.batched_track_step, cuda_lib.launch
-
-    def counting(*a, **kw):
-        dispatches.append((threading.current_thread().name, a[0].device))
-        return real_step(*a, **kw)
-
-    def recording(entry, t, what, *args):
-        launches_seen.append((threading.current_thread().name, entry, t.device, t.shape[0] if t.dim() == 3 else 1))
-        return real_launch(entry, t, what, *args)
-
-    multi_seq.batched_track_step, cuda_lib.launch = counting, recording
-    try:
-        reset_launches()
-        t0 = time.perf_counter()
-        results = [multi_feed(mt, frames, f) for f in range(MULTI_FRAMES)]
-        for d in cards:
-            torch.cuda.synchronize(d)
-        wall = time.perf_counter() - t0
-        launches = read_launches()
-    finally:
-        multi_seq.batched_track_step, cuda_lib.launch = real_step, real_launch
-    print(f"split: {N} sequences x {MULTI_FRAMES} frames over {k} shards: {wall:.2f} s, {N * MULTI_FRAMES / wall:.2f} "
-          f"sequence-frames/s (tracking and mapping); batched dispatches {len(dispatches)}", flush=True)
+    mt.reset_counts()
+    reset_launches()
+    t0 = time.perf_counter()
+    results = [multi_feed(mt, frames, f) for f in range(MULTI_FRAMES)]
+    mt.in_shards(shard_sync)
+    wall = time.perf_counter() - t0
+    stats = mt.stats()
+    here = read_launches()
+    mt.close()
+    print(f"split: {N} sequences x {MULTI_FRAMES} frames over {k} shard processes: {wall:.2f} s, {N * MULTI_FRAMES / wall:.2f} "
+          f"sequence-frames/s (tracking and mapping; one card's main path (part b) {one_card['mapping_seq_frames_per_s']:.2f}); "
+          f"batched dispatches by shard {[sh['batched_dispatches'] for sh in stats['shards']]}", flush=True)
     states = [[r.state.name for r in res] for res in results]
     if any(st != "OK" for row in states[1:] for st in row):
         fail(f"split: a frame after the first did not track OK: {states}")
-    threads = [f"shard-{s}" for s in range(k)]
-    for s, name in enumerate(threads):
-        mine = [d for t, d in dispatches if t == name]
-        if len(mine) != MULTI_FRAMES - 1 or any(d != mesh.devices[s] for d in mine):
-            fail(f"split: shard {s}: {len(mine)} batched dispatches on {set(map(str, mine))}, expected {MULTI_FRAMES - 1} on "
-                 f"{mesh.devices[s]}")
-    if len(dispatches) != k * (MULTI_FRAMES - 1):
-        fail(f"split: {len(dispatches)} batched dispatches, expected {k} x {MULTI_FRAMES - 1}")
-    calls_, device = launches
+    if any(here[0].values()) or any(here[1].values()):
+        fail(f"split: kernels launched in the main process during the split: {here}")
+    pids = [sh["pid"] for sh in stats["shards"]]
+    if pids != pool.pids or os.getpid() in pids:
+        fail(f"split: the shards ran in processes {pids}, not the mesh's {pool.pids}")
     want_lpc = launches_per_call()
-    for name, n in calls_.items():
-        per = PER_MULTI_FRAME.get(name, 0)
-        lpc = want_lpc[name.removesuffix("_batch")]
-        if n != k * per * MULTI_FRAMES or device[name] != n * lpc:
-            fail(f"split: {name}: {n} calls and {device[name]} device launches, expected {k} x {per * MULTI_FRAMES} and {lpc} "
-                 f"per call")
-        for s, tname in enumerate(threads):
-            mine = [(dev, b) for t, e, dev, b in launches_seen if t == tname and e == BATCH_ENTRY.get(name)]
-            if per and (len(mine) != per * MULTI_FRAMES or any(x != (mesh.devices[s], N // k) for x in mine)):
-                fail(f"split: shard {s}: {name}: {len(mine)} calls over {sorted(set(mine))}, expected {per * MULTI_FRAMES} on "
+    calls_ = dict.fromkeys(stats["shards"][0]["calls"], 0)
+    device = dict.fromkeys(stats["shards"][0]["launches"], 0)
+    for s, sh in enumerate(stats["shards"]):
+        if sh["batched_dispatches"] != MULTI_FRAMES - 1 or sh["device"] != str(mesh.devices[s]):
+            fail(f"split: shard {s}: {sh['batched_dispatches']} batched dispatches on {sh['device']}, expected "
+                 f"{MULTI_FRAMES - 1} on {mesh.devices[s]}")
+        for name, n in sh["calls"].items():
+            per = PER_MULTI_FRAME.get(name, 0)
+            lpc = want_lpc[name.removesuffix("_batch")]
+            calls_[name] += n
+            device[name] += sh["launches"][name]
+            if n != per * MULTI_FRAMES or sh["launches"][name] != n * lpc:
+                fail(f"split: shard {s}: {name}: {n} calls and {sh['launches'][name]} device launches, expected "
+                     f"{per * MULTI_FRAMES} and {lpc} per call")
+            entries = {(dev, b): c for (e, dev, b), c in sh["entries"].items() if e == BATCH_ENTRY.get(name)}
+            if per and entries != {(str(mesh.devices[s]), N // k): per * MULTI_FRAMES}:
+                fail(f"split: shard {s}: {name}: launches by (card, images) {entries}, expected {per * MULTI_FRAMES} on "
                      f"{mesh.devices[s]} over {N // k} images each")
-        if per:
-            print(f"split: {name} calls {n} ({k} shards x {per} x {MULTI_FRAMES}, each on its shard's card over {N // k} "
-                  f"images), device launches {device[name]}", flush=True)
-    if any(t not in threads for t, *_ in launches_seen):
-        fail(f"split: kernels launched outside the shards' threads: {sorted({t for t, *_ in launches_seen} - set(threads))}")
+        if any(e not in BATCH_ENTRY.values() for e, _, _ in sh["entries"]):
+            fail(f"split: shard {s} launched kernels other than the batched ones: {sorted(sh['entries'])}")
+    for name, n in calls_.items():
+        if PER_MULTI_FRAME.get(name, 0):
+            print(f"split: {name} calls {n} ({k} shards x {PER_MULTI_FRAME[name]} x {MULTI_FRAMES}, each in its shard's process "
+                  f"on its card over {N // k} images), device launches {device[name]}", flush=True)
     for s in range(N):
         traj = [res[s] for res in results]
         ate = ate_of(traj, scenes[s])
         bound = JAX_MULTI_ATE_M[s] * PIPELINED_ATE_FACTOR + ATE_MARGIN_M
-        kfs = [r.frame_idx for r in traj if r.made_keyframe]
-        print(f"split: sequence {s} on {mt.trackers[s].device}: keyframes {kfs}, ATE {ate:.5f} m, bound {bound:.5f} m", flush=True)
+        q = stats["sequences"][s]
+        print(f"split: sequence {s} on {q['device']}: keyframes {q['keyframes']}, map lines {q['map_lines']}, ATE {ate:.5f} m, "
+              f"bound {bound:.5f} m", flush=True)
         if not ate <= bound:
             fail(f"split: sequence {s}: ATE {ate} m above {bound} m")
 
@@ -2988,33 +3102,40 @@ def split_phase(card, cams, scenes, frames, one_card: dict):
     gaps = [float((x - y).abs().max()) - 1e-6 * float(y.abs().max()) for x, y in zip(out, ref)]
     if max(gaps) > 1e-8 or any(x.device != mesh.devices[0] for x in out):
         fail(f"split: batched BA over the mesh differs from the unsplit call: {gaps}")
-    print(f"split: batched BA (float64, 4 iterations) of 8 problems at (16, 256, 1024) over {k} shards equals the unsplit call "
-          f"(largest gap beyond 1e-6 relative {max(gaps):.3g})", flush=True)
+    print(f"split: batched BA (float64, 4 iterations) of 8 problems at (16, 256, 1024) over {k} shard processes equals the "
+          f"unsplit call (largest gap beyond 1e-6 relative {max(gaps):.3g})", flush=True)
 
     # host and device time per batched frame, tracking alone
     m = multi_tracker(cams, mapping=False, mesh=mesh)
     for f in range(MULTI_WARM):
         multi_feed(m, frames, f)
-    for d in cards:
-        torch.cuda.synchronize(d)
+    m.in_shards(shard_sync)
     t = time.perf_counter()
     for f in range(MULTI_WARM, MULTI_WARM + MULTI_TIMED):
         multi_feed(m, frames, f)
-    for d in cards:
-        torch.cuda.synchronize(d)
+    m.in_shards(shard_sync)
     host_ms = (time.perf_counter() - t) * 1e3 / MULTI_TIMED
-    nxt = iter(range(MULTI_WARM + MULTI_TIMED, MULTI_FRAMES))
-    prof, (busy_us, n_launch, _) = profiled(lambda: (multi_feed(m, frames, next(nxt)), [torch.cuda.synchronize(d) for d in cards]), whole=False)
-    by_card = per_card(prof)
-    print(f"split: host {host_ms:.2f} ms per batched frame ({1e3 * N / host_ms:.2f} sequence-frames/s) over {k} shards on "
-          f"cards {cards}; device busy {busy_us / 1e3:.3f} ms and {n_launch} launches per frame in all; per card "
+    f = MULTI_WARM + MULTI_TIMED
+    lefts = np.stack([seq[f][0] for seq in frames])
+    rights = np.stack([seq[f][1] for seq in frames])
+    prof = m.in_shards(shard_frame_profile, lefts, rights, [f * 0.05] * N)
+    m.close()
+    mesh.close()
+    by_card = {}
+    for busy_us, n_launch, c in prof:
+        us, n = by_card.get(c, (0.0, 0))
+        by_card[c] = (us + busy_us, n + n_launch)
+    busy_us, n_launch = sum(p[0] for p in prof), sum(p[1] for p in prof)
+    print(f"split: host {host_ms:.2f} ms per batched frame ({1e3 * N / host_ms:.2f} sequence-frames/s, tracking alone) over "
+          f"{k} shard processes on cards {cards}; device busy {busy_us / 1e3:.3f} ms and {n_launch} kernel records per frame in "
+          f"all; per shard {[(round(p[0] / 1e3, 3), p[1]) for p in prof]}, per card "
           f"{ {c: (round(us / 1e3, 3), n) for c, (us, n) in sorted(by_card.items())} } (ms, launches) on {card}", flush=True)
     print(f"split: one card at N={N} (part d): host {one_card['host_ms_per_frame']:.2f} ms per batched frame "
           f"({1e3 * N / one_card['host_ms_per_frame']:.2f} sequence-frames/s); device busy "
           f"{one_card['device_ms_per_seq_frame'] * N:.3f} ms and {one_card['launches_per_frame']} launches per frame; the "
           f"split's host ms {host_ms / one_card['host_ms_per_frame']:.2f}x", flush=True)
     print(f"split: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return launches
+    return calls_, device
 
 
 # ---- the host surface: settings, the CLI, eval and RPE, map files (phase 21) ----
@@ -3347,22 +3468,10 @@ def bench100_seeds(jobs) -> dict:
     give those). Each child's output is printed; a child that fails, or
     runs past BENCH100_CHILD_S, fails the phase once all have ended.
     Returns {(points, seed, asynchronous): {"ate_rmse", "fps_wall"}}."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    code = "import sys, chip_smoke; sys.exit(chip_smoke.bench100_child())"
-
-    def run(job):
-        try:
-            return subprocess.run([sys.executable, "-c", code, json.dumps(job)], cwd=REPO, capture_output=True, text=True,
-                                  timeout=BENCH100_CHILD_S)
-        except subprocess.TimeoutExpired as e:  # subprocess.run has killed the child
-            return subprocess.CompletedProcess(e.cmd, -9, e.stdout or "", f"stopped after {BENCH100_CHILD_S} s")
-
-    with ThreadPoolExecutor(BENCH100_SLOTS) as pool:
-        done = list(pool.map(run, jobs))
+    done = run_children("bench100_child", [json.dumps(job) for job in jobs], BENCH100_SLOTS, BENCH100_CHILD_S)
     out = {}
     for (tag, points, seed, asynchronous), proc in zip(jobs, done):
-        stdout = proc.stdout if isinstance(proc.stdout, str) else proc.stdout.decode()
+        stdout = proc.stdout
         for line in stdout.strip().splitlines()[:-1]:
             print(line, flush=True)
         if proc.returncode != 0:

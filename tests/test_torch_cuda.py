@@ -1277,8 +1277,8 @@ def test_batched_ba_on_card_matches_single_solves(dev):
 
 
 def _card_meshes():
-    """(cuda:0, cuda:0): two shards and their threads on one card; and every
-    card when there are several."""
+    """(cuda:0, cuda:0): two shard processes on one card; and every card
+    when there are several."""
     from tpuslam_torch.parallel.sharded_ba import DeviceMesh, make_mesh
 
     meshes = [DeviceMesh((torch.device("cuda", 0),) * 2)]
@@ -1299,9 +1299,9 @@ def _pose_gap(T, T_ref):
 def _split_run(mesh, n_seq=4, n_frames=8):
     """MultiTracker over tests/test_parallel.py's 4 synthetic sequences
     (this package's scenes and features), a LocalMapper per sequence on its
-    tracker's device: results per frame and the threads of the batched
-    dispatches."""
-    from tpuslam_torch.backend.mapping import LocalMapper
+    tracker's device (``mapper_cfg``): results per frame and the tracker's
+    ``stats()`` (over a mesh, read from its shard processes)."""
+    from tpuslam_torch.backend.mapping import MapperConfig
     from tpuslam_torch.frontend.frame import FrameFeatures
     from tpuslam_torch.io.synthetic import make_wireframe_scene, synthetic_frame_features
     from tpuslam_torch.parallel import multi_seq as tms
@@ -1310,28 +1310,17 @@ def _split_run(mesh, n_seq=4, n_frames=8):
         make_wireframe_scene(np.random.default_rng(100 + s), n_segments=120, n_frames=n_frames, cam=VGA, motion_scale=0.02)
         for s in range(n_seq)
     ]
-    mt = tms.MultiTracker([VGA] * n_seq, mesh=mesh, device="cuda:0")
-    for tr in mt.trackers:
-        m = LocalMapper(tr.map, VGA, device=tr.device)
-        tr.on_new_keyframe, m.on_map_changed = m.process, tr.invalidate_local_map
-    calls, real = [], tms.batched_track_step
-
-    def counting(*a, **k):
-        calls.append(a[0].device)
-        return real(*a, **k)
-
-    tms.batched_track_step = counting
-    try:
-        res = []
-        for f in range(n_frames):
-            per = [
-                synthetic_frame_features(sc, f, noise_px=0.3, rng=np.random.default_rng(f * 31 + s), with_depth=True, device="cuda:0")[0]
-                for s, sc in enumerate(scenes)
-            ]
-            res.append(mt.track_features(FrameFeatures(*(torch.stack(xs) for xs in zip(*per))), [f * 0.05] * n_seq))
-    finally:
-        tms.batched_track_step = real
-    return res, calls, mt
+    mt = tms.MultiTracker([VGA] * n_seq, mesh=mesh, device="cuda:0", mapper_cfg=MapperConfig())
+    res = []
+    for f in range(n_frames):
+        per = [
+            synthetic_frame_features(sc, f, noise_px=0.3, rng=np.random.default_rng(f * 31 + s), with_depth=True, device="cuda:0")[0]
+            for s, sc in enumerate(scenes)
+        ]
+        res.append(mt.track_features(FrameFeatures(*(torch.stack(xs) for xs in zip(*per))), [f * 0.05] * n_seq))
+    stats = mt.stats()
+    mt.close()
+    return res, stats
 
 
 def test_split_on_card_matches_unsplit(dev):
@@ -1348,7 +1337,7 @@ def test_split_on_card_matches_unsplit(dev):
     from tpuslam_torch.backend.lm import BAProblem, LMConfig
     from tpuslam_torch.parallel.sharded_ba import _toy_problem, batched_ba, stack_problems
 
-    ref, _, _ = _split_run(None)
+    ref, _ = _split_run(None)
     rng = np.random.default_rng(0)
     probs = stack_problems([
         BAProblem(*(x.double() if x.is_floating_point() else x for x in _toy_problem(rng, 16, 256, 1024, VGA, device="cuda:0")))
@@ -1357,15 +1346,16 @@ def test_split_on_card_matches_unsplit(dev):
     ba_ref = batched_ba(probs, VGA, LMConfig(max_iters=4))
     for mesh in _card_meshes():
         k = len(mesh.devices)
-        res, calls, mt = _split_run(mesh)
-        assert len(calls) == k * 7 and set(calls) == set(mesh.devices), calls
-        assert [tr.device for tr in mt.trackers] == [d for d in mesh.devices for _ in range(4 // k)]
+        res, stats = _split_run(mesh)
+        assert [(sh["batched_dispatches"], sh["device"]) for sh in stats["shards"]] == [(7, str(d)) for d in mesh.devices]
+        assert [q["device"] for q in stats["sequences"]] == [str(d) for d in mesh.devices for _ in range(4 // k)]
         for f, (a, b) in enumerate(zip(res, ref)):
             for s in range(4):
                 assert (a[s].state, a[s].made_keyframe) == (b[s].state, b[s].made_keyframe), (mesh, f, s)
                 ang, dist = _pose_gap(a[s].T_cw, b[s].T_cw)
                 assert ang <= 1e-5 and dist <= 1e-4, (mesh, f, s, ang, dist)
         out = batched_ba(probs, VGA, LMConfig(max_iters=4), mesh=mesh)
+        mesh.close()
         for x, y in zip(out, ba_ref):
             assert x.device == mesh.devices[0]
             assert float((x - y).abs().max()) <= 1e-8 + 1e-6 * float(y.abs().max())
@@ -1397,3 +1387,15 @@ def test_kernel_on_a_non_current_card(dev):
         assert y.device == torch.device("cuda", 1), name
         assert torch.equal(x, y.to("cuda:0")), name
     assert torch.equal(blur0, blur1.to("cuda:0"))
+
+
+def test_system_warms_the_loop_on_the_card(dev, monkeypatch):
+    """On the card System(cam) runs the loop warm-up at start by default
+    (its seconds in warm_loop_s), and not under TPUSLAM_WARM_LOOP=0."""
+    from tpuslam_torch.system import System
+
+    monkeypatch.delenv("TPUSLAM_WARM_LOOP", raising=False)
+    s = System(QVGA, device="cuda")
+    assert set(s.warm_loop_s) == {"pose_graph_s", "loop_refine_s"}
+    monkeypatch.setenv("TPUSLAM_WARM_LOOP", "0")
+    assert System(QVGA, device="cuda").warm_loop_s is None

@@ -25,6 +25,23 @@ there; ~6 min):
 
     python tests/test_torch_loop_closing.py
 
+With ``--solver`` both packages keep their solver process on
+(TPUSLAM_BA_SUBPROCESS=1: local BA asynchronous, global BA through the
+solver), and with ``--port`` the port runs instead of the JAX package
+(``System(cam, device="cpu")``, the native map mirror off, ~11 min):
+
+    python tests/test_torch_loop_closing.py --solver
+    python tests/test_torch_loop_closing.py --solver --port
+
+The solver's schedule depends on timing, so run each a few times; each
+run with the solver on prints its local-BA requests' lags, in frames from
+the submit to the poll that got the answer (``LagProbe``). With
+``--lag L`` (and ``--solver``) neither package starts a solver process: a
+stand-in (``FixedLagSolver``) answers each local-BA request at the first
+poll L or more frames after its submit, by the package's own child-side
+solve in this process, and a global-BA solve at once, so that both
+packages run the same schedule.
+
 With ``--replay`` it runs the port on the CPU up to its first closure and
 replays that closure in both packages from the same map (~10 min):
 ``replay_first_closure``.
@@ -504,9 +521,11 @@ def kf_map_ate(slam_map, scene, ate_fn) -> float:
     return float(ate_fn(est, gt, with_scale=False).rmse)
 
 
-def run_jax_loop(frames, scene):
+def run_jax_loop(frames, scene, solver: bool = False, lag=None):
     """The JAX System over the loop sequence, as chip_smoke's loop phase runs
-    the port. Returns (system, [(kid, frame, candidate, pre ATE, post ATE)])."""
+    the port; with ``solver`` its solver process on, or with ``lag`` a
+    :class:`FixedLagSolver` in its place. Returns (system, [(kid, frame,
+    candidate, pre ATE, post ATE)])."""
     from tpuslam.eval.ate import absolute_trajectory_error
     from tpuslam.frontend.points import PointFrontendParams
     from tpuslam.frontend.tracking import TrackerConfig
@@ -518,11 +537,14 @@ def run_jax_loop(frames, scene):
         min_init_lines=8, min_track_matches=6, min_track_inliers=6, max_frames_between_kf=4,
         points=PointFrontendParams(), direct_stereo=DirectStereoParams(max_disp=64.0),
     )
+    loop_env = {**LOOP_ENV, "TPUSLAM_BA_SUBPROCESS": "1" if solver and lag is None else "0"}
     with JaxAsOnTheCard():
-        env = {k: os.environ.get(k) for k in LOOP_ENV}
-        os.environ.update(LOOP_ENV)
+        env = {k: os.environ.get(k) for k in loop_env}
+        os.environ.update(loop_env)
         try:
             s = System(JIntrinsics(*scene.cam), sensor="stereo", mapping=True, loop_closing=True, tracker_cfg=cfg)
+            stub = (_attach(s, LagProbe(s.mapper.solver)) if solver else None) if lag is None else _attach(
+                s, FixedLagSolver(_jax_child_solve(JIntrinsics(*scene.cam)), lag))
             lc, closures = s.loop_closer, []
             inner = lc._close
 
@@ -535,7 +557,10 @@ def run_jax_loop(frames, scene):
 
             lc._close = close
             for f, (il, ir) in enumerate(frames):
+                if stub is not None:
+                    stub.frame = f
                 s.track_stereo(il, ir, f * 0.05)
+                _trace_keyframe(s, scene, f, s.trajectory[-1], absolute_trajectory_error)
             s.shutdown()
         finally:
             for k, v in env.items():
@@ -543,6 +568,137 @@ def run_jax_loop(frames, scene):
                     os.environ.pop(k, None)
                 else:
                     os.environ[k] = v
+    return s, closures
+
+
+class LagProbe:
+    """Passes every call on to the solver process's handle and records, for
+    each local-BA request, the frame of its submit and of the poll that got
+    its answer (``frame`` is set by the caller before each frame)."""
+
+    def __init__(self, inner):
+        self.inner, self.frame, self.at, self.lags = inner, 0, {}, []
+
+    def submit(self, *args, **kwargs):
+        req_id = self.inner.submit(*args, **kwargs)
+        self.at[req_id] = self.frame
+        return req_id
+
+    def poll(self, req_id, timeout=0.0):
+        out = self.inner.poll(req_id, timeout=timeout)
+        if out is not None and req_id in self.at:
+            self.lags.append(self.frame - self.at.pop(req_id))
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+
+class FixedLagSolver:
+    """The solver process's submit / poll / solve in this process on a fixed
+    schedule: a local-BA request answers at the first poll ``lag`` or more
+    frames after its submit (``frame`` is set by the caller before each
+    frame), or at once when the poll waits (a drain); a blocking solve
+    (global BA) answers at once. ``solve(arrays, lm, chi2_line,
+    chi2_point)`` is the package's own child-side solve."""
+
+    def __init__(self, solve, lag: int):
+        self.solve_fn, self.lag, self.frame, self.next_id, self.pending = solve, lag, 0, 0, {}
+
+    def submit(self, arrays, lm, chi2_line, chi2_point):
+        self.next_id += 1
+        self.pending[self.next_id] = (self.frame, (arrays, lm, chi2_line, chi2_point))
+        return self.next_id
+
+    def poll(self, req_id, timeout=0.0):
+        at, args = self.pending[req_id]
+        if timeout <= 0 and self.frame - at < self.lag:
+            return None
+        del self.pending[req_id]
+        return dict(self.solve_fn(*args), solve_ms=1.0, warm=True), None
+
+    def solve(self, arrays, lm, chi2_line, chi2_point, timeout=None):
+        return self.solve_fn(arrays, lm, chi2_line, chi2_point), None
+
+    def restart(self):
+        self.pending.clear()
+
+
+def _attach(s, stub: FixedLagSolver) -> FixedLagSolver:
+    """The System's mapper and loop closer use ``stub`` as their solver."""
+    s.mapper.solver = s.loop_closer.solver = stub
+    return stub
+
+
+def _jax_child_solve(cam):
+    """The JAX solver process's solve (``tpuslam/backend/ba_worker.py``: the
+    arrays as they arrive, float64 ones included, with the masks)."""
+    from tpuslam.backend import local_ba as jlba
+    from tpuslam.backend.lm import BAProblem as JBAProblem
+
+    def solve(arrays, lm, chi2_line, chi2_point):
+        return jlba.solve_in_process(JBAProblem(**arrays), cam, jlba.LocalBAConfig(lm=lm, chi2_line=chi2_line, chi2_point=chi2_point))
+
+    return solve
+
+
+def _trace_keyframe(s, scene, f, r, ate_fn) -> None:
+    """With TPUSLAM_LOOP_TRACE=1, one line per keyframe frame: the map's
+    keyframes, its keyframe-map ATE, loops closed and the mapper's solves."""
+    if os.environ.get("TPUSLAM_LOOP_TRACE") != "1" or not getattr(r, "made_keyframe", False):
+        return
+    mp_ = s.mapper
+    print(f"trace: frame {f} keyframes {len(s.map.keyframes)} KF-map ATE {kf_map_ate(s.map, scene, ate_fn):.5f} m, loops "
+          f"{len(s.loop_closer.closed_loops)}, local BA submitted {getattr(mp_, 'ba_submitted', None)} stale "
+          f"{getattr(mp_, 'ba_stale', None)}", flush=True)
+
+
+def run_port_loop(frames, scene, solver: bool = False, lag=None):
+    """The port's System on the CPU over the loop sequence, as chip_smoke's
+    loop phase builds it (``loop_system``), the native map mirror off; with
+    ``solver`` its solver process on, or with ``lag`` a
+    :class:`FixedLagSolver` in its place. Returns what :func:`run_jax_loop`
+    returns."""
+    from chip_smoke import loop_system
+    from tpuslam_torch import system as tsystem
+    from tpuslam_torch.backend.local_ba import solve_arrays
+    from tpuslam_torch.eval.ate import absolute_trajectory_error
+
+    loop_env = {"TPUSLAM_WARM_LOOP": "0", "TPUSLAM_BA_SUBPROCESS": "1" if solver and lag is None else "0"}
+    env = {k: os.environ.get(k) for k in loop_env}
+    os.environ.update(loop_env)
+    build = tsystem.System
+    try:
+        tsystem.System = lambda *a, **kw: build(*a, **{**kw, "device": "cpu"})
+        with python_graph():
+            s = loop_system(Intrinsics(*scene.cam))
+            cam = Intrinsics(*scene.cam)
+            stub = (_attach(s, LagProbe(s.mapper.solver)) if solver else None) if lag is None else _attach(
+                s, FixedLagSolver(lambda *a: solve_arrays(*a[:1], cam, *a[1:], "cpu"), lag))
+            lc, closures = s.loop_closer, []
+            inner = lc._close
+
+            def close(kf, cand, ev=None):
+                pre = kf_map_ate(s.map, scene, absolute_trajectory_error)
+                ok = inner(kf, cand, ev)
+                if ok:
+                    closures.append((kf.kid, kf.frame_idx, cand, pre, kf_map_ate(s.map, scene, absolute_trajectory_error)))
+                return ok
+
+            lc._close = close
+            for f, (il, ir) in enumerate(frames):
+                if stub is not None:
+                    stub.frame = f
+                s.track_stereo(il, ir, f * 0.05)
+                _trace_keyframe(s, scene, f, s.trajectory[-1], absolute_trajectory_error)
+            s.shutdown()
+    finally:
+        tsystem.System = build
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
     return s, closures
 
 
@@ -679,6 +835,8 @@ def replay_first_closure(frames, scene):
 
 
 if __name__ == "__main__":
+    import time
+
     import jax
     import torch
 
@@ -693,14 +851,30 @@ if __name__ == "__main__":
         sys.exit(0)
 
     from tpuslam.eval.ate import absolute_trajectory_error
-    from tpuslam.frontend.tracking import TrackingState
 
-    s, closures = run_jax_loop(frames, scene)
-    ok = [r for r in s.trajectory if r.state == TrackingState.OK]
+    solver, port = "--solver" in sys.argv, "--port" in sys.argv
+    lag = int(sys.argv[sys.argv.index("--lag") + 1]) if "--lag" in sys.argv else None
+    if port:
+        torch.set_num_threads(4)
+    t0 = time.perf_counter()
+    s, closures = (run_port_loop if port else run_jax_loop)(frames, scene, solver=solver, lag=lag)
+    s_per_frame = (time.perf_counter() - t0) / len(frames)
+    ok = [r for r in s.trajectory if r.state.name == "OK"]
     est = np.stack([np.linalg.inv(r.T_cw)[:3, 3] for r in ok])
     gt = np.stack([np.linalg.inv(scene.poses[r.frame_idx])[:3, 3] for r in ok])
-    print(f"JAX loop run: {len(frames)} frames, OK frames {len(ok)}, keyframes {len(s.map.keyframes)}, "
-          f"loops closed {s.loop_closer.closed_loops}, gba_skipped {s.loop_closer.gba_skipped}", flush=True)
+    mp_ = s.mapper
+    mode = "off" if not solver else "on" if lag is None else f"a stand-in at a fixed lag of {lag} frames"
+    print(f"{'port' if port else 'JAX'} loop run (solver {mode}): {len(frames)} frames, OK frames {len(ok)}, "
+          f"keyframes {len(s.map.keyframes)}, loops closed {s.loop_closer.closed_loops}, gba_skipped "
+          f"{s.loop_closer.gba_skipped}", flush=True)
+    if solver:
+        print(f"local BA: submitted {getattr(mp_, 'ba_submitted', None)}, stale {getattr(mp_, 'ba_stale', None)}, failed "
+              f"{getattr(mp_, 'ba_failed', None)}", flush=True)
+    if isinstance(mp_.solver, LagProbe):
+        lags = np.asarray(mp_.solver.lags)
+        print(f"local BA lags in frames, submit to answer: {len(lags)} answered, median {np.median(lags)!r}, mean "
+              f"{lags.mean()!r}, max {lags.max()!r}, counts {np.bincount(lags).tolist()}; child solve ms median "
+              f"{np.median(mp_.solve_ms)!r}; host s per frame {s_per_frame!r}", flush=True)
     for kid, frame, cand, pre, post in closures:
         print(f"closure: keyframe {kid} (frame {frame}) to {cand}: KF-map ATE {pre!r} -> {post!r} m", flush=True)
     print(f"JAX_LOOP_OK_FRAMES = {len(ok)}", flush=True)

@@ -1,10 +1,12 @@
 """Config #5 split over a mesh (tpuslam_torch.parallel): batched_ba and
 MultiTracker over DeviceMesh((cpu,) * k), k = 2 and 4, on the CPU.
 
-The split cuts the sequence axis into k contiguous shards, each driven by a
-host thread of its own on its device, as the JAX package shards the same
-axis over its 1-D mesh (tests/test_parallel.py holds that on 8 virtual CPU
-devices). Here:
+The split cuts the sequence axis into k contiguous shards, each run in a
+process of its own on its device (``parallel.shard_pool``), as the JAX
+package shards the same axis over its 1-D mesh (tests/test_parallel.py
+holds that on 8 virtual CPU devices). The two meshes' processes start once
+in a module fixture and serve every test here; they end with the module.
+Here:
 
 - ``batched_ba`` split against unsplit, float64 (each problem within 1e-8
   plus 1e-6 relative), and against the JAX package's 8-device mesh in
@@ -17,11 +19,17 @@ devices). Here:
   1e-4 m over 4), and over 4 entries against the JAX
   MultiTracker over ``make_mesh(4)`` (each sequence's ATE within the JAX
   value x 1.05 + 0.01 m; one batched dispatch per shard per steady frame);
-- a shard's exception reaches the caller; a mesh of one entry starts no
-  thread.
+- a shard's exception reaches the caller from its process; a mesh of one
+  entry starts no process; a killed or hung shard process raises in the
+  caller within the pool's timeout; after ``close()`` no shard process is
+  left.
 """
 
+import multiprocessing
+import os
+import signal
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -33,6 +41,7 @@ from tpuslam_torch.backend.lm import BAProblem, LMConfig
 from tpuslam_torch.convert import features_from, mapper_config_from
 from tpuslam_torch.frontend.frame import FrameFeatures
 from tpuslam_torch.parallel import multi_seq as tms
+from tpuslam_torch.parallel import shard_pool as tsp
 from tpuslam_torch.parallel import sharded_ba as tsba
 
 CAM = Intrinsics(fx=458.0, fy=457.0, cx=320.0, cy=240.0, width=640, height=480, baseline=0.11)
@@ -41,6 +50,17 @@ CPU = torch.device("cpu")
 
 def cpu_mesh(k: int) -> tsba.DeviceMesh:
     return tsba.DeviceMesh((CPU,) * k)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def pools():
+    """The shard processes of the 2- and 4-entry CPU meshes, started once
+    and shared by this module's tests; every one ends with the module."""
+    started = {k: tsp.pool_of(cpu_mesh(k)) for k in (2, 4)}
+    yield started
+    for k in started:
+        cpu_mesh(k).close()
+    assert not any(p.is_alive() for pool in started.values() for p in pool._procs)
 
 
 def _jax_cam(c):
@@ -60,16 +80,24 @@ def ba_problems():
     return [tsba._toy_problem(rng, 3, 8, 32, CAM, device="cpu") for _ in range(8)]
 
 
+def _pid(ctx) -> int:
+    return os.getpid()
+
+
 @pytest.mark.parametrize("k", [2, 4])
-def test_batched_ba_split_matches_unsplit(ba_problems, k):
-    """The 8 problems in float64 over k entries against the unsplit call, 4
-    LM iterations (short of convergence, where accept tests tie on
-    rounding): every field of every problem within 1e-8 plus 1e-6 relative,
-    on the mesh's first device and in sequence order."""
+def test_batched_ba_split_matches_unsplit(ba_problems, pools, k):
+    """The 8 problems in float64 over k entries, each shard solved in its
+    own process, against the unsplit call, 4 LM iterations (short of
+    convergence, where accept tests tie on rounding): every field of every
+    problem within 1e-8 plus 1e-6 relative, on the mesh's first device and
+    in sequence order."""
     probs = tsba.stack_problems([BAProblem(*(x.double() if x.is_floating_point() else x for x in p)) for p in ba_problems])
     cfg = LMConfig(max_iters=4)
     ref = tsba.batched_ba(probs, CAM, cfg)
     out = tsba.batched_ba(probs, CAM, cfg, mesh=cpu_mesh(k))
+    assert tsp.pool_of(cpu_mesh(k)) is pools[k]  # the module's processes, not new ones
+    pids = pools[k].run(_pid, [()] * k)
+    assert pids == pools[k].pids and os.getpid() not in pids and len(set(pids)) == k
     for name, a, b in zip(ref._fields, out, ref):
         assert a.shape == b.shape and a.device == CPU, name
         np.testing.assert_allclose(np_of(a), np_of(b), rtol=1e-6, atol=1e-8, err_msg=name)
@@ -148,14 +176,14 @@ def _frame_features(scenes, f):
 
 
 class _Counted:
-    """``module.batched_track_step`` counting its calls (from any thread)."""
+    """The JAX package's ``batched_track_step`` counting its calls."""
 
     def __init__(self, mod):
         self.mod, self.real, self.calls = mod, mod.batched_track_step, []
 
     def __enter__(self):
         def counting(*a, **k):
-            self.calls.append(threading.current_thread().name)
+            self.calls.append(a[0].shape[0])
             return self.real(*a, **k)
 
         self.mod.batched_track_step = counting
@@ -167,27 +195,27 @@ class _Counted:
 
 def port_multi_run(scenes, feats, mesh):
     """This package's MultiTracker (a LocalMapper per sequence on its
-    tracker's device) over the frames' features: (results per frame, the
-    threads that made the batched dispatches, the tracker)."""
+    tracker's device, asked for through ``mapper_cfg``) over the frames'
+    features: (results per frame, its ``stats()`` after the last frame,
+    read from the shard processes over a mesh). The shards' trackers are
+    dropped from their processes before it returns."""
     from tpuslam.backend.mapping import MapperConfig as JMapperConfig
-    from tpuslam_torch.backend.mapping import LocalMapper
 
-    mt = tms.MultiTracker([CAM] * N_SEQ, mesh=mesh, device="cpu")
-    for tr in mt.trackers:
-        m = LocalMapper(tr.map, CAM, mapper_config_from(JMapperConfig()), device=tr.device)
-        tr.on_new_keyframe, m.on_map_changed = m.process, tr.invalidate_local_map
+    mt = tms.MultiTracker([CAM] * N_SEQ, mesh=mesh, device="cpu", mapper_cfg=mapper_config_from(JMapperConfig()))
     res = []
-    with _Counted(tms) as counted:
-        for f in range(N_FRAMES):
-            batch = FrameFeatures(*(torch.stack(xs) for xs in zip(*(features_from(x) for x in feats[f]))))
-            res.append(mt.track_features(batch, [f * 0.05] * N_SEQ))
-    return res, counted.calls, mt
+    for f in range(N_FRAMES):
+        batch = FrameFeatures(*(torch.stack(xs) for xs in zip(*(features_from(x) for x in feats[f]))))
+        res.append(mt.track_features(batch, [f * 0.05] * N_SEQ))
+    stats = mt.stats()
+    mt.close()
+    return res, stats
 
 
 @pytest.fixture(scope="module")
 def multi_runs():
     """The 4 sequences x 8 frames through this package's MultiTracker
-    unsplit and over 2 and 4 CPU entries, and through the JAX package's
+    unsplit and over 2 and 4 CPU entries (the module's shard processes),
+    and through the JAX package's
     over ``make_mesh(4)`` (mappers on, its native mirror off, as the port's
     CPU parity runs take it)."""
     import jax
@@ -212,15 +240,15 @@ def multi_runs():
                 jres.append(jm.track_features(jax.tree.map(lambda *xs: jnp.stack(xs), *feats[f]), [f * 0.05] * N_SEQ))
         for tr in jm.trackers:
             tr.close()
-    runs["jax"] = (jres, counted.calls, jm)
+    runs["jax"] = (jres, counted.calls)
     return scenes, runs
 
 
 @pytest.mark.parametrize("k", [2, 4])
-def test_multi_tracker_split_matches_unsplit(multi_runs, k):
+def test_multi_tracker_split_matches_unsplit(multi_runs, pools, k):
     """Over k entries against the unsplit MultiTracker on identical
-    features: one batched dispatch per shard per steady frame, each from its
-    shard's thread; every sequence's states and keyframes equal every frame.
+    features: one batched dispatch per shard per steady frame, each in its
+    shard's process; every sequence's states and keyframes equal every frame.
     Over 2 entries (shards of 2 rows) the poses are bit-equal to the
     unsplit batch of 4; over 4 entries each shard's batched pose LM runs on
     one row, whose products the CPU's batched kernels round apart from the
@@ -229,11 +257,13 @@ def test_multi_tracker_split_matches_unsplit(multi_runs, k):
     from test_torch_semidirect import _pose_gap
 
     _, runs = multi_runs
-    ref, _, _ = runs[1]
-    res, calls, mt = runs[k]
-    assert len(calls) == k * (N_FRAMES - 1), calls
-    assert sorted(set(calls)) == [f"shard-{s}" for s in range(k)]
-    assert [tr.device for tr in mt.trackers] == [CPU] * N_SEQ
+    ref, ref_stats = runs[1]
+    res, stats = runs[k]
+    assert [sh["batched_dispatches"] for sh in ref_stats["shards"]] == [N_FRAMES - 1]
+    assert [sh["batched_dispatches"] for sh in stats["shards"]] == [N_FRAMES - 1] * k, stats["shards"]
+    assert [sh["pid"] for sh in stats["shards"]] == pools[k].pids
+    assert [q["device"] for q in stats["sequences"]] == ["cpu"] * N_SEQ
+    assert [q["keyframes"] for q in stats["sequences"]] == [q["keyframes"] for q in ref_stats["sequences"]]
     for f, (a, b) in enumerate(zip(res, ref)):
         for s in range(N_SEQ):
             assert (a[s].state, a[s].made_keyframe) == (b[s].state, b[s].made_keyframe), (f, s)
@@ -253,53 +283,67 @@ def test_multi_tracker_split_matches_jax_mesh(multi_runs):
     from test_torch_semidirect import _ate
 
     scenes, runs = multi_runs
-    (res, calls, mt), (jres, jcalls, _) = runs[4], runs["jax"]
-    assert len(calls) == 4 * (N_FRAMES - 1) and len(jcalls) == N_FRAMES - 1
+    (res, stats), (jres, jcalls) = runs[4], runs["jax"]
+    assert [sh["batched_dispatches"] for sh in stats["shards"]] == [N_FRAMES - 1] * 4 and len(jcalls) == N_FRAMES - 1
     assert all(r.state.name == "OK" for rs in res[1:] + jres[1:] for r in rs)
     for s in range(N_SEQ):
         ate, jate = _ate([r[s] for r in res], scenes[s]), _ate([r[s] for r in jres], scenes[s])
         assert ate <= jate * 1.05 + 0.01, (s, ate, jate)
-        d = np.linalg.norm(np.linalg.inv(mt.trackers[s].T_cw)[:3, 3] - np.linalg.inv(scenes[s].poses[N_FRAMES - 1])[:3, 3])
+        T = stats["sequences"][s]["T_cw"]
+        d = np.linalg.norm(np.linalg.inv(T)[:3, 3] - np.linalg.inv(scenes[s].poses[N_FRAMES - 1])[:3, 3])
         assert d < 0.08, (s, d)
 
 
-def test_shard_exception_reaches_caller():
-    """A shard whose work raises: the caller gets that exception, noting
-    the shard, after every shard's thread has ended; the first failing
-    shard's is raised when several fail."""
-    done = []
+def _work(ctx, failing: tuple):
+    """A shard request: raises in the shards ``failing``, else its index."""
+    if ctx.index in failing:
+        raise RuntimeError(f"shard {ctx.index} failed")
+    return ctx.index
 
-    def work(s, dev):
-        if s in (1, 3):
-            raise RuntimeError(f"shard {s} failed")
-        done.append(s)
-        return s
 
+def _cannot_track(*a, **k):
+    raise ValueError("sequence 2 cannot track")
+
+
+def _break_sequence(mt, s: int, seq: int) -> None:
+    """In shard s's process: sequence ``seq``'s tracker fails on its frame."""
+    n = len(mt.trackers)
+    if s * n <= seq < (s + 1) * n:
+        mt.trackers[seq - s * n]._track = _cannot_track
+
+
+def test_shard_exception_reaches_caller(pools):
+    """A shard whose work raises in its process: the caller gets that
+    exception, noting the shard, its device and the shard's traceback,
+    after every shard has answered (the processes serve the next request);
+    the first failing shard's is raised when several fail."""
     with pytest.raises(RuntimeError, match="shard 1 failed") as info:
-        tsba.run_sharded(cpu_mesh(4), work)
-    assert "in shard 1 of 4" in "".join(getattr(info.value, "__notes__", []))
-    assert sorted(done) == [0, 2] and not [t for t in threading.enumerate() if t.name.startswith("shard-")]
+        pools[4].run(_work, [((1, 3),)] * 4)
+    notes = "".join(getattr(info.value, "__notes__", []))
+    assert "in shard 1 of 4, on cpu" in notes and "_work" in notes and "Traceback" in notes
+    assert pools[4].run(_work, [((),)] * 4) == [0, 1, 2, 3]
 
-    # through MultiTracker: shard 1's tracker fails on its frame
+    # through MultiTracker: shard 1's tracker of sequence 2 fails on its frame
     scenes = _scenes()
     mt = tms.MultiTracker([CAM] * N_SEQ, mesh=cpu_mesh(2), device="cpu")
-
-    def broken(*a, **k):
-        raise ValueError("sequence 2 cannot track")
-
-    mt.trackers[2]._track = broken
+    mt.in_shards(_break_sequence, 2)
     feats = FrameFeatures(*(torch.stack(xs) for xs in zip(*(features_from(x) for x in _frame_features(scenes, 0)))))
-    with pytest.raises(ValueError, match="sequence 2 cannot track"):
+    with pytest.raises(ValueError, match="sequence 2 cannot track") as info:
         mt.track_features(feats, [0.0] * N_SEQ)
+    assert "in shard 1 of 2, on cpu" in "".join(getattr(info.value, "__notes__", []))
+    mt.close()
+    with pytest.raises(RuntimeError, match="live in its shard processes"):
+        mt.trackers
 
 
-def test_one_entry_mesh_starts_no_thread(ba_problems, monkeypatch):
-    """A mesh of one entry runs on the calling thread, as with no mesh."""
+def test_one_entry_mesh_starts_no_process(ba_problems, monkeypatch):
+    """A mesh of one entry runs in the calling process, as with no mesh."""
 
-    def no_thread(*a, **k):
-        raise AssertionError("a thread was started")
+    def no_process(*a, **k):
+        raise AssertionError("a shard process was started")
 
-    monkeypatch.setattr(tsba.threading, "Thread", no_thread)
+    monkeypatch.setattr(tsp, "ShardPool", no_process)
+    before = multiprocessing.active_children()
     one = cpu_mesh(1)
     out = tsba.batched_ba(tsba.stack_problems(ba_problems[:2]), CAM, LMConfig(max_iters=1), mesh=one)
     assert tuple(out.cost.shape) == (2,)
@@ -307,3 +351,47 @@ def test_one_entry_mesh_starts_no_thread(ba_problems, monkeypatch):
     scenes = _scenes()[:2]
     feats = FrameFeatures(*(torch.stack(xs) for xs in zip(*(features_from(x) for x in _frame_features(scenes, 0)))))
     assert len(mt.track_features(feats, [0.0, 0.0])) == 2
+    assert mt.stats()["shards"][0]["pid"] == os.getpid()
+    assert multiprocessing.active_children() == before
+
+
+def _sleep(ctx, seconds: float) -> None:
+    time.sleep(seconds)
+
+
+@pytest.mark.parametrize("how", ["killed", "hung"])
+def test_dead_or_hung_shard_raises(how):
+    """A shard process killed during a request, or one that does not answer
+    within the pool's timeout (here 8 s): the caller gets ShardFailed,
+    naming the shard and its device, well before the request would have
+    ended, and the pool ends its other process and refuses further
+    requests."""
+    pool = tsp.ShardPool((CPU, CPU), timeout=8.0)
+    try:
+        if how == "killed":
+            threading.Timer(1.0, os.kill, (pool.pids[1], signal.SIGKILL)).start()
+        t0 = time.monotonic()
+        with pytest.raises(tsp.ShardFailed, match="shard 1" if how == "killed" else "shard 0") as info:
+            pool.run(_sleep, [(0.0 if how == "killed" else 60.0,), (60.0,)])
+        assert time.monotonic() - t0 < 20.0
+        assert ("exited" if how == "killed" else "no answer") in str(info.value) and "on cpu" in str(info.value)
+        assert pool.closed and not any(p.is_alive() for p in pool._procs)
+        with pytest.raises(tsp.ShardFailed, match="closed"):
+            pool.run(_sleep, [(0.0,), (0.0,)])
+    finally:
+        pool.close()
+
+
+def test_close_leaves_no_process():
+    """``DeviceMesh.close()`` ends the mesh's shard processes: none is left
+    alive or unreaped, and the mesh's next use starts new ones."""
+    mesh = tsba.DeviceMesh((CPU, CPU), axis="close")
+    pool = tsp.pool_of(mesh)
+    pids = pool.pids
+    assert pool.run(_work, [((),)] * 2) == [0, 1]
+    mesh.close()
+    assert pool.closed and not any(p.is_alive() for p in pool._procs)
+    assert not {p.pid for p in multiprocessing.active_children()} & set(pids)
+    for pid in pids:
+        with pytest.raises(ProcessLookupError):
+            os.kill(pid, 0)

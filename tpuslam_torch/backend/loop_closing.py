@@ -52,6 +52,10 @@ from tpuslam_torch.slammap.map import KeyFrame, SlamMap
 
 _log = logging.getLogger(__name__)
 
+# the essential graph's smallest padding bucket (poses, edges); larger
+# graphs pad each count to the next power of two above it
+GRAPH_BUCKET = (16, 64)
+
 
 def _db_scores(
     cur_bits: torch.Tensor,  # (K, W) int64 words
@@ -487,13 +491,12 @@ class LoopCloser:
         pose_free = np.ones(P, np.float32)
         pose_free[pos[cand_kid]] = 0.0  # trust the loop side
         pose_free[pos[kids[0]]] = 0.0  # gauge
-        # (P, E) padded to powers of two from 16 and 64: pad poses are the
+        # (P, E) padded to powers of two from GRAPH_BUCKET: pad poses are the
         # identity and fixed, pad edges invalid, both masked exactly
         nE = len(E)
-        Pc = 16
+        Pc, Ec = GRAPH_BUCKET
         while Pc < P:
             Pc *= 2
-        Ec = 64
         while Ec < nE:
             Ec *= 2
         poses_pad = np.tile(np.eye(4, dtype=np.float32), (Pc, 1, 1))

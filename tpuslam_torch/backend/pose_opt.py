@@ -32,9 +32,11 @@ from tpuslam_torch.backend.residuals import (
     point_residuals_and_jacobians,
 )
 from tpuslam_torch.geometry.camera import Intrinsics, project_points
+from tpuslam_torch.geometry.plucker import plucker_retract
 from tpuslam_torch.geometry.se3 import se3_apply, se3_retract
 
 _EPS = 1e-8
+_KLEIN_TOL = 1e-5  # |n.v| / (|n| |v|) beyond float32 rounding: off the Klein quadric
 
 
 class PoseOptConfig(NamedTuple):
@@ -59,6 +61,20 @@ def _family_norm(r: torch.Tensor) -> torch.Tensor:
     """``jnp.linalg.norm(r, -1)`` of an (N, 2) residual matrix: ord -1, the
     smallest column sum of absolute values."""
     return torch.amin(torch.sum(torch.abs(r), dim=0))
+
+
+def _onto_klein_quadric(lines: torch.Tensor) -> torch.Tensor:
+    """The JAX line residual passes each line through the orthonormal round
+    trip, ``plucker_retract(L, 0)``. On a line off the Klein quadric that
+    moves the line, not only its scale; on a line on it (every line the
+    system builds, |n.v| / (|n| |v|) ~1e-7) it changes rounding alone, which
+    the loop configuration amplifies into other keyframes. So the round trip
+    is applied, once (the lines are fixed here), to the lines off the
+    quadric by more than ``_KLEIN_TOL``, and the others keep their bits."""
+    n, v = lines[..., :3], lines[..., 3:]
+    off = torch.abs(torch.sum(n * v, dim=-1)) > _KLEIN_TOL * torch.linalg.norm(n, dim=-1) * torch.linalg.norm(v, dim=-1)
+    ortho = plucker_retract(lines, torch.zeros(lines.shape[:-1] + (4,), dtype=lines.dtype, device=lines.device))
+    return torch.where(off[..., None], ortho, lines)
 
 
 def _huber(sq: torch.Tensor, delta: float) -> torch.Tensor:
@@ -88,6 +104,7 @@ def pose_optimize(
     if hybrid and p_sigma is None:
         p_sigma = torch.ones((points.shape[0],), dtype=dt, device=dev)
     eye6 = torch.eye(6, dtype=dt, device=dev)
+    lines = _onto_klein_quadric(lines)
 
     def whitened(T):
         rl = line_residuals(T, lines, l_endpoints, cam) / l_sigma[:, None]

@@ -89,7 +89,8 @@ def _project(T_cw, L_w, cam):
 def line_residuals(T_cw: torch.Tensor, L_w: torch.Tensor, endpoints: torch.Tensor, cam: Intrinsics) -> torch.Tensor:
     """:func:`line_residual` at zero tangent without the retractions: the
     residual is invariant to the line's scale, which is all the orthonormal
-    round trip changes (for lines that satisfy the Klein constraint)."""
+    round trip changes for lines that satisfy the Klein constraint
+    (``pose_opt.pose_optimize`` applies it once to lines that do not)."""
     return _endpoint_distances(_project(T_cw, L_w, cam)[1], endpoints)[0]
 
 

@@ -84,6 +84,19 @@ def project_points(cam: Intrinsics, pts_c: torch.Tensor) -> torch.Tensor:
     return torch.cat([u, v], dim=-1)
 
 
+def backproject_pixels(cam: Intrinsics, uv: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+    """(..., 2) pixels and (...,) depths -> (..., 3) camera-frame points."""
+    x = (uv[..., 0] - cam.cx) / cam.fx
+    y = (uv[..., 1] - cam.cy) / cam.fy
+    return torch.stack([x * depth, y * depth, depth], dim=-1)
+
+
+def project_plucker_line(cam: Intrinsics, L_c: torch.Tensor) -> torch.Tensor:
+    """Camera-frame Pluecker lines (..., 6) -> image-line coefficients (..., 3)."""
+    KL = line_projection_matrix(cam, L_c.device)
+    return (KL @ L_c[..., :3, None])[..., 0]
+
+
 @functools.lru_cache(maxsize=32)
 def _intrinsic_matrix(cam: Intrinsics, device: str, dtype: torch.dtype) -> torch.Tensor:
     return torch.tensor([[cam.fx, 0.0, cam.cx], [0.0, cam.fy, cam.cy], [0.0, 0.0, 1.0]], dtype=dtype, device=device)

@@ -73,3 +73,23 @@ def plucker_retract(L: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
     U, theta = plucker_to_orthonormal(L)
     U_new = U @ so3_exp(delta[..., :3])
     return orthonormal_to_plucker(U_new, theta + delta[..., 3])
+
+
+def plucker_closest_point(L: torch.Tensor) -> torch.Tensor:
+    """The line's point closest to the origin: (v x n) / |v|^2."""
+    n, v = L[..., :3], L[..., 3:]
+    v2 = torch.sum(v * v, dim=-1, keepdim=True)
+    return torch.linalg.cross(v, n, dim=-1) / torch.clamp(v2, min=_EPS)
+
+
+def plucker_distance_to_origin(L: torch.Tensor) -> torch.Tensor:
+    """|n| / |v|."""
+    n, v = L[..., :3], L[..., 3:]
+    return torch.linalg.norm(n, dim=-1) / torch.clamp(torch.linalg.norm(v, dim=-1), min=_EPS)
+
+
+def plucker_point_at(L: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """The point closest to the origin plus t times the unit direction."""
+    v = L[..., 3:]
+    v_hat = v / torch.clamp(torch.linalg.norm(v, dim=-1, keepdim=True), min=_EPS)
+    return plucker_closest_point(L) + t[..., None] * v_hat

@@ -150,6 +150,16 @@ def se3_orthonormalize(T: torch.Tensor) -> torch.Tensor:
     return _homogeneous(Rn, T[..., :3, 3])
 
 
+def se3_identity(batch_shape=(), dtype=torch.float32, device=None) -> torch.Tensor:
+    """(*batch_shape, 4, 4) identities (a broadcast view of one)."""
+    return torch.eye(4, dtype=dtype, device=device).expand(*tuple(batch_shape), 4, 4)
+
+
+def se3_compose(Ta: torch.Tensor, Tb: torch.Tensor) -> torch.Tensor:
+    """T_a @ T_b (T_b applied first)."""
+    return Ta @ Tb
+
+
 def se3_inverse(T: torch.Tensor) -> torch.Tensor:
     """Inverse of a (..., 4, 4) rigid transform: [[R^T, -R^T t], [0, 1]]."""
     Rt = T[..., :3, :3].transpose(-1, -2)

@@ -87,6 +87,11 @@ def line_ray_endpoints(L: torch.Tensor, rays: torch.Tensor):
     return p02 + t[..., None] * u2, s
 
 
+def stereo_depth_from_disparity(cam: Intrinsics, disparity: torch.Tensor) -> torch.Tensor:
+    """Rectified stereo: z = fx * baseline / d (d at least 1e-6)."""
+    return cam.fx * cam.baseline / torch.clamp(disparity, min=1e-6)
+
+
 def relative_pose(T1_cw: torch.Tensor, T2_cw: torch.Tensor) -> torch.Tensor:
     """T_21, mapping camera-1 coordinates to camera-2 coordinates."""
     return T2_cw @ se3_inverse(T1_cw)

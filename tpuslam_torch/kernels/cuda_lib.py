@@ -13,9 +13,10 @@ on that stream without synchronising, and returns ``cudaGetLastError()``;
 :func:`launch` calls it with the tensor's card as the current device (a CUDA
 launch goes to the calling thread's current device, whatever card the
 pointers and the stream belong to) and raises when that is not 0. The
-wrappers count their calls through :func:`count`, under a lock: the shards of
-a mesh (``parallel``) launch from threads of their own. Nothing here runs at
-import.
+wrappers count their calls through :func:`count`, under a lock, and
+:func:`launch` tallies each call by entry point, device and images
+(``TALLY``: a split's shard process reports its own, ``parallel``). Nothing
+here runs at import.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import os
 import shutil
 import subprocess
 import threading
+from collections import Counter
 from pathlib import Path
 
 import torch
@@ -105,6 +107,7 @@ def build() -> Path:
 
 _LIB_LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()
+TALLY: Counter = Counter()  # (entry point, device, images) -> launch calls
 
 
 def library() -> ctypes.CDLL:
@@ -175,6 +178,8 @@ def launch(entry: str, t: torch.Tensor, what: str, *args) -> None:
     with torch.cuda.device(t.device):
         code = getattr(lib, entry)(*args, stream_of(t))
     check(code, what)
+    with _COUNT_LOCK:
+        TALLY[(entry, str(t.device), t.shape[0] if t.dim() == 3 else 1)] += 1
 
 
 def count(launches: dict, kernel_launches: dict, key: str, n: int) -> None:
@@ -182,6 +187,29 @@ def count(launches: dict, kernel_launches: dict, key: str, n: int) -> None:
     with _COUNT_LOCK:
         launches[key] += 1
         kernel_launches[key] += n
+
+
+def kernel_counts() -> dict:
+    """This process's hand-kernel counters: calls and device launches by
+    wrapper, and launch calls by (C entry point, device, images)."""
+    from tpuslam_torch.kernels import image, lsd
+
+    return {
+        "calls": {**image.LAUNCHES, **lsd.LAUNCHES},
+        "launches": {**image.KERNEL_LAUNCHES, **lsd.KERNEL_LAUNCHES},
+        "entries": dict(TALLY),
+    }
+
+
+def reset_kernel_counts() -> None:
+    """Every counter of :func:`kernel_counts` to 0."""
+    from tpuslam_torch.kernels import image, lsd
+
+    with _COUNT_LOCK:
+        for d in (image.LAUNCHES, lsd.LAUNCHES, image.KERNEL_LAUNCHES, lsd.KERNEL_LAUNCHES):
+            for k in d:
+                d[k] = 0
+        TALLY.clear()
 
 
 BATCH_ENTRY_POINTS = (

@@ -27,9 +27,40 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
     return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
 
 
+def popcount_u32(x: torch.Tensor) -> torch.Tensor:
+    """:func:`popcount32` as int32, the JAX package's result type."""
+    return popcount32(x).to(torch.int32)
+
+
+def unpack_bits(words: torch.Tensor, n_bits: int) -> torch.Tensor:
+    """(K, W) words -> (K, n_bits) float32 in {0, 1}: bit i is bit i % 32
+    of word i // 32."""
+    bit = torch.arange(n_bits, device=words.device)
+    return ((words[:, bit // 32] >> (bit % 32)) & 1).to(torch.float32)
+
+
 def hamming_distance_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """All-pairs Hamming distance, (KA, W) x (KB, W) int64 words -> (KA, KB) int64."""
     return popcount32(a[:, None, :] ^ b[None, :, :]).sum(dim=-1)
+
+
+def hamming_distance_mxu(a: torch.Tensor, b: torch.Tensor, n_bits: int) -> torch.Tensor:
+    """All-pairs Hamming distance as the JAX package's +-1 matmul (its TPU
+    form), float32: the same distances as :func:`hamming_distance_matrix`
+    (integers up to 2^24 are exact in float32)."""
+    sa = unpack_bits(a, n_bits) * 2.0 - 1.0
+    sb = unpack_bits(b, n_bits) * 2.0 - 1.0
+    return 0.5 * (n_bits - sa @ sb.T)
+
+
+def match_topk_database(query_bits: torch.Tensor, db_bits: torch.Tensor, db_valid: torch.Tensor, k: int, n_bits: int = 256):
+    """The k nearest database descriptors of each query: (dist (Q, k)
+    ascending, idx (Q, k)); invalid rows carry a 1e6 penalty. Ties keep the
+    lower index first, as ``jax.lax.top_k`` does."""
+    D = hamming_distance_mxu(query_bits, db_bits, n_bits)
+    D = D + (1.0 - db_valid.to(torch.float32))[None, :] * _PEN
+    dist, idx = torch.sort(D, dim=1, stable=True)
+    return dist[:, :k], idx[:, :k]
 
 
 class MatchResult(NamedTuple):
@@ -133,3 +164,26 @@ def stereo_row_penalty(mid_a, mid_b, max_dy: float, min_disp: float, max_disp: f
         + torch.clamp(disp - max_disp, min=0.0)
     ) * _PEN
 
+
+
+def angle_gate(angles_a: torch.Tensor, angles_b: torch.Tensor, tol: float) -> torch.Tensor:
+    """(KA, KB) bool: the direction-folded angle difference below tol."""
+    return _fold_pi(torch.abs(angles_a[:, None] - angles_b[None, :])) < tol
+
+
+def length_ratio_gate(len_a: torch.Tensor, len_b: torch.Tensor, min_ratio: float) -> torch.Tensor:
+    """(KA, KB) bool: the min/max length ratio above min_ratio."""
+    la, lb = len_a[:, None], len_b[None, :]
+    return torch.minimum(la, lb) / torch.clamp(torch.maximum(la, lb), min=1e-6) > min_ratio
+
+
+def midpoint_radius_gate(mid_a: torch.Tensor, mid_b: torch.Tensor, radius: float) -> torch.Tensor:
+    """(KA, KB) bool: midpoints within radius."""
+    return torch.sum((mid_a[:, None, :] - mid_b[None, :, :]) ** 2, dim=-1) < radius * radius
+
+
+def stereo_row_gate(mid_a, mid_b, max_dy: float, min_disp: float, max_disp: float) -> torch.Tensor:
+    """(KA, KB) bool: the same row band and a disparity in (min_disp, max_disp)."""
+    dy = torch.abs(mid_a[:, None, 1] - mid_b[None, :, 1])
+    disp = mid_a[:, None, 0] - mid_b[None, :, 0]
+    return (dy < max_dy) & (disp > min_disp) & (disp < max_disp)

@@ -10,20 +10,18 @@ fixed-order one-hot products, batched).
 
 The JAX package shards that axis over a 1-D device mesh. Here a
 :class:`DeviceMesh` is a tuple of devices: :func:`shard_slices` cuts a
-leading axis into one contiguous equal shard per entry, in order, and
-:func:`run_sharded` runs one function per shard, each on a host thread of
-its own with its card as the current device (the port is host-bound: one
-thread enqueueing k shards would pay k times the launches). An entry may
-repeat a card: ``DeviceMesh((cuda:0, cuda:0))`` drives the shard code and the
-threads on one card, and shards on one card share its current stream. A mesh
-of one entry runs on the calling thread with no copy. The shards are
-independent, as in the JAX package: no collective runs between them.
+leading axis into one contiguous equal shard per entry, in order, and each
+shard runs in a process of its own on its device (``shard_pool``: the port
+is host-bound, and one interpreter enqueueing k shards would pay k times the
+launches). An entry may repeat a card: ``DeviceMesh((cuda:0, cuda:0))``
+drives the shard processes on one card. A mesh of one entry runs in the
+calling process with no copy. The shards are independent, as in the JAX
+package: no collective runs between them.
 """
 
 from __future__ import annotations
 
-import threading
-from typing import Callable, List, NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,10 +34,17 @@ from tpuslam_torch.geometry.se3 import se3_exp
 
 
 class DeviceMesh(NamedTuple):
-    """The devices a batch is solved on, along one named axis."""
+    """The devices a batch is solved on, along one named axis. A mesh of
+    several entries starts its shard processes at first use
+    (``shard_pool.pool_of``); :meth:`close` ends them."""
 
     devices: Tuple[torch.device, ...]
     axis: str = "seq"
+
+    def close(self) -> None:
+        from tpuslam_torch.parallel.shard_pool import close_pool
+
+        close_pool(self)
 
 
 def make_mesh(n_devices: Optional[int] = None, axis: str = "seq", device="cuda") -> DeviceMesh:
@@ -69,54 +74,35 @@ def shard_slices(n: int, mesh: DeviceMesh) -> List[slice]:
     return [slice(s * step, (s + 1) * step) for s in range(k)]
 
 
-def run_sharded(mesh: DeviceMesh, fn: Callable[[int, torch.device], object]) -> list:
-    """``[fn(s, device) for s, device in enumerate(mesh.devices)]``. With more
-    than one entry each call runs on a thread of its own, its card the
-    thread's current device; every thread is joined, and the first shard's
-    exception (in shard order) is raised here."""
-    if len(mesh.devices) == 1:
-        return [fn(0, mesh.devices[0])]
-    out: list = [None] * len(mesh.devices)
-    errors: list = [None] * len(mesh.devices)
-
-    def shard(s: int, dev: torch.device) -> None:
-        try:
-            if dev.type == "cuda":
-                with torch.cuda.device(dev):
-                    out[s] = fn(s, dev)
-            else:
-                out[s] = fn(s, dev)
-        except BaseException as e:  # noqa: BLE001 -- handed to the caller below
-            errors[s] = e
-
-    threads = [threading.Thread(target=shard, args=(s, d), name=f"shard-{s}") for s, d in enumerate(mesh.devices)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    for s, e in enumerate(errors):
-        if e is not None:
-            e.add_note(f"in shard {s} of {len(errors)}, on {mesh.devices[s]}")
-            raise e
-    return out
-
-
 def batched_ba(probs: BAProblem, cam: Intrinsics, cfg: LMConfig = LMConfig(), mesh: Optional[DeviceMesh] = None) -> BAState:
     """Solve a leading-axis batch of BA problems: ``probs`` fields (B, ...)
     -> BAState fields (B, ...), each problem as ``run_lm`` solves it alone,
     in one set of launches per LM iteration. With a mesh of several entries
-    each shard (:func:`shard_slices`) is solved on its own device by its own
-    thread, every shard enqueued before any result is read; the states come
-    back in sequence order on the mesh's first device."""
-    solve = torch.func.vmap(lambda p: run_lm(p, cam, cfg))
+    each shard (:func:`shard_slices`) goes to its process as numpy and is
+    solved there on its device, every shard sent before any result is read;
+    the states come back in sequence order on the mesh's first device."""
     if mesh is None:
-        return solve(probs)
+        return _solve_batch(probs, cam, cfg)
     if len(mesh.devices) == 1:
-        return solve(BAProblem(*(x.to(mesh.devices[0]) for x in probs)))
+        return _solve_batch(BAProblem(*(x.to(mesh.devices[0]) for x in probs)), cam, cfg)
+    from tpuslam_torch.parallel.shard_pool import pool_of
+
     parts = shard_slices(probs.poses.shape[0], mesh)
-    states = run_sharded(mesh, lambda s, dev: solve(BAProblem(*(x[parts[s]].to(dev) for x in probs))))
+    cam_t = tuple(float(x) for x in cam)
+    states = pool_of(mesh).run(_shard_ba, [(tuple(x[sl].cpu().numpy() for x in probs), cam_t, cfg) for sl in parts])
     first = mesh.devices[0]
-    return BAState(*(torch.cat([st[i].to(first) for st in states]) for i in range(len(BAState._fields))))
+    return BAState(*(torch.cat([torch.from_numpy(st[i]) for st in states]).to(first) for i in range(len(BAState._fields))))
+
+
+def _solve_batch(probs: BAProblem, cam: Intrinsics, cfg: LMConfig) -> BAState:
+    return torch.func.vmap(lambda p: run_lm(p, cam, cfg))(probs)
+
+
+def _shard_ba(ctx, fields: tuple, cam: tuple, cfg: LMConfig) -> tuple:
+    """A shard's part of :func:`batched_ba`, in its process: the problems'
+    numpy fields solved on the shard's device; the state's fields as numpy."""
+    probs = BAProblem(*(torch.from_numpy(a).to(ctx.device) for a in fields))
+    return tuple(x.cpu().numpy() for x in _solve_batch(probs, Intrinsics(*cam), cfg))
 
 
 def _toy_problem(rng: np.random.Generator, P_: int, L: int, OL: int, cam: Intrinsics, device="cuda") -> BAProblem:
@@ -194,15 +180,18 @@ def dryrun(n_devices: int = 1, device="cuda") -> None:
         make_wireframe_scene(np.random.default_rng(100 + s), n_segments=80, n_frames=3, cam=cam, motion_scale=0.01)
         for s in range(B)
     ]
-    mt = MultiTracker([cam] * B, TrackerConfig(local_capacity=256), mesh=mesh)
-    for f in range(3):
-        per = [synthetic_frame_features(scenes[s], f, with_depth=True, device=dev)[0] for s in range(B)]
-        feats = type(per[0])(*(torch.stack(xs) for xs in zip(*per)))
-        rs = mt.track_features(feats, [f * 0.05] * B)
-    if not all(r.state == TrackingState.OK for r in rs):
-        raise RuntimeError(f"dryrun: tracking states {[r.state for r in rs]}")
+    try:
+        mt = MultiTracker([cam] * B, TrackerConfig(local_capacity=256), mesh=mesh)
+        for f in range(3):
+            per = [synthetic_frame_features(scenes[s], f, with_depth=True, device=dev)[0] for s in range(B)]
+            feats = type(per[0])(*(torch.stack(xs) for xs in zip(*per)))
+            rs = mt.track_features(feats, [f * 0.05] * B)
+        if not all(r.state == TrackingState.OK for r in rs):
+            raise RuntimeError(f"dryrun: tracking states {[r.state for r in rs]}")
 
-    probs = stack_problems([_toy_problem(rng, P_=3, L=8, OL=32, cam=cam, device=dev) for _ in range(B)])
-    state = batched_ba(probs, cam, LMConfig(max_iters=3), mesh=mesh)
-    if tuple(state.poses.shape) != (B, 3, 4, 4) or not bool(torch.all(torch.isfinite(state.cost))):
-        raise RuntimeError("dryrun: batched BA gave no finite solution")
+        probs = stack_problems([_toy_problem(rng, P_=3, L=8, OL=32, cam=cam, device=dev) for _ in range(B)])
+        state = batched_ba(probs, cam, LMConfig(max_iters=3), mesh=mesh)
+        if tuple(state.poses.shape) != (B, 3, 4, 4) or not bool(torch.all(torch.isfinite(state.cost))):
+            raise RuntimeError("dryrun: batched BA gave no finite solution")
+    finally:
+        mesh.close()  # the shard processes of a mesh of several cards

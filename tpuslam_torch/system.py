@@ -23,7 +23,10 @@ and global BA). On the card local BA and global BA solve in a persistent
 solver process on the same card (``backend.ba_worker``), local BA
 asynchronously, as the JAX package runs them on its chip; on the CPU they
 solve in this process. TPUSLAM_BA_SUBPROCESS=1 / 0 (the JAX package's
-switch) chooses either way.
+switch) chooses either way. With loop closing the System runs
+``warmup.warm_loop_programs`` at start on the card (TPUSLAM_WARM_LOOP, the
+JAX package's switch; off on the CPU), so that the first closure does not
+pay the solvers' one-time set-up.
 With ``sensor="mono"`` the tracker bootstraps from two views, the mapper
 triangulates new lines and points from two keyframes, and the loop closer
 takes its Sim(3) branch (the scale drifts in mono).
@@ -172,11 +175,20 @@ class System:
         self.tracker.kf_db = self.kf_db  # relocalization
         self.map.on_keyframe_erased = self.kf_db.remove  # culled KFs leave the DB
         self.loop_closer: Optional[LoopCloser] = None
+        self.warm_loop_s: Optional[dict] = None  # warm_loop_programs' seconds, where it ran
         if loop_closing:
             # on the System's own database, which relocalization queries too
             self.loop_closer = LoopCloser(
                 self.map, cam, db=self.kf_db, mono=(sensor == "mono"), solver=self._ba_worker, device=device
             )
+            # the first closure's one-time set-up paid here, at toy size (the
+            # JAX package's policy: on its chip by default, off on the CPU)
+            if os.environ.get("TPUSLAM_WARM_LOOP", "1" if device.type == "cuda" else "0") == "1":
+                from tpuslam_torch.warmup import warm_loop_programs
+
+                self.warm_loop_s = warm_loop_programs(
+                    cam, mono=(sensor == "mono"), refine_cap=self.loop_closer.cfg.refine_cap, device=device
+                )
         self.trajectory: List[FrameResult] = []
         self._log_f = open(log_path, "w") if log_path else None
 
