@@ -223,9 +223,14 @@ first failure and catches nothing):
    noise seeds 0-4 in processes of their own (in phase 22's pool), the median ATE within phase
    22's bound; every run with solves submitted and none failed, abandoned
    or stale; the loop configuration (phase 9's System(cam)) with its
-   solver process: a closure, every global-BA round through the solver in
-   float64, the final keyframe-map ATE within phase 9's bound, the stale
-   solves printed; then one steady chunk's calls of the bench
+   solver process, each local-BA answer written back one frame after its
+   submit (a fixed schedule, as the JAX package's reference ran): the
+   noiseless run in this process and noise seeds 1-4 in processes of
+   their own, each with a closure, every global-BA round through the
+   solver in float64, no local-BA solve assembled before a closure
+   written back after it, and each closure's keyframe-map ATE printed;
+   their median final keyframe-map ATE within phase 9's bound and the
+   JAX package's median x 1.05 + 0.01 m; then one steady chunk's calls of the bench
    configuration under torch.profiler with the solver idle and with two
    toy solves at (24, 1024, 4096) in flight: the tracking chunk's device
    busy ms and wall ms.
@@ -292,6 +297,25 @@ ATE_MARGIN_M = 0.01
 JAX_LOOP_OK_FRAMES = 148
 JAX_LOOP_KF_ATE_M = 0.680995491968856  # rigid ATE of the keyframe map at the end
 LOOP_KF_ATE_FACTOR = 1.05  # the final keyframe-map ATE bound: JAX x 1.05 + ATE_MARGIN_M
+# phase 23's loop with the solver process answers each local-BA request at
+# the first tick LOOP_SOLVER_LAG frames after its submit (waiting there for
+# the solver if need be), the schedule on which tests/torch_loop_lockstep.py's
+# ScheduledSolver runs the JAX package: on the solver's own timing the run
+# is a race between the solve and the host, and one build's runs ended
+# anywhere in 0.21962-0.86288 m on one H100; on the schedule a run repeats
+# bit for bit. Runs on the noiseless frames and on LOOP_SOLVER_SEEDS' noisy
+# ones (noisy_loop_frames), each seed in a process of its own; their median
+# final keyframe-map ATE is held to phase 9's bound and to the JAX
+# package's median on the same frames and schedule x 1.05 + 0.01 m, which
+# `python tests/test_torch_loop_closing.py --solver --lag 1 [--noise K]`
+# prints (noiseless, then seeds 1-4; XLA:CPU; 8, 2, 8, 8 and 3 closures,
+# 61, 52, 57, 63 and 56 keyframes, 148 OK frames each).
+LOOP_SOLVER_LAG = 1
+LOOP_SOLVER_SEEDS = (1, 2, 3, 4)
+JAX_LOOP_LAG1_KF_ATES_M = (
+    1.6076972517527426, 0.5015179755256753, 0.30195258709150974, 0.3385028205710072, 1.856106722685037,
+)
+LOOP_SOLVER_CHILD_S = 600  # the most seconds a seed run may take
 # the mono sequence (`make_mono_frames`: benchmarks/ladder.py's mono_sequence
 # scene at VGA, 30 frames) through tpuslam.system.System(cam, sensor="mono",
 # tracker_cfg=MONO_TRACKER there, mapping and loop closing on), XLA:CPU, cv2
@@ -3407,6 +3431,88 @@ def async_only() -> int:
     return 0
 
 
+def noisy_loop_frames(frames, seed: int):
+    """The loop sequence with one grey level of image noise: -1, 0 or +1 per
+    pixel from ``np.random.default_rng(seed)``, clipped to 0..255, the left
+    then the right image of each frame (as ``tests/test_torch_loop_closing.py
+    --noise K`` forms the JAX package's frames)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def noisy(img):
+        return np.clip(img.astype(np.int16) + rng.integers(-1, 2, img.shape), 0, 255).astype(img.dtype)
+
+    return [(noisy(il), noisy(ir)) for il, ir in frames]
+
+
+def loop_noise_runs(seeds=tuple(range(1, 11))) -> int:
+    """Phase 9's loop configuration (``loop_system``, synchronous, the
+    native mirror off, as main() runs phase 9) over the loop sequence with
+    one grey level of image noise per seed (``noisy_loop_frames``), one run
+    per seed in this process: each run's closures, keyframes, OK frames and
+    final keyframe-map ATE, then the median ATE:
+
+        python3 -c "import sys, chip_smoke; sys.exit(chip_smoke.loop_noise_runs())"
+    """
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script runs on a CUDA device only")
+    card = card_line()
+    from tpuslam_torch.kernels import cuda_lib
+
+    cuda_lib.build()
+    cuda_lib.library()
+    os.environ["TPUSLAM_NATIVE_MAP"] = "0"
+    os.environ.update(SYNC_ENV)
+    cam, scene, frames = make_loop_frames()
+    ates = []
+    for seed in seeds:
+        noisy = noisy_loop_frames(frames, seed)
+        t = time.perf_counter()
+        sys_ = loop_system(cam)
+        for f, (il, ir) in enumerate(noisy):
+            sys_.track_stereo(il, ir, f * 0.05)
+        sys_.shutdown()
+        ok = sum(1 for r in sys_.trajectory if r.state.name == "OK")
+        ates.append(kf_map_ate(sys_.map, scene))
+        print(f"loop noise seed {seed}: {time.perf_counter() - t:.1f} s, OK {ok}, keyframes {len(sys_.map.keyframes)}, loops "
+              f"closed {sys_.loop_closer.closed_loops}, final keyframe-map ATE {ates[-1]!r} m on {card}", flush=True)
+    print(f"loop noise seeds {list(seeds)}: final keyframe-map ATE median {statistics.median(ates)!r} m, "
+          f"{sorted(ates)} on {card}", flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def loop_solver_only(runs: int = 1) -> int:
+    """Phase 23's loop configuration with its solver process
+    (:func:`loop_solver_phase`) alone after the kernel build, ``runs``
+    times in this process:
+
+        python3 -c "import sys, chip_smoke; sys.exit(chip_smoke.loop_solver_only())"
+    """
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script runs on a CUDA device only")
+    card = card_line()
+    from tpuslam_torch.kernels import cuda_lib
+
+    cuda_lib.build()
+    cuda_lib.library()
+    os.environ["TPUSLAM_NATIVE_MAP"] = "1"  # as main() runs phase 23
+    os.environ.update(ASYNC_ENV)
+    for _ in range(runs):
+        loop_solver_phase(card)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def bench_turns(rounds: int = 2) -> int:
     """The lines-only `cli bench --frames 100 --warmup 6` run alone in this
     process, synchronous (SYNC_ENV) and asynchronous (ASYNC_ENV) in turns
@@ -3689,74 +3795,207 @@ def async_profile_phase(card) -> None:
         fail("async profile: a mapper solve failed")
 
 
-def loop_solver_phase(card):
-    """The loop configuration of phase 9 (System(cam) with its defaults) with
-    its solver process: local BA asynchronous, global BA through the
-    solver's blocking solve(); the launch counts set to 0 just before and
-    read just after. At least one closure, every global-BA round through the
-    solver (float64 arrays), the final keyframe-map ATE within phase 9's
-    bound, no failed solve; the stale solves reported. Returns the
-    launches."""
+def loop_solver_run(card, seed=None, count: bool = False) -> dict:
+    """One run of the loop configuration of phase 9 (System(cam) with its
+    defaults) with its solver process over the loop sequence (noisy by
+    ``seed`` when given: noisy_loop_frames): local BA asynchronous, answered
+    at the first tick LOOP_SOLVER_LAG frames after its submit (the solver's
+    real answer, waited for there if it is not in), global BA through the
+    solver's blocking solve(); with ``count`` the launch counts set to 0
+    just before and read just after. Prints the run and each closure's
+    keyframe-map ATE before and after it, and before and after the next
+    local-BA write-back. Fails unless a loop was closed, every global-BA
+    round went through the solver in float64, no local-BA request
+    submitted before a closure was written back after it, the OK frames
+    are within 2 of the JAX package's and no solve failed. Returns the
+    final keyframe-map ATE, closures, keyframes, OK frames, the stale
+    solves and those written back, and with ``count`` the launches."""
     import numpy as np
     import torch
 
+    import tpuslam_torch.backend.mapping as tmapping
+
+    tag = "loop solver" if seed is None else f"loop solver seed {seed}"
     cam, scene, frames = make_loop_frames()
+    if seed is not None:
+        frames = noisy_loop_frames(frames, seed)
     sys_ = loop_system(cam)
     worker = sys_._ba_worker
-    if worker is None or sys_.loop_closer.solver is not worker:
-        fail("loop solver: the System started no solver process, or the loop closer does not use it")
-    worker.wait_ready(300.0)
-    reset_launches()
-    t = time.perf_counter()
-    frame_s = []
-    for f, (il, ir) in enumerate(frames):
-        t1 = time.perf_counter()
-        sys_.track_stereo(il, ir, f * 0.05)
-        torch.cuda.synchronize()
-        frame_s.append(time.perf_counter() - t1)
-    launches = read_launches()
-    sys_.shutdown()
-    wall = time.perf_counter() - t
     lc, mp_ = sys_.loop_closer, sys_.mapper
+    if worker is None or lc.solver is not worker:
+        fail(f"{tag}: the System started no solver process, or the loop closer does not use it")
+    worker.wait_ready(300.0)
+    # each closure's keyframe-map ATE before and after it, and before and
+    # after the first local-BA write-back that follows it (what tracking and
+    # the write-back each did since); each local-BA request's frame and
+    # loops closed at its submit, and its write-backs after a later closure
+    # (the invariant: none, the mapper drops them as ba_stale)
+    closures, at_submit, at_frame, answered, stale_written = [], {}, {}, [], []
+    frame, waited = [0], []
+    inner_close, inner_submit, inner_poll, inner_apply = lc._close, worker.submit, worker.poll, tmapping.apply_result
+
+    def close(kf, cand, ev=None):
+        pre = kf_map_ate(sys_.map, scene)
+        ok = inner_close(kf, cand, ev)
+        if ok:
+            closures.append([kf.kid, kf.frame_idx, cand, pre, kf_map_ate(sys_.map, scene), None])
+        return ok
+
+    def submit(*args, **kwargs):
+        req_id = inner_submit(*args, **kwargs)
+        at_submit[req_id], at_frame[req_id] = len(lc.closed_loops), frame[0]
+        return req_id
+
+    def poll(req_id, timeout=0.0):
+        if req_id in at_frame and timeout <= 0:  # the mapper's tick: the fixed schedule
+            if frame[0] - at_frame[req_id] < LOOP_SOLVER_LAG:
+                return None
+            t = time.perf_counter()
+            out = inner_poll(req_id, timeout=LOOP_SOLVER_CHILD_S)
+            waited.append(time.perf_counter() - t)
+            if out is None:
+                fail(f"{tag}: the solver gave no answer to local-BA request {req_id} in {LOOP_SOLVER_CHILD_S} s")
+        else:  # a drain, or global BA's blocking solve
+            out = inner_poll(req_id, timeout=timeout)
+        if out is not None and req_id in at_submit:
+            answered.append(req_id)
+        return out
+
+    def apply(slam_map, *args, **kwargs):
+        waiting = [c for c in closures if c[5] is None]
+        before = kf_map_ate(slam_map, scene) if waiting else None
+        out = inner_apply(slam_map, *args, **kwargs)
+        if len(lc.closed_loops) > at_submit[answered[-1]]:
+            stale_written.append(answered[-1])
+        for c in waiting:
+            c[5] = (before, kf_map_ate(slam_map, scene))
+        return out
+
+    lc._close, worker.submit, worker.poll, tmapping.apply_result = close, submit, poll, apply
+    try:
+        if count:
+            reset_launches()
+        t = time.perf_counter()
+        frame_s = []
+        for f, (il, ir) in enumerate(frames):
+            frame[0] = f
+            t1 = time.perf_counter()
+            sys_.track_stereo(il, ir, f * 0.05)
+            torch.cuda.synchronize()
+            frame_s.append(time.perf_counter() - t1)
+        launches = read_launches() if count else None
+        sys_.shutdown()
+        wall = time.perf_counter() - t
+    finally:
+        tmapping.apply_result = inner_apply
     traj = sys_.trajectory
     ok = [r for r in traj if r.state.name == "OK"]
     final = kf_map_ate(sys_.map, scene)
-    bound = JAX_LOOP_KF_ATE_M * LOOP_KF_ATE_FACTOR + ATE_MARGIN_M
     kf_s = [dt for r, dt in zip(traj[1:], frame_s[1:]) if r.made_keyframe]
     print(
-        f"loop solver: {len(frames)} frames in {wall:.1f} s, OK {len(ok)} (JAX package {JAX_LOOP_OK_FRAMES}), keyframes "
+        f"{tag}: {len(frames)} frames in {wall:.1f} s, OK {len(ok)} (JAX package {JAX_LOOP_OK_FRAMES}), keyframes "
         f"{len(sys_.map.keyframes)}, loops closed {lc.closed_loops}, gba_skipped {lc.gba_skipped}; final keyframe-map ATE "
-        f"{final:.5f} m, bound {bound:.5f} m; local BA submitted {mp_.ba_submitted}, skipped {mp_.ba_skipped}, resubmitted "
-        f"{mp_.ba_resubmitted}, stale {mp_.ba_stale}, failed {mp_.ba_failed}, warm solves median "
+        f"{final!r} m; local BA submitted {mp_.ba_submitted}, skipped {mp_.ba_skipped}, resubmitted "
+        f"{mp_.ba_resubmitted}, stale {mp_.ba_stale} (written back after a closure: {len(stale_written)}), failed "
+        f"{mp_.ba_failed}, answered at a lag of {LOOP_SOLVER_LAG} frame(s), {sum(w > 1e-3 for w in waited)} of {len(waited)} "
+        f"waited for ({sum(waited) * 1e3:.1f} ms in all); warm solves median "
         f"{statistics.median(mp_.solve_ms) if mp_.solve_ms else float('nan'):.2f} ms, cold {[round(x, 1) for x in mp_.cold_solve_ms]}; "
         f"ms per frame median {statistics.median(frame_s[1:]) * 1e3:.2f}, keyframe frames median "
         f"{statistics.median(kf_s) * 1e3:.2f} on {card}",
         flush=True,
     )
     for rung, ms in mp_.solve_ms_by_rung.items():
-        print(f"loop solver: local BA rung {rung}: {len(ms)} warm solves in the solver process, median {statistics.median(ms):.2f} ms", flush=True)
+        print(f"{tag}: local BA rung {rung}: {len(ms)} warm solves in the solver process, median {statistics.median(ms):.2f} ms", flush=True)
     for ev, rec in zip([e for e in lc.timings if e["closed"]], lc.closures):
         gba = rec.get("gba", {})
         solves = gba.get("solves", [])
-        print(f"loop solver: closure at keyframe {ev['kid']}: global BA {ev.get('global_ba_ms', float('nan')):.2f} ms, rung "
+        print(f"{tag}: closure at keyframe {ev['kid']}: global BA {ev.get('global_ba_ms', float('nan')):.2f} ms, rung "
               f"{gba.get('rung')}, {len(solves)} rounds through the solver ({', '.join(f'{ms:.2f}' for _, _, ms in solves)} ms in "
               f"the child) on {card}", flush=True)
         if not solves or not all(isinstance(a, dict) and a["poses"].dtype == np.float64 for a, _, _ in solves):
-            fail(f"loop solver: the closure at keyframe {ev['kid']} did not solve global BA through the solver in float64")
+            fail(f"{tag}: the closure at keyframe {ev['kid']} did not solve global BA through the solver in float64")
+    for kid, frame_idx, cand, pre, post, after_ba in closures:
+        print(f"{tag}: closure of keyframe {kid} (frame {frame_idx}) to keyframe {cand}: keyframe-map ATE {pre:.5f} -> "
+              f"{post:.5f} m (global BA included); the next local-BA write-back "
+              f"{'none' if after_ba is None else '{:.5f} -> {:.5f} m'.format(*after_ba)}", flush=True)
     if not lc.closed_loops:
-        fail("loop solver: no loop was closed")
-    if not final <= bound:
-        fail(f"loop solver: final keyframe-map ATE {final} m above {bound} m")
+        fail(f"{tag}: no loop was closed")
+    if stale_written:
+        fail(f"{tag}: local-BA requests {stale_written} were assembled before a closure and written back after it")
     if len(ok) < JAX_LOOP_OK_FRAMES - 2:
-        fail(f"loop solver: {len(ok)} OK frames, fewer than the JAX package's {JAX_LOOP_OK_FRAMES} - 2")
+        fail(f"{tag}: {len(ok)} OK frames, fewer than the JAX package's {JAX_LOOP_OK_FRAMES} - 2")
     if mp_.ba_failed or mp_.ba_submitted < 1 or worker.alive:
-        fail(f"loop solver: {mp_.ba_submitted} solves submitted, {mp_.ba_failed} failed; solver alive after shutdown {worker.alive}")
-    calls, device = launches
+        fail(f"{tag}: {mp_.ba_submitted} solves submitted, {mp_.ba_failed} failed; solver alive after shutdown {worker.alive}")
+    return dict(ate=final, closures=len(lc.closed_loops), keyframes=len(sys_.map.keyframes), ok=len(ok),
+                stale=mp_.ba_stale, stale_written=len(stale_written), launches=launches)
+
+
+def loop_solver_child() -> int:
+    """One of phase 23's noisy loop runs with the solver (loop_solver_run)
+    in a process of its own: sys.argv[1] is the noise seed. Its checks hold
+    (a failed one exits 1); prints the run's result as the last line."""
+    seed = int(sys.argv[1])
+    os.environ.update(ASYNC_ENV)
+    os.environ["TPUSLAM_NATIVE_MAP"] = "1"  # as main() runs phase 23
+    from tpuslam_torch.kernels import cuda_lib
+
+    cuda_lib.library()
+    res = loop_solver_run(card_line(), seed=seed)
+    res.pop("launches")
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+def loop_solver_phase(card):
+    """The loop configuration with its solver process (loop_solver_run):
+    the noiseless run in this process with the launch counts, the runs of
+    LOOP_SOLVER_SEEDS meanwhile each in a process of its own (on the fixed
+    schedule a run's result does not depend on its timing); the median
+    final keyframe-map ATE of the five within phase 9's bound and within
+    the JAX package's median on the same frames and schedule x 1.05 +
+    0.01 m. Returns the noiseless run's launches."""
+    import threading
+
+    import torch
+
+    t = time.perf_counter()
+    box = {}
+    pool = threading.Thread(target=lambda: box.update(done=run_children(
+        "loop_solver_child", [str(k) for k in LOOP_SOLVER_SEEDS], len(LOOP_SOLVER_SEEDS), LOOP_SOLVER_CHILD_S)))
+    pool.start()
+    try:
+        res = loop_solver_run(card, count=True)
+    finally:
+        pool.join()
+    runs = [res]
+    for seed, proc in zip(LOOP_SOLVER_SEEDS, box["done"]):
+        for line in proc.stdout.strip().splitlines()[:-1]:
+            print(line, flush=True)
+        if proc.returncode != 0:
+            print(proc.stdout.strip().splitlines()[-1:], proc.stderr[-4000:], flush=True)
+            fail(f"loop solver seed {seed}: its process ended with code {proc.returncode}")
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    ates = [r["ate"] for r in runs]
+    med, jmed = statistics.median(ates), statistics.median(JAX_LOOP_LAG1_KF_ATES_M)
+    bound9 = JAX_LOOP_KF_ATE_M * LOOP_KF_ATE_FACTOR + ATE_MARGIN_M
+    bound = jmed * LOOP_KF_ATE_FACTOR + ATE_MARGIN_M
+    print(f"loop solver: noiseless and noise seeds {list(LOOP_SOLVER_SEEDS)} at a lag of {LOOP_SOLVER_LAG} frame(s): final "
+          f"keyframe-map ATE {ates}, median {med!r} m; closures {[r['closures'] for r in runs]}, keyframes "
+          f"{[r['keyframes'] for r in runs]}, OK frames {[r['ok'] for r in runs]}, stale {[r['stale'] for r in runs]}, written "
+          f"back after a closure {[r['stale_written'] for r in runs]}; the JAX package's {list(JAX_LOOP_LAG1_KF_ATES_M)}, median "
+          f"{jmed!r} m; bounds: phase 9's {bound9:.5f} m, the JAX median's {bound:.5f} m (x {LOOP_KF_ATE_FACTOR} + "
+          f"{ATE_MARGIN_M}); {time.perf_counter() - t:.1f} s on {card}", flush=True)
+    if not med <= bound9:
+        fail(f"loop solver: median final keyframe-map ATE {med} m above phase 9's bound {bound9} m")
+    if not med <= bound:
+        fail(f"loop solver: median final keyframe-map ATE {med} m above {bound} m")
+    calls, device = res["launches"]
     want_lpc = launches_per_call()
     for name in PER_FRAME:
         if calls[name] == 0 or device[name] != calls[name] * want_lpc[name]:
             fail(f"loop solver: {name}: {calls[name]} calls, {device[name]} device launches")
-    return launches
+    torch.cuda.synchronize()
+    return res["launches"]
 
 
 def async_phase(card, sync_cli, sync_hybrid, async_seeds):

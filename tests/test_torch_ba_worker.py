@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_loop_lockstep import jax_solve, rebind_pending_fuse
 from torch_parity import QVGA, np_of, stereo_scene
 from tpuslam_torch import Intrinsics
 from tpuslam_torch.backend import local_ba as tlba
@@ -323,17 +324,6 @@ class Stub:
         return dict(self.solve(*args), solve_ms=1.0, warm=True), None
 
 
-def _jax_solve(cam):
-    from tpuslam.backend import local_ba as jlba
-    from tpuslam.backend.lm import BAProblem as JBAProblem
-
-    def solve(arrays, lm, chi2_line, chi2_point):
-        cfg = jlba.LocalBAConfig(lm=lm, chi2_line=chi2_line, chi2_point=chi2_point)
-        return jlba.solve_in_process(JBAProblem(**arrays), cam, cfg)
-
-    return solve
-
-
 def _port_solve(arrays, lm, chi2_line, chi2_point):
     prob = BAProblem(**{k: torch.from_numpy(v) for k, v in arrays.items()})
     return tlba.solve_in_process(prob, Intrinsics(*LOCK_CAM), tlba.LocalBAConfig(lm=lm, chi2_line=chi2_line, chi2_point=chi2_point))
@@ -369,7 +359,7 @@ def jax_lockstep(fuse_defer: bool, delay_s: float):
         scene = make_wireframe_scene(rng, n_segments=140, n_frames=N_FRAMES, cam=jcam, motion_scale=0.02)
         js = JSystem(jcam, sensor="stereo", loop_closing=False, tracker_cfg=JTrackerConfig(max_frames_between_kf=3),
                      mapper_cfg=JMapperConfig(fuse_defer=fuse_defer, fuse_apply_delay_s=delay_s))
-        stub = Stub(_jax_solve(jcam), n_obs=lambda: np.array(js.map.lines.n_obs))
+        stub = Stub(jax_solve(jcam), n_obs=lambda: np.array(js.map.lines.n_obs))
         jm = js.mapper
         jm.solver = stub
 
@@ -397,13 +387,6 @@ def jax_lockstep(fuse_defer: bool, delay_s: float):
             jm.tick()
         jm.finish()
     return calls, stub.submitted, stub.n_obs_at
-
-
-def _rebind_pending_fuse(mapper, m):
-    """The pending fusion's keyframe, in the map the replay swapped in."""
-    p = mapper._fuse_pending
-    if p is not None and p[0].kid in m.keyframes:
-        mapper._fuse_pending = (m.keyframes[p[0].kid],) + p[1:]
 
 
 def _line_residuals_px(got, want):
@@ -474,7 +457,7 @@ def test_lockstep_matches_jax(fuse_defer, delay_s):
     for i, c in enumerate(calls):
         m = slam_map_from(c["before"])
         mapper.map = m
-        _rebind_pending_fuse(mapper, m)
+        rebind_pending_fuse(mapper, m)
         stub.frame = c["frame"]
         n_applies = len(applies)
         if c["name"] == "process":

@@ -37,16 +37,52 @@ The solver's schedule depends on timing, so run each a few times; each
 run with the solver on prints its local-BA requests' lags, in frames from
 the submit to the poll that got the answer (``LagProbe``). With
 ``--lag L`` (and ``--solver``) neither package starts a solver process: a
-stand-in (``FixedLagSolver``) answers each local-BA request at the first
-poll L or more frames after its submit, by the package's own child-side
-solve in this process, and a global-BA solve at once, so that both
-packages run the same schedule.
+stand-in (``torch_loop_lockstep.ScheduledSolver``) answers each local-BA
+request at the first poll L or more frames after its submit, by the
+package's own child-side solve in this process, and a global-BA solve at
+once, so that both packages run the same schedule.
+
+With ``--no-gba`` the loop closer of either package runs no global BA
+(``LoopConfig.run_global_ba=False``; the essential graph alone corrects the
+map), so that a run with the solver or at a fixed lag compares the packages
+without global BA's float32 / float64 difference; the first line then says
+"global BA off". With ``--gba32`` (and ``--port``) the port's global BA
+solves in float32, as the JAX package's does (``float32_global_ba``; the
+port's library solves it in float64). Each run prints its closures, OK
+frames, keyframes and final keyframe-map ATE:
+
+    python tests/test_torch_loop_closing.py --no-gba --solver --lag 1 [--port]
+    python tests/test_torch_loop_closing.py --solver --lag 1 --port --gba32
+
+With ``--lockstep L`` the JAX System runs the sequence at a fixed lag of L
+frames (global BA on), every mapper and loop-closer call recorded, and the
+port replays each call from the JAX map before it with the JAX answers
+(``lockstep_loop``, tests/torch_loop_lockstep.py; ~15 min). It prints each
+call that parts beyond tests/test_torch_loop_solver.py's bounds, the calls
+and closures held, the local-BA and global-BA problems that part, the
+local-BA write-backs of a window assembled before a closure (in both
+packages), and, for every call that writes back, the keyframe-map ATE after
+each write-back (new keyframe, fusion, local BA, the closure's correction,
+global BA, keyframe cull) in both packages:
+
+    python tests/test_torch_loop_closing.py --lockstep 1
+
+With ``--noise K`` every image first gets one grey level of noise (-1, 0
+or +1 per pixel, seed K: chip_smoke.py's ``noisy_loop_frames``), to
+measure how far either package parts from itself on this sequence, or
+(with ``--solver --lag 1``) to print the JAX references of chip_smoke's
+phase-23 loop (JAX_LOOP_LAG1_KF_ATES_M: noiseless, then seeds 1-4):
+
+    python tests/test_torch_loop_closing.py --noise 1 [--port]
+    python tests/test_torch_loop_closing.py --solver --lag 1 --noise 1
 
 With ``--replay`` it runs the port on the CPU up to its first closure and
 replays that closure in both packages from the same map (~10 min):
 ``replay_first_closure``.
 """
 
+import contextlib
+import dataclasses
 import os
 import sys
 
@@ -56,6 +92,7 @@ if __name__ == "__main__":
 import numpy as np
 import pytest
 
+from torch_loop_lockstep import ScheduledSolver, jax_solve
 from torch_parity import QVGA, JaxAsOnTheCard, python_graph, stereo_scene
 from tpuslam_torch import Intrinsics
 from tpuslam_torch.backend import loop_closing as tlc
@@ -521,11 +558,12 @@ def kf_map_ate(slam_map, scene, ate_fn) -> float:
     return float(ate_fn(est, gt, with_scale=False).rmse)
 
 
-def run_jax_loop(frames, scene, solver: bool = False, lag=None):
+def run_jax_loop(frames, scene, solver: bool = False, lag=None, gba: bool = True):
     """The JAX System over the loop sequence, as chip_smoke's loop phase runs
     the port; with ``solver`` its solver process on, or with ``lag`` a
-    :class:`FixedLagSolver` in its place. Returns (system, [(kid, frame,
-    candidate, pre ATE, post ATE)])."""
+    ``ScheduledSolver`` at that fixed lag in its place; without ``gba``
+    its loop closer runs no global BA. Returns (system, [(kid, frame, candidate, pre ATE,
+    post ATE)])."""
     from tpuslam.eval.ate import absolute_trajectory_error
     from tpuslam.frontend.points import PointFrontendParams
     from tpuslam.frontend.tracking import TrackerConfig
@@ -543,8 +581,9 @@ def run_jax_loop(frames, scene, solver: bool = False, lag=None):
         os.environ.update(loop_env)
         try:
             s = System(JIntrinsics(*scene.cam), sensor="stereo", mapping=True, loop_closing=True, tracker_cfg=cfg)
+            s.loop_closer.cfg = dataclasses.replace(s.loop_closer.cfg, run_global_ba=gba)
             stub = (_attach(s, LagProbe(s.mapper.solver)) if solver else None) if lag is None else _attach(
-                s, FixedLagSolver(_jax_child_solve(JIntrinsics(*scene.cam)), lag))
+                s, ScheduledSolver((lag,), jax_solve(JIntrinsics(*scene.cam))))
             lc, closures = s.loop_closer, []
             inner = lc._close
 
@@ -594,52 +633,10 @@ class LagProbe:
         return getattr(self.inner, name)
 
 
-class FixedLagSolver:
-    """The solver process's submit / poll / solve in this process on a fixed
-    schedule: a local-BA request answers at the first poll ``lag`` or more
-    frames after its submit (``frame`` is set by the caller before each
-    frame), or at once when the poll waits (a drain); a blocking solve
-    (global BA) answers at once. ``solve(arrays, lm, chi2_line,
-    chi2_point)`` is the package's own child-side solve."""
-
-    def __init__(self, solve, lag: int):
-        self.solve_fn, self.lag, self.frame, self.next_id, self.pending = solve, lag, 0, 0, {}
-
-    def submit(self, arrays, lm, chi2_line, chi2_point):
-        self.next_id += 1
-        self.pending[self.next_id] = (self.frame, (arrays, lm, chi2_line, chi2_point))
-        return self.next_id
-
-    def poll(self, req_id, timeout=0.0):
-        at, args = self.pending[req_id]
-        if timeout <= 0 and self.frame - at < self.lag:
-            return None
-        del self.pending[req_id]
-        return dict(self.solve_fn(*args), solve_ms=1.0, warm=True), None
-
-    def solve(self, arrays, lm, chi2_line, chi2_point, timeout=None):
-        return self.solve_fn(arrays, lm, chi2_line, chi2_point), None
-
-    def restart(self):
-        self.pending.clear()
-
-
-def _attach(s, stub: FixedLagSolver) -> FixedLagSolver:
+def _attach(s, stub):
     """The System's mapper and loop closer use ``stub`` as their solver."""
     s.mapper.solver = s.loop_closer.solver = stub
     return stub
-
-
-def _jax_child_solve(cam):
-    """The JAX solver process's solve (``tpuslam/backend/ba_worker.py``: the
-    arrays as they arrive, float64 ones included, with the masks)."""
-    from tpuslam.backend import local_ba as jlba
-    from tpuslam.backend.lm import BAProblem as JBAProblem
-
-    def solve(arrays, lm, chi2_line, chi2_point):
-        return jlba.solve_in_process(JBAProblem(**arrays), cam, jlba.LocalBAConfig(lm=lm, chi2_line=chi2_line, chi2_point=chi2_point))
-
-    return solve
 
 
 def _trace_keyframe(s, scene, f, r, ate_fn) -> None:
@@ -653,12 +650,14 @@ def _trace_keyframe(s, scene, f, r, ate_fn) -> None:
           f"{getattr(mp_, 'ba_stale', None)}", flush=True)
 
 
-def run_port_loop(frames, scene, solver: bool = False, lag=None):
+def run_port_loop(frames, scene, solver: bool = False, lag=None, gba: bool = True, gba32: bool = False):
     """The port's System on the CPU over the loop sequence, as chip_smoke's
     loop phase builds it (``loop_system``), the native map mirror off; with
-    ``solver`` its solver process on, or with ``lag`` a
-    :class:`FixedLagSolver` in its place. Returns what :func:`run_jax_loop`
-    returns."""
+    ``solver`` its solver process on, or with ``lag`` a ``ScheduledSolver``
+    at that fixed lag in its place; without ``gba`` its loop closer runs
+    no global BA, and with ``gba32`` global BA solves in float32, as the
+    JAX package solves it (:func:`float32_global_ba`). Returns what
+    :func:`run_jax_loop` returns."""
     from chip_smoke import loop_system
     from tpuslam_torch import system as tsystem
     from tpuslam_torch.backend.local_ba import solve_arrays
@@ -672,9 +671,10 @@ def run_port_loop(frames, scene, solver: bool = False, lag=None):
         tsystem.System = lambda *a, **kw: build(*a, **{**kw, "device": "cpu"})
         with python_graph():
             s = loop_system(Intrinsics(*scene.cam))
+            s.loop_closer.cfg.run_global_ba = gba
             cam = Intrinsics(*scene.cam)
             stub = (_attach(s, LagProbe(s.mapper.solver)) if solver else None) if lag is None else _attach(
-                s, FixedLagSolver(lambda *a: solve_arrays(*a[:1], cam, *a[1:], "cpu"), lag))
+                s, ScheduledSolver((lag,), lambda *a: solve_arrays(*a[:1], cam, *a[1:], "cpu")))
             lc, closures = s.loop_closer, []
             inner = lc._close
 
@@ -686,12 +686,13 @@ def run_port_loop(frames, scene, solver: bool = False, lag=None):
                 return ok
 
             lc._close = close
-            for f, (il, ir) in enumerate(frames):
-                if stub is not None:
-                    stub.frame = f
-                s.track_stereo(il, ir, f * 0.05)
-                _trace_keyframe(s, scene, f, s.trajectory[-1], absolute_trajectory_error)
-            s.shutdown()
+            with float32_global_ba(gba32):
+                for f, (il, ir) in enumerate(frames):
+                    if stub is not None:
+                        stub.frame = f
+                    s.track_stereo(il, ir, f * 0.05)
+                    _trace_keyframe(s, scene, f, s.trajectory[-1], absolute_trajectory_error)
+                s.shutdown()
     finally:
         tsystem.System = build
         for k, v in env.items():
@@ -700,6 +701,50 @@ def run_port_loop(frames, scene, solver: bool = False, lag=None):
             else:
                 os.environ[k] = v
     return s, closures
+
+
+@contextlib.contextmanager
+def float32_global_ba(on: bool = True):
+    """With ``on``, the port's global BA solves in float32, as the JAX
+    package does: the rounds of ``solve_global`` on the device and the
+    arrays ``solve_global_in`` sends to the solver keep the problem's
+    float32 (the port's library solves in float64)."""
+    from tpuslam_torch.backend import global_ba as tgba
+
+    if not on:
+        yield
+        return
+
+    def solve32(prob, cam, cfg=tgba.GlobalBAConfig(), solves=None):
+        for r in range(1 + max(0, int(cfg.outlier_rounds))):
+            if r:
+                inl_l, inl_p = tgba.chi2_outlier_mask(state, prob, cam, cfg.chi2_line, cfg.chi2_point)
+                prob = prob._replace(poses=state.poses, lines=state.lines, points=state.points,
+                                     l_valid=prob.l_valid * inl_l, p_valid=prob.p_valid * inl_p)
+            state = tgba.run_lm(prob, cam, cfg.lm)
+            if solves is not None:
+                solves.append((prob, state, 0.0))
+        return state
+
+    def solve32_in(solver, prob, cfg=tgba.GlobalBAConfig(), solves=None):
+        arrays = tgba.problem_arrays(prob)
+        for r in range(1 + max(0, int(cfg.outlier_rounds))):
+            if r:
+                arrays = dict(arrays, poses=res["poses"], lines=res["lines"], points=res["points"],
+                              l_valid=arrays["l_valid"] * res["inl_l"], p_valid=arrays["p_valid"] * res["inl_p"])
+            res, err = solver.solve(arrays, cfg.lm, cfg.chi2_line, cfg.chi2_point)
+            if res is None:
+                raise RuntimeError(f"global BA: the BA solver failed: {err}")
+            if solves is not None:
+                solves.append((arrays, res, res.get("solve_ms", 0.0)))
+        return res
+
+    inner = tgba.solve_global, tgba.solve_global_in
+    tgba.solve_global, tgba.solve_global_in = solve32, solve32_in
+    try:
+        yield
+    finally:
+        tgba.solve_global, tgba.solve_global_in = inner
 
 
 class _Closed(Exception):
@@ -834,6 +879,92 @@ def replay_first_closure(frames, scene):
     print(f"after one float32 LM iteration the poses are {float(np.abs(np.asarray(jst.poses) - tst.poses.numpy()).max())!r} apart", flush=True)
 
 
+def lockstep_loop(frames, scene, lag: int):
+    """The JAX System over the loop sequence as :func:`run_jax_loop` runs it
+    at a fixed lag of ``lag`` frames (global BA on, through the stand-in),
+    every mapper and loop-closer call recorded; then each call replayed by
+    the port from the JAX map before it, with the JAX answers
+    (tests/torch_loop_lockstep.py). Prints each call that parts beyond the
+    bounds, the calls and closures held, the local-BA write-backs of a
+    window assembled before a closure (none, in either package), and, for
+    each call that writes back, the keyframe-map ATE after each of its
+    write-backs in both packages."""
+    from torch_loop_lockstep import compare_problems, record_calls, replay
+
+    from tpuslam.frontend.points import PointFrontendParams
+    from tpuslam.frontend.tracking import TrackerConfig
+    from tpuslam.geometry.camera import Intrinsics as JIntrinsics
+    from tpuslam.kernels.stereo_direct import DirectStereoParams
+    from tpuslam.system import System
+    from tpuslam_torch.convert import mapper_config_from
+
+    jcam = JIntrinsics(*scene.cam)
+    cfg = TrackerConfig(
+        min_init_lines=8, min_track_matches=6, min_track_inliers=6, max_frames_between_kf=4,
+        points=PointFrontendParams(), direct_stereo=DirectStereoParams(max_disp=64.0),
+    )
+    gt = lambda f: scene.poses[f]  # noqa: E731
+    with JaxAsOnTheCard():
+        env = {k: os.environ.get(k) for k in LOOP_ENV}
+        os.environ.update(LOOP_ENV)
+        try:
+            s = System(jcam, sensor="stereo", mapping=True, loop_closing=True, tracker_cfg=cfg)
+            stub = ScheduledSolver((lag,), jax_solve(jcam), n_obs=lambda: np.array(s.map.lines.n_obs),
+                                   closures=lambda: len(s.loop_closer.closed_loops))
+            _attach(s, stub)
+            calls, jtrace = record_calls(s, stub, gt)
+            for f, (il, ir) in enumerate(frames):
+                stub.frame = f
+                s.track_stereo(il, ir, f * 0.05)
+            s.shutdown()
+            jtrace.uninstall()
+        finally:
+            for k, v in env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    n_close = sum(1 for c in calls if c["name"] == "close" and c["closed"])
+    print(f"JAX run at a fixed lag of {lag} frames: {len(frames)} frames, {len(calls)} mapper and loop-closer calls, keyframes "
+          f"{len(s.map.keyframes)}, loops closed {s.loop_closer.closed_loops}; local BA submitted {s.mapper.ba_submitted}, "
+          f"skipped {s.mapper.ba_skipped}, resubmitted {s.mapper.ba_resubmitted}, stale {s.mapper.ba_stale}; global-BA rounds "
+          f"{len(stub.global_submitted)}; final KF-map ATE {kf_map_ate(s.map, scene, _port_ate)!r} m", flush=True)
+
+    def show(i, c, parts, writebacks):
+        if parts:
+            print(f"call {i} ({c['name']} of keyframe {c['kid']} at frame {c['frame']}) parts: {parts[:4]}", flush=True)
+        if c["writebacks"] or writebacks:
+            fmt = lambda ev: ", ".join(f"{label} {ate:.5f}" for label, ate in ev)  # noqa: E731
+            extra = f", candidate {c['candidate']}, closed {c['closed']}" if c["name"] == "close" else ""
+            print(f"write-backs, call {i} ({c['name']} of keyframe {c['kid']} at frame {c['frame']}{extra}): KF-map ATE m, "
+                  f"JAX [{fmt(c['writebacks'])}]; port [{fmt(writebacks or [])}]", flush=True)
+
+    parts, tstub, _, ttrace = replay(
+        calls, stub, (lag,), Intrinsics(*scene.cam), mapper_config_from(s.mapper.cfg), loop_config_from(s.loop_closer.cfg),
+        point_slots=cfg.points.max_points, n_obs_at=stub.n_obs_at, gt_pose=gt, on_call=show,
+    )
+    parted = [i for i, p in enumerate(parts) if p]
+    held_close = sum(1 for c, p in zip(calls, parts) if c["name"] == "close" and c["closed"] and not p)
+    print(f"lockstep at lag {lag}: {len(calls) - len(parted)} of {len(calls)} calls held, {held_close} of {n_close} closures; "
+          f"first call that parts: {parted[0] if parted else None}", flush=True)
+    bad = {rid: p for rid in sorted(tstub.submitted) if (p := compare_problems(tstub.submitted[rid], stub.submitted.get(rid, {}), 2e-4))}
+    bad_g = {i: p for i, (a, b) in enumerate(zip(tstub.global_submitted, stub.global_submitted)) if (p := compare_problems(a, b, 1e-3))}
+    print(f"local-BA problems: {len(tstub.submitted)} (JAX {len(stub.submitted)}), parting {bad}; global-BA rounds "
+          f"{len(tstub.global_submitted)} (JAX {len(stub.global_submitted)}), parting {bad_g}", flush=True)
+    gaps = [float(np.abs(np.asarray(a["poses"], np.float64) - b["poses"]).max())
+            for a, b in zip(tstub.global_submitted[::2], stub.global_submitted[::2])]
+    print(f"each closure's essential-graph poses (its first global-BA round), port against JAX, largest difference: {gaps}",
+          flush=True)
+    print(f"local-BA write-backs of a window assembled before a closure: JAX {jtrace.stale_writes(stub)}, port "
+          f"{ttrace.stale_writes(tstub)} (of {len(jtrace.writes)} and {len(ttrace.writes)} write-backs)", flush=True)
+
+
+def _port_ate(est, gt, with_scale=False):
+    from tpuslam_torch.eval.ate import absolute_trajectory_error
+
+    return absolute_trajectory_error(est, gt, with_scale=with_scale)
+
+
 if __name__ == "__main__":
     import time
 
@@ -841,9 +972,15 @@ if __name__ == "__main__":
     import torch
 
     jax.config.update("jax_platforms", "cpu")
-    from chip_smoke import make_loop_frames
+    from chip_smoke import make_loop_frames, noisy_loop_frames
 
     cam, scene, frames = make_loop_frames()
+    if "--noise" in sys.argv:
+        frames = noisy_loop_frames(frames, int(sys.argv[sys.argv.index("--noise") + 1]))
+    if "--lockstep" in sys.argv:
+        torch.set_num_threads(4)
+        lockstep_loop(frames, scene, int(sys.argv[sys.argv.index("--lockstep") + 1]))
+        sys.exit(0)
     if "--replay" in sys.argv:
         torch.set_num_threads(4)
         with JaxAsOnTheCard():
@@ -852,18 +989,21 @@ if __name__ == "__main__":
 
     from tpuslam.eval.ate import absolute_trajectory_error
 
-    solver, port = "--solver" in sys.argv, "--port" in sys.argv
+    solver, port, gba, gba32 = "--solver" in sys.argv, "--port" in sys.argv, "--no-gba" not in sys.argv, "--gba32" in sys.argv
     lag = int(sys.argv[sys.argv.index("--lag") + 1]) if "--lag" in sys.argv else None
     if port:
         torch.set_num_threads(4)
     t0 = time.perf_counter()
-    s, closures = (run_port_loop if port else run_jax_loop)(frames, scene, solver=solver, lag=lag)
+    extra = dict(gba32=gba32) if port else {}
+    s, closures = (run_port_loop if port else run_jax_loop)(frames, scene, solver=solver, lag=lag, gba=gba, **extra)
     s_per_frame = (time.perf_counter() - t0) / len(frames)
     ok = [r for r in s.trajectory if r.state.name == "OK"]
     est = np.stack([np.linalg.inv(r.T_cw)[:3, 3] for r in ok])
     gt = np.stack([np.linalg.inv(scene.poses[r.frame_idx])[:3, 3] for r in ok])
     mp_ = s.mapper
     mode = "off" if not solver else "on" if lag is None else f"a stand-in at a fixed lag of {lag} frames"
+    mode += "" if gba else ", global BA off"
+    mode += ", global BA in float32" if gba32 else ""
     print(f"{'port' if port else 'JAX'} loop run (solver {mode}): {len(frames)} frames, OK frames {len(ok)}, "
           f"keyframes {len(s.map.keyframes)}, loops closed {s.loop_closer.closed_loops}, gba_skipped "
           f"{s.loop_closer.gba_skipped}", flush=True)
