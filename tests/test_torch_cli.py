@@ -128,13 +128,17 @@ def test_saved_map_loads_in_jax(runs):
 
 
 def test_profile_writes_a_trace(runs, tmp_path):
-    """--profile writes a torch.profiler Chrome trace."""
+    """--profile writes a torch.profiler Chrome trace that carries the
+    program's spans (the first frame's: tracking, the mapper's poll, the
+    initial keyframe's local mapping and its stages)."""
     root, _, _, _ = runs
     prof = str(tmp_path / "prof")
     argv = ["run", "--device", "cpu", "--dataset", "synthetic", "--root", root, "--max-frames", "1", "--no-loop", "--profile", prof]
     assert _summary(_main(cli.main, argv))["frames"] == 1
     trace = json.load(open(os.path.join(prof, "trace.json")))
     assert len(trace["traceEvents"]) > 100
+    names = {e.get("name") for e in trace["traceEvents"]}
+    assert {"track", "tick", "local_mapping", "mp.cull", "mp.ba"} <= names
 
 
 def test_device_and_bench(runs, monkeypatch):

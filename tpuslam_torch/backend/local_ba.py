@@ -33,6 +33,7 @@ from tpuslam_torch.device import resolve_device
 from tpuslam_torch.geometry.camera import Intrinsics
 from tpuslam_torch.geometry.plucker import plucker_normalize
 from tpuslam_torch.slammap.map import SlamMap
+from tpuslam_torch.spans import span
 
 
 class LocalBAConfig(NamedTuple):
@@ -426,10 +427,13 @@ def local_bundle_adjustment(
     (assembly excluded, read back included) is appended under the problem's
     (P, L, OL) rung."""
     device = resolve_device(device)
-    prob, ctx = assemble_problem(slam_map, center_kid, cam, cfg, device=device)
-    t0 = time.perf_counter()
-    res = solve_in_process(prob, cam, cfg)  # ends in a read back
-    if solve_ms_by_rung is not None:
-        rung = (prob.poses.shape[0], prob.lines.shape[0], prob.l_pose.shape[0])
-        solve_ms_by_rung.setdefault(rung, []).append((time.perf_counter() - t0) * 1e3)
-    return apply_result(slam_map, cfg, ctx, res)
+    with span("local_ba.assemble"):
+        prob, ctx = assemble_problem(slam_map, center_kid, cam, cfg, device=device)
+    with span("local_ba.solve"):
+        t0 = time.perf_counter()
+        res = solve_in_process(prob, cam, cfg)  # ends in a read back
+        if solve_ms_by_rung is not None:
+            rung = (prob.poses.shape[0], prob.lines.shape[0], prob.l_pose.shape[0])
+            solve_ms_by_rung.setdefault(rung, []).append((time.perf_counter() - t0) * 1e3)
+    with span("local_ba.apply"):
+        return apply_result(slam_map, cfg, ctx, res)

@@ -66,6 +66,7 @@ from tpuslam_torch.kernels.match import (
     midpoint_radius_penalty,
 )
 from tpuslam_torch.slammap.map import KeyFrame, SlamMap, features_to_device, point_features_to_device
+from tpuslam_torch.spans import span
 
 
 @dataclass
@@ -133,7 +134,7 @@ class LocalMapper:
         self._kf_count = 0
         self.last_ba: LocalBAStats | None = None
         self.on_map_changed = None  # callback (e.g. tracker.invalidate_local_map)
-        self.timer = None  # optional StageTimer (System wires its own in)
+        self.timer = None  # StageTimer of the local_mapping and mp.* spans (System wires its own in)
         # the JAX mapper's counters of the asynchronous path, and ba_failed
         self.ba_submitted = 0
         self.ba_skipped = 0  # the solver was busy when a keyframe's window was due
@@ -149,58 +150,56 @@ class LocalMapper:
         self.last_stage_ms = None
 
     def process(self, kf: KeyFrame):
-        _t = time.perf_counter
-        marks = [("start", _t())]
-        self._kf_count += 1
-        self._apply_pending_fuse()
-        marks.append(("mp.fuse_apply", _t()))
-        self._register_recent(kf)
-        self._cull_recent(kf)
-        marks.append(("mp.cull", _t()))
-        if self.mono:
-            self._create_new_maplines(kf)
-            self._create_new_mappoints(kf)
-            marks.append(("mp.triangulate", _t()))
-        if self.cfg.fuse_defer:
-            self._dispatch_fuse_deferred(kf)
-        else:
-            self._fuse_all(kf)
-        marks.append(("mp.fuse_dispatch", _t()))
-        self.map.update_connections(kf)
-        marks.append(("mp.covis", _t()))
-        if self._kf_count % self.cfg.ba_every == 0 and len(self.map.keyframes) >= 2:
-            if self.solver is not None:
-                # apply the previous keyframe's solve if it has finished, then
-                # submit this window; a busy solver skips it (tick() catches up)
-                self._poll_ba(blocking=False)
-                if self._ba_ctx is None:
-                    self._submit_ba(kf.kid)
+        timer = self.timer
+        with span("local_mapping", timer):
+            self._kf_count += 1
+            with span("mp.fuse_apply", timer):
+                self._apply_pending_fuse()
+            with span("mp.cull", timer):
+                self._register_recent(kf)
+                self._cull_recent(kf)
+            if self.mono:
+                with span("mp.triangulate", timer):
+                    self._create_new_maplines(kf)
+                    self._create_new_mappoints(kf)
+            with span("mp.fuse_dispatch", timer):
+                if self.cfg.fuse_defer:
+                    self._dispatch_fuse_deferred(kf)
                 else:
-                    self.ba_skipped += 1
-                    self._ba_want_resubmit = True
-            else:
-                by_rung: Dict[tuple, List[float]] = {}
-                self.last_ba = local_bundle_adjustment(
-                    self.map, kf.kid, self.cam, self.cfg.ba, device=self.device, solve_ms_by_rung=by_rung
-                )
-                for rung, ms in by_rung.items():
-                    self.solve_ms_by_rung.setdefault(rung, []).extend(ms)
-                    self.solve_ms.extend(ms)
-        marks.append(("mp.ba", _t()))
-        if self.cfg.enable_kf_culling:
-            self._cull_keyframes(kf)
-        if self.on_map_changed:
-            self.on_map_changed()
-        marks.append(("mp.kf_cull", _t()))
-        if self.timer is not None:  # System's StageTimer (KF-event wall split)
-            for (_, prev), (name, now) in zip(marks, marks[1:]):
-                self.timer.add(name, now - prev)
+                    self._fuse_all(kf)
+            with span("mp.covis", timer):
+                self.map.update_connections(kf)
+            with span("mp.ba", timer):
+                if self._kf_count % self.cfg.ba_every == 0 and len(self.map.keyframes) >= 2:
+                    if self.solver is not None:
+                        # apply the previous keyframe's solve if it has finished, then
+                        # submit this window; a busy solver skips it (tick() catches up)
+                        self._poll_ba(blocking=False)
+                        if self._ba_ctx is None:
+                            self._submit_ba(kf.kid)
+                        else:
+                            self.ba_skipped += 1
+                            self._ba_want_resubmit = True
+                    else:
+                        by_rung: Dict[tuple, List[float]] = {}
+                        self.last_ba = local_bundle_adjustment(
+                            self.map, kf.kid, self.cam, self.cfg.ba, device=self.device, solve_ms_by_rung=by_rung
+                        )
+                        for rung, ms in by_rung.items():
+                            self.solve_ms_by_rung.setdefault(rung, []).extend(ms)
+                            self.solve_ms.extend(ms)
+            with span("mp.kf_cull", timer):
+                if self.cfg.enable_kf_culling:
+                    self._cull_keyframes(kf)
+                if self.on_map_changed:
+                    self.on_map_changed()
 
     # ---- the asynchronous local BA -----------------------------------------
     def _submit_ba(self, center_kid: int):
         """Assemble the window around ``center_kid`` on the host and submit
         it to the solver (the caller knows it is free)."""
-        prob, ctx = assemble_problem(self.map, center_kid, self.cam, self.cfg.ba, device="cpu")
+        with span("local_ba.assemble"):
+            prob, ctx = assemble_problem(self.map, center_kid, self.cam, self.cfg.ba, device="cpu")
         ctx["generation"] = self.map.generation  # a loop correction before the write-back makes it stale
         ctx["bucket"] = (int(prob.poses.shape[0]), int(prob.lines.shape[0]), int(prob.l_pose.shape[0]))
         ba = self.cfg.ba
@@ -246,7 +245,8 @@ class LocalMapper:
             # assembled before a loop correction: writing it back would undo it
             self.ba_stale += 1
             return
-        self.last_ba = apply_result(self.map, self.cfg.ba, ctx, res)
+        with span("local_ba.apply"):
+            self.last_ba = apply_result(self.map, self.cfg.ba, ctx, res)
         if self.on_map_changed:
             self.on_map_changed()
 

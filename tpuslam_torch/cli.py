@@ -175,7 +175,12 @@ def main(argv=None):
     r.add_argument("--no-loop", action="store_true")
     r.add_argument("--verbose", action="store_true")
     r.add_argument("--plots", default="", help="write trajectory/map PNGs here")
-    r.add_argument("--profile", default="", help="write a torch.profiler Chrome trace (trace.json) of the tracking loop here")
+    r.add_argument(
+        "--profile",
+        default="",
+        help="write a torch.profiler Chrome trace (trace.json) of the tracking loop here, "
+        "with the program's spans of its host stages (track, tick, local_mapping, mp.*, tracking.*, local_ba.*)",
+    )
     r.add_argument("--pipelined", action="store_true", help="one-frame-lagged latency-hiding tracking")
     r.add_argument(
         "--fast",

@@ -111,6 +111,7 @@ from tpuslam_torch.kernels.stereo_direct import (
     inject_coord_scale,
 )
 from tpuslam_torch.slammap.map import KeyFrame, SlamMap
+from tpuslam_torch.spans import span
 
 
 class TrackingState(enum.Enum):
@@ -798,25 +799,26 @@ class Tracker:
         """The classic pipeline's resolve (and ``MultiTracker``'s, with a
         numpy row of the batch it read at once): accept the frame and make
         its keyframe, or go LOST (the pose and the map stay; no fallback)."""
-        packed = _np(packed)
-        n_matches, n_inliers, n_depth = int(packed[16]), int(packed[17]), int(packed[18])
-        made_kf = False
-        if n_inliers >= self.cfg.min_track_inliers:
-            self.state = TrackingState.OK
-            new_T = packed[:16].reshape(4, 4).copy()
-            if self.last_T_cw is not None:
-                self.velocity = (new_T @ np.linalg.inv(self.last_T_cw)).astype(np.float32)
-            self.last_T_cw = new_T
-            self.T_cw = new_T
-            saved, self.frame_idx = self.frame_idx, fidx
-            if self._need_new_keyframe(n_inliers, None, n_depth, stereo=stereo):
-                self._create_keyframe(feats, timestamp, fine, stereo, lids, lvalid)
-                made_kf = True
-            self.frame_idx = saved
-        else:
-            self.state = TrackingState.LOST
-            self.velocity = np.eye(4, dtype=np.float32)
-        return FrameResult(fidx, timestamp, self.T_cw.copy(), self.state, n_matches, n_inliers, made_kf)
+        with span("tracking.resolve"):
+            packed = _np(packed)
+            n_matches, n_inliers, n_depth = int(packed[16]), int(packed[17]), int(packed[18])
+            made_kf = False
+            if n_inliers >= self.cfg.min_track_inliers:
+                self.state = TrackingState.OK
+                new_T = packed[:16].reshape(4, 4).copy()
+                if self.last_T_cw is not None:
+                    self.velocity = (new_T @ np.linalg.inv(self.last_T_cw)).astype(np.float32)
+                self.last_T_cw = new_T
+                self.T_cw = new_T
+                saved, self.frame_idx = self.frame_idx, fidx
+                if self._need_new_keyframe(n_inliers, None, n_depth, stereo=stereo):
+                    self._create_keyframe(feats, timestamp, fine, stereo, lids, lvalid)
+                    made_kf = True
+                self.frame_idx = saved
+            else:
+                self.state = TrackingState.LOST
+                self.velocity = np.eye(4, dtype=np.float32)
+            return FrameResult(fidx, timestamp, self.T_cw.copy(), self.state, n_matches, n_inliers, made_kf)
 
     def _track_frame_sync(self, feats: FrameFeatures, timestamp: float, stereo: bool = True) -> FrameResult:
         self.sync_frames.append(self.frame_idx)
@@ -993,32 +995,33 @@ class Tracker:
         slot match_idx[i]), create landmarks from unmatched stereo-depth
         features (stereo only: new mono landmarks come from the mapper),
         update the covisibility graph and fire on_new_keyframe."""
-        feats, fine, stereo = rec["feats"], rec["fine"], rec["stereo"]
-        if stereo:
-            plucker, ep3d, okf = triangulate_stereo_lines(np.linalg.inv(rec["T_cw"]), feats, self.cam)
-        kf = self.map.new_keyframe(rec["fidx"], rec["ts"], rec["T_cw"], feats, point_features=rec["pf"])
-        match_idx = _np(fine.match_idx)
-        inlier = _np(fine.inlier) > 0.5
-        lids, lvalid = rec["lids"], rec["lvalid"]
-        for i in np.nonzero(inlier & (match_idx >= 0))[0]:
-            lid = int(lids[i])
-            if lvalid[i] and self.map.lines.alive[lid]:
-                slot = int(match_idx[i])
-                if kf.line_ids[slot] < 0:
-                    self.map.lines.add_observation(lid, kf, slot)
-        if stereo:
-            ok = (_np(okf) > 0.5) & (kf.line_ids < 0)
-            self._bind_new_landmarks(kf, _np(plucker), _np(ep3d), ok)
-        self._bind_point_landmarks(kf, rec["pf"], rec["p_match"], rec["plids"], rec["plvalid"], rec["T_cw"], stereo)
-        self.map.update_connections(kf)
-        self.ref_kf = kf.kid
-        n_points = int(np.sum(kf.point_ids >= 0)) if kf.point_ids is not None else 0
-        self.ref_tracked = max(int(np.sum(kf.line_ids >= 0)) + n_points, 1)
-        self.last_kf_frame = max(self.last_kf_frame, rec["fidx"])
-        self._local_dirty = True
-        self._plocal_dirty = True
-        if self.on_new_keyframe:
-            self.on_new_keyframe(kf)
+        with span("tracking.keyframe"):
+            feats, fine, stereo = rec["feats"], rec["fine"], rec["stereo"]
+            if stereo:
+                plucker, ep3d, okf = triangulate_stereo_lines(np.linalg.inv(rec["T_cw"]), feats, self.cam)
+            kf = self.map.new_keyframe(rec["fidx"], rec["ts"], rec["T_cw"], feats, point_features=rec["pf"])
+            match_idx = _np(fine.match_idx)
+            inlier = _np(fine.inlier) > 0.5
+            lids, lvalid = rec["lids"], rec["lvalid"]
+            for i in np.nonzero(inlier & (match_idx >= 0))[0]:
+                lid = int(lids[i])
+                if lvalid[i] and self.map.lines.alive[lid]:
+                    slot = int(match_idx[i])
+                    if kf.line_ids[slot] < 0:
+                        self.map.lines.add_observation(lid, kf, slot)
+            if stereo:
+                ok = (_np(okf) > 0.5) & (kf.line_ids < 0)
+                self._bind_new_landmarks(kf, _np(plucker), _np(ep3d), ok)
+            self._bind_point_landmarks(kf, rec["pf"], rec["p_match"], rec["plids"], rec["plvalid"], rec["T_cw"], stereo)
+            self.map.update_connections(kf)
+            self.ref_kf = kf.kid
+            n_points = int(np.sum(kf.point_ids >= 0)) if kf.point_ids is not None else 0
+            self.ref_tracked = max(int(np.sum(kf.line_ids >= 0)) + n_points, 1)
+            self.last_kf_frame = max(self.last_kf_frame, rec["fidx"])
+            self._local_dirty = True
+            self._plocal_dirty = True
+            if self.on_new_keyframe:
+                self.on_new_keyframe(kf)
 
     def _bind_new_landmarks(self, kf: KeyFrame, plucker, ep3d, ok: np.ndarray):
         bits = kf.features.desc_bits
@@ -1230,12 +1233,13 @@ class Tracker:
     def _local_map_arrays(self):
         if not self._local_dirty and self._local_dev is not None:
             return self._local_dev
-        lids: List[int] = []
-        if self.ref_kf is not None and self.ref_kf in self.map.keyframes:
-            _, lids = self.map.local_window(self.ref_kf, self.cfg.local_window_kfs)
-        lids = [l for l in lids if self.map.lines.alive[l]][: self.cfg.local_capacity]
-        self._local_dev, ids, valid = self._window_arrays(lids)
-        self._local_ids = ids
-        self._local_valid = valid > 0.5
-        self._local_dirty = False
-        return self._local_dev
+        with span("tracking.local_map"):
+            lids: List[int] = []
+            if self.ref_kf is not None and self.ref_kf in self.map.keyframes:
+                _, lids = self.map.local_window(self.ref_kf, self.cfg.local_window_kfs)
+            lids = [l for l in lids if self.map.lines.alive[l]][: self.cfg.local_capacity]
+            self._local_dev, ids, valid = self._window_arrays(lids)
+            self._local_ids = ids
+            self._local_valid = valid > 0.5
+            self._local_dirty = False
+            return self._local_dev

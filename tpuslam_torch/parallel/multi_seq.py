@@ -46,6 +46,7 @@ from tpuslam_torch.geometry.camera import Intrinsics
 from tpuslam_torch.kernels import cuda_lib
 from tpuslam_torch.parallel.sharded_ba import DeviceMesh, shard_slices
 from tpuslam_torch.slammap.map import SlamMap
+from tpuslam_torch.spans import span
 
 
 def batched_extract(imgs: torch.Tensor, params: FrontendParams) -> FrameFeatures:
@@ -182,18 +183,24 @@ class MultiTracker:
         """lefts / rights: (N, H, W) frames. Returns one FrameResult per
         sequence. Each shard uploads its own frames to its device (a process
         shard receives its rows as numpy, uint8 staying uint8)."""
-        if self._pool is not None:
-            rows = [
-                (np.ascontiguousarray(np.stack(lefts[sl])), np.ascontiguousarray(np.stack(rights[sl])),
-                 [float(t) for t in timestamps[sl]])
-                for sl in self.slices
-            ]
-            return [r for rs in self._run(_shard_track_stereo, rows) for r in rs]
-        up = self._trackers[0]._image  # (N, H, W) frames, u8 or f32, as one sequence's
-        fl = batched_extract(up(np.stack(lefts)), self.cfg.frontend)
-        fr = batched_extract(up(np.stack(rights)), self.cfg.frontend)
-        feats = batched_stereo(fl, fr, self._shard.fxb, self.cfg.stereo)
-        return self._track_shard(feats, timestamps)
+        with span("facade.track_stereo"):
+            if self._pool is not None:
+                rows = [
+                    (np.ascontiguousarray(np.stack(lefts[sl])), np.ascontiguousarray(np.stack(rights[sl])),
+                     [float(t) for t in timestamps[sl]])
+                    for sl in self.slices
+                ]
+                return [r for rs in self._run(_shard_track_stereo, rows) for r in rs]
+            up = self._trackers[0]._image  # (N, H, W) frames, u8 or f32, as one sequence's
+            fe = []
+            for frames in (lefts, rights):
+                with span("frontend.upload"):
+                    imgs = up(np.stack(frames))
+                with span("frontend.extract"):
+                    fe.append(batched_extract(imgs, self.cfg.frontend))
+            with span("frontend.stereo"):
+                feats = batched_stereo(fe[0], fe[1], self._shard.fxb, self.cfg.stereo)
+            return self._track_shard(feats, timestamps)
 
     def track_features(self, feats, timestamps: Sequence[float]):
         """Track one batched-feature frame per sequence: ``feats`` with a
@@ -258,18 +265,20 @@ class MultiTracker:
         feat_i = lambda i: FrameFeatures(*(x[i] for x in feats))  # noqa: E731
 
         if steady:
-            T_pred = np.stack([
-                (tr.velocity @ tr.last_T_cw).astype(np.float32) if tr.last_T_cw is not None else np.eye(4, dtype=np.float32)
-                for tr in trackers
-            ])
-            locs = [tr._local_map_arrays() for tr in trackers]
-            stackk = lambda k: torch.stack([loc[k] for loc in locs])  # noqa: E731
-            self.batched_dispatches += 1
-            pose_b, midx_b, inl_b, nm_b, ni_b, packed_b = batched_track_step(
-                trackers[0]._to_device(T_pred), stackk("plucker"), stackk("ep3d"), stackk("bits"),
-                stackk("valid"), feats, sh.cam_b, self.cfg.search_coarse, self.cfg.search_fine, self.cfg.pose_opt,
-            )
-            packed = packed_b.cpu().numpy()  # one host read for the shard's batch
+            with span("tracking.track_step"):  # the step's inputs (local maps rebuilt where stale) and its enqueue
+                T_pred = np.stack([
+                    (tr.velocity @ tr.last_T_cw).astype(np.float32) if tr.last_T_cw is not None else np.eye(4, dtype=np.float32)
+                    for tr in trackers
+                ])
+                locs = [tr._local_map_arrays() for tr in trackers]
+                stackk = lambda k: torch.stack([loc[k] for loc in locs])  # noqa: E731
+                self.batched_dispatches += 1
+                pose_b, midx_b, inl_b, nm_b, ni_b, packed_b = batched_track_step(
+                    trackers[0]._to_device(T_pred), stackk("plucker"), stackk("ep3d"), stackk("bits"),
+                    stackk("valid"), feats, sh.cam_b, self.cfg.search_coarse, self.cfg.search_fine, self.cfg.pose_opt,
+                )
+            with span("tracking.read_packed"):
+                packed = packed_b.cpu().numpy()  # one host read for the shard's batch
             for i in steady:
                 tr = trackers[i]
                 fine_i = TrackStepResult(pose_b[i], midx_b[i], inl_b[i], nm_b[i], ni_b[i])

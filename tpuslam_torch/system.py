@@ -36,7 +36,6 @@ from __future__ import annotations
 
 import json
 import os
-import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -51,11 +50,13 @@ from tpuslam_torch.io.config import Settings
 from tpuslam_torch.io.trajectory import save_trajectory_kitti, save_trajectory_tum
 from tpuslam_torch.slammap.map import SlamMap
 from tpuslam_torch.slammap.serialize import load_map, save_map
+from tpuslam_torch.spans import span
 
 
 @dataclass
 class StageTimer:
-    """Warmup-aware per-stage wall timing."""
+    """Warmup-aware per-stage wall timing: the in-memory record of the
+    spans (``spans.span``) given it as their timer."""
 
     warmup: int = 2
     times: Dict[str, List[float]] = field(default_factory=dict)
@@ -167,7 +168,7 @@ class System:
             self.mapper = LocalMapper(
                 self.map, cam, mapper_cfg or MapperConfig(), mono=(sensor == "mono"), solver=self._ba_worker, device=device
             )
-            self.mapper.timer = self.timer  # KF-event wall split (mp.* stages)
+            self.mapper.timer = self.timer  # local_mapping and its mp.* stages
             self.tracker.on_new_keyframe = self._on_new_keyframe
             self.mapper.on_map_changed = self.tracker.invalidate_local_map
         # with hybrid points a database row carries the corners' BRIEF words too
@@ -193,15 +194,12 @@ class System:
         self._log_f = open(log_path, "w") if log_path else None
 
     def _on_new_keyframe(self, kf):
-        t0 = time.perf_counter()
         self.mapper.process(kf)
-        self.timer.add("local_mapping", time.perf_counter() - t0)
         if self.loop_closer is None:
             self.kf_db.add(kf)  # no loop closer: the database serves relocalization
             return
-        t0 = time.perf_counter()
-        corrected = self.loop_closer.process(kf)  # adds kf to the database
-        self.timer.add("loop_closing", time.perf_counter() - t0)
+        with span("loop_closing", self.timer):
+            corrected = self.loop_closer.process(kf)  # adds kf to the database
         if corrected:
             self.tracker.invalidate_local_map()
             # track on from the corrected pose, not the pre-correction chain
@@ -230,17 +228,14 @@ class System:
     def track_stereo(self, img_left, img_right, timestamp: float) -> np.ndarray:
         """Track one frame; returns the tracker's newest resolved pose (in
         pipelined mode that of an earlier frame)."""
-        t0 = time.perf_counter()
-        r = self.tracker.track_stereo(img_left, img_right, timestamp)
-        dt = time.perf_counter() - t0
-        self.timer.add("track", dt)
+        with span("track", self.timer) as s:
+            r = self.tracker.track_stereo(img_left, img_right, timestamp)
         if self.mapper is not None:  # between-KF poll, as the JAX System does
-            t1 = time.perf_counter()
-            self.mapper.tick()
-            self.timer.add("tick", time.perf_counter() - t1)
+            with span("tick", self.timer):
+                self.mapper.tick()
         if r is not None:  # pipelined mode resolves a chunk later
             self.trajectory.append(r)
-            self._log(r, dt)
+            self._log(r, s.seconds)
         for extra in self.tracker.pop_results():  # a resolve can complete several frames
             self.trajectory.append(extra)
             self._log(extra, 0.0)
@@ -249,15 +244,14 @@ class System:
     def track_monocular(self, img, timestamp: float) -> np.ndarray:
         """Track one monocular frame; returns the tracker's pose (pipelined,
         that of the frame before)."""
-        t0 = time.perf_counter()
-        r = self.tracker.track_monocular(img, timestamp)
-        dt = time.perf_counter() - t0
-        self.timer.add("track", dt)
+        with span("track", self.timer) as s:
+            r = self.tracker.track_monocular(img, timestamp)
         if self.mapper is not None:
-            self.mapper.tick()
+            with span("tick", self.timer):
+                self.mapper.tick()
         if r is not None:  # the classic pipeline resolves a frame later
             self.trajectory.append(r)
-            self._log(r, dt)
+            self._log(r, s.seconds)
         return np.asarray(self.tracker.T_cw)
 
     def track_frame(self, images, timestamp: float) -> np.ndarray:
